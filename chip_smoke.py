@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the script with a nonzero exit before the last
+line):
+
+1. The card: its `nvidia-smi` name and power limit, and the fp32
+   matmul settings (TF32 off, stated).
+2. The build: nvcc compiles every kernel source in
+   `src/repro_torch/kernels/csrc/` in parallel; the `-Xptxas -v` report
+   (registers, shared memory, spills) is printed per kernel.
+3. Each CUDA kernel against its plain PyTorch version on the card, at
+   the shapes the main path gives it, with the tolerance stated; then
+   its time (CUDA events over warm launches), its bound, the plain
+   version's time and the time of one library call that computes the
+   same function (timed here only; the port never calls it).
+4. The main path at the paper's size: `launch/msc_run.py` at m = 1000
+   (the 4 GB fp32 tensor of Fig. 6), γ = 1000, seed 0, the CLI's
+   default ε — flat+kernels in fp32 and bf16_fp32, sequential+kernels
+   in fp32, and the einsum path in fp32 as this run's oracle.  Requires
+   identical fp32 masks, sweeps equal or one gate chunk apart, finite
+   d, and every kernel launched by the flat+kernels fp32 run; then one
+   flat+kernels fp32 run at γ = 10000 must recover the planted cluster
+   (rec=1.000).
+
+The second-to-last line is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
+outside a checkout of the repository, it exits nonzero and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+
+# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+M, GAMMA, SEED = 1000, 1000.0, 0
+# signal weight of the recovery run: at γ = m = 1000 every path, the
+# einsum oracle included, trims the planted cluster below its size (the
+# spread of d over the cluster exceeds Theorem II.1's bound); at
+# γ = 10 m the spread shrinks below it (PERF.md, Findings)
+GAMMA_RECOVERY = 10000.0
+DEVICE = "cuda"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(torch, fn, reps, warmup=2):
+    """Mean milliseconds per call over `reps` warm calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes, flops, dtype):
+    """(least time in ms, "bytes" | "operations") at the published peaks."""
+    t_mem = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+class Checks:
+    """Kernel-against-plain comparisons; failures are collected."""
+
+    def __init__(self):
+        self.failures = []
+        self.max_abs = {}
+
+    def compare(self, kernel, label, got, want, tol, scales=None):
+        """Each output's max |kernel − plain| must be within tol of its
+        scale: the largest |plain| entry, or the given scale."""
+        import torch
+
+        errs = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            g, w = g.double(), w.double()
+            scale = w.abs().max().item() if scales is None or \
+                scales[i] is None else scales[i]
+            errs.append(((g - w).abs().max().item(), scale))
+        max_abs = max(e for e, _ in errs)
+        rel = max(e / max(s, 1e-30) for e, s in errs)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        ok = finite and rel <= tol
+        self.max_abs[kernel] = max(self.max_abs.get(kernel, 0.0), max_abs)
+        log(f"  {'ok  ' if ok else 'FAIL'} {label}: max_abs_err={max_abs:.3e} "
+            f"rel={rel:.3e} (tol {tol:g} of the scale)")
+        if not ok:
+            self.failures.append(f"{label}: rel {rel:.3e} > {tol:g} or "
+                                 "non-finite")
+
+
+def phase_card(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device: {torch.cuda.get_device_name(0)} "
+        f"count={torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} "
+        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"build: {len(built)} libraries in {time.perf_counter() - t0:.2f} s "
+        f"(wall, nvcc in parallel)")
+    keep = ("Compiling entry function", "Function properties", "spill",
+            "Used")
+    for b in built.values():
+        log(f"  {b.name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
+        for line in b.ptxas.splitlines():
+            if any(k in line for k in keep):
+                log(f"    {line.strip()}")
+
+
+def phase_kernels(torch, checks):
+    """Each kernel against its plain version; returns the timing rows."""
+    from repro_torch.kernels import power_iter as kpi
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ring as kring
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    log("kernels against plain versions (tolerance relative to the largest "
+        "plain entry: fp32 1e-4 for sums in another order; bf16 3e-2, since "
+        "a sum on the other side of a bf16 rounding moves an operand by "
+        "2^-8 and later sweeps carry it on)")
+
+    # ---- power_iter: slices (1000, 1000, 1000), the main path's mode slices
+    b = r = c = M
+    t32 = torch.randn((b, r, c), generator=gen, device=dev)
+    v0 = torch.randn((b, c), generator=gen, device=dev)
+    v0 /= v0.norm(dim=-1, keepdim=True)
+    k = 6
+
+    def chunk(label, s, v):
+        # resid = ‖w − λv‖ is rounding noise on a converged slice: it is
+        # held to the scale of λ
+        plain = ref.power_iterate_chunk(s, v, k)
+        checks.compare("power_iter", f"power_iterate_chunk k={k} {label}",
+                       kpi.power_iterate_chunk(s, v, k), plain,
+                       tol[s.dtype], [None, None, plain[1].abs().max().item()])
+
+    for dt in (torch.float32, torch.bfloat16):
+        s = t32.to(dt)
+        name = str(dt).split(".")[-1]
+        chunk(f"{name} {tuple(s.shape)}", s, v0)
+        checks.compare("power_iter", f"power_iterate n=60+lambda {name} "
+                       f"{tuple(s.shape)}", kpi.power_iterate(s, v0, 60),
+                       ref.power_iterate(s, v0, 60), tol[dt])
+        checks.compare("power_iter", f"power_matvec {name} {tuple(s.shape)}",
+                       (kpi.power_matvec(s, v0),), (ref.power_matvec(s, v0),),
+                       tol[dt])
+        elt = s.element_size()
+        n_bytes = b * r * c * elt + 2 * b * c * 4 + 2 * b * 4
+        flops = 4 * b * r * c * k
+        bms, by = bound_ms(n_bytes, flops, name)
+        def library():  # two torch.bmm per sweep, operands in dtype dt
+            v = v0.to(dt)
+            for _ in range(k):
+                tv = torch.bmm(s, v.unsqueeze(-1))
+                v = torch.bmm(tv.transpose(1, 2), s).squeeze(1)
+            return v
+
+        row = {
+            "ms": cuda_ms(torch, lambda: kpi.power_iterate_chunk(s, v0, k), 5),
+            "plain_ms": cuda_ms(
+                torch, lambda: ref.power_iterate_chunk(s, v0, k), 3, 1),
+            "library_ms": cuda_ms(torch, library, 3, 1),
+            "bound_ms": bms, "bound_by": by,
+            "sweep_bound_ms": k * b * r * c * elt / HBM_BYTES_PER_S * 1e3,
+        }
+        rows[("power_iter", name)] = row
+        log(f"  time power_iterate_chunk k={k} {name}: kernel "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+            f"(2 torch.bmm per sweep) {row['library_ms']:.3f} ms, bound "
+            f"{bms:.3f} ms ({by}; T read once), streaming bound "
+            f"{row['sweep_bound_ms']:.3f} ms (T read once per sweep)")
+        del s
+    del t32
+    torch.cuda.empty_cache()
+
+    # ragged: r and c not multiples of any tile, tile rows cut mid-slice
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((37, 1003, 301), generator=gen, device=dev).to(dt)
+        v = torch.randn((37, 301), generator=gen, device=dev)
+        v /= v.norm(dim=-1, keepdim=True)
+        name = str(dt).split(".")[-1]
+        chunk(f"{name} (37, 1003, 301)", x, v)
+        checks.compare("power_iter", f"power_matvec {name} (37, 1003, 301)",
+                       (kpi.power_matvec(x, v),), (ref.power_matvec(x, v),),
+                       tol[dt])
+
+    # ---- abs_rowsum: V (1000, 1000) against itself, the flat epilogue
+    cases = [((M, M), (M, M)), ((4, 300, 257), (4, 300, 257)),
+             ((77, 301), (1003, 301))]
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        for sa, sb in cases:
+            a = torch.randn(sa, generator=gen, device=dev).to(dt)
+            bb = torch.randn(sb, generator=gen, device=dev).to(dt)
+            acc = torch.rand(sa[:-1], generator=gen, device=dev)
+            for ac in (None, acc):
+                checks.compare("abs_rowsum", f"abs_rowsum {name} {sa}x{sb} "
+                               f"acc={'yes' if ac is not None else 'no'}",
+                               (kring.abs_rowsum(a, bb, ac),),
+                               (ref.abs_rowsum(a, bb, ac),), tol[dt])
+        a = torch.randn((M, M), generator=gen, device=dev).to(dt)
+        elt = a.element_size()
+        bms, by = bound_ms(2 * M * M * elt + M * 4, 2 * M * M * M, name)
+        row = {
+            "ms": cuda_ms(torch, lambda: kring.abs_rowsum(a, a), 20),
+            "plain_ms": cuda_ms(torch, lambda: ref.abs_rowsum(a, a), 20),
+            "library_ms": cuda_ms(
+                torch, lambda: torch.matmul(a, a.T).abs().sum(1), 20),
+            "bound_ms": bms, "bound_by": by,
+        }
+        rows[("abs_rowsum", name)] = row
+        log(f"  time abs_rowsum {name} ({M}, {M}) x ({M}, {M}): kernel "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+            f"(matmul(a, b.T).abs().sum(1)) {row['library_ms']:.3f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+    torch.cuda.synchronize()
+    return rows
+
+
+def gate_trace(torch, cfg):
+    """Per mode, the gate value max-weighted-residual / λ_max after each
+    chunk (fires at <= power_tol), on the CLI's m = 1000 tensor."""
+    from repro_torch.core import PlantedSpec, make_planted_tensor
+    from repro_torch.core import power_iter as cpi
+    from repro_torch.core.msc import mode_slices
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t = make_planted_tensor(gen, PlantedSpec.paper(M, GAMMA))
+    out = []
+    for j in range(3):
+        s = mode_slices(t, j)
+        chunk_fn, k = cpi.build_chunk_fn(s, cfg)
+        state = cpi.init_solve_state(cpi._init_vectors(
+            s.shape[:-2], s.shape[-1], device=s.device))
+        vals = []
+        while cpi._any_active(state, cfg.power_iters):
+            state = cpi.step_chunk(chunk_fn, state, k=k,
+                                   n_iters=cfg.power_iters,
+                                   tol=cfg.power_tol)
+            lam, res = state.lam, state.resid
+            w = torch.amax(res / torch.clamp(lam, min=1.0) * lam)
+            vals.append(float(w / torch.clamp(lam.amax(), min=1e-30)))
+        out.append(vals)
+        del s
+    return out
+
+
+def phase_main_path(torch, checks):
+    from repro_torch.kernels import power_iter as kpi
+    from repro_torch.kernels import ring as kring
+    from repro_torch.launch import msc_run
+
+    base = ["--m", str(M), "--gamma", str(GAMMA), "--seed", str(SEED),
+            "--device", DEVICE]
+    runs = [
+        ("flat+kernels fp32", ["--schedule", "flat", "--kernels"]),
+        ("flat+kernels bf16_fp32", ["--schedule", "flat", "--kernels",
+                                    "--precision", "bf16_fp32"]),
+        ("sequential+kernels fp32", ["--schedule", "sequential",
+                                     "--kernels"]),
+        ("flat einsum fp32 (oracle)", ["--schedule", "flat"]),
+        (f"flat+kernels fp32 gamma={GAMMA_RECOVERY:g} (recovery)",
+         ["--schedule", "flat", "--kernels", "--gamma",
+          str(GAMMA_RECOVERY)]),
+    ]
+    results, launches = {}, {}
+    for label, extra in runs:
+        log(f"main path: {label}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kpi.launches = 0
+        kring.launches = 0
+        t0 = time.perf_counter()
+        rec = msc_run.run(msc_run.parse_args(base + extra))[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"power_iter": kpi.launches, "abs_rowsum": kring.launches}
+        launches[label] = counts
+        results[label] = rec
+        log(f"  wall {wall:.2f} s (solve {rec['t']:.3f} s; the rest is data "
+            f"and the sim metric), max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"launches {counts}")
+        if label.endswith("(recovery)") and rec["rec"] != 1.0:
+            checks.failures.append(f"{label}: rec={rec['rec']:.3f} != 1.000")
+        for mr in rec["result"].modes:
+            if not bool(torch.isfinite(mr.d).all()):
+                checks.failures.append(f"{label}: non-finite d")
+        want = {"flat+kernels": ("power_iter", "abs_rowsum"),
+                "sequential+kernels": ("power_iter",)}
+        for prefix, names in want.items():
+            if label.startswith(prefix):
+                for n in names:
+                    if counts[n] == 0:
+                        checks.failures.append(f"{label}: {n} never launched")
+        if label.startswith("flat einsum") and any(counts.values()):
+            checks.failures.append(f"{label}: a kernel ran on the einsum path")
+
+    fp32 = [k for k, _ in runs[:4] if "bf16" not in k]
+    oracle = results["flat einsum fp32 (oracle)"]["result"]
+    recs = {results[k]["rec"] for k in fp32}
+    log(f"  rec at gamma={GAMMA:g}: {sorted(recs)} on every fp32 path")
+    for label in fp32:
+        res = results[label]["result"]
+        for j in range(3):
+            same = torch.equal(res[j].mask, oracle[j].mask)
+            dd = ((res[j].d - oracle[j].d).abs().max()
+                  / oracle[j].d.abs().max()).item()
+            log(f"  {label} mode {j}: mask == oracle {same}, d rel diff "
+                f"{dd:.3e}, sweeps {res[j].power_iters_run} vs "
+                f"{oracle[j].power_iters_run}")
+            if not same:
+                checks.failures.append(f"{label} mode {j}: mask differs")
+    from repro_torch.core import MSCConfig
+
+    l = M // 10
+    cfg = MSCConfig(epsilon=0.5 / (M - l) ** 2, max_extraction_iters=M)
+    for label in fp32:
+        res = results[label]["result"]
+        for j in range(3):
+            gap = abs(res[j].power_iters_run - oracle[j].power_iters_run)
+            if gap > cfg.power_check_every:
+                checks.failures.append(f"{label} mode {j}: sweeps more than "
+                                       "one gate chunk from the oracle")
+            if gap:
+                log(f"  sweeps diverge ({label}, mode {j}); gate values per "
+                    "chunk (fires at <= power_tol 1e-2):")
+                for name, c in ((label, cfg.with_(use_kernels=True)),
+                                ("oracle", cfg)):
+                    log(f"    {name}: {gate_trace(torch, c)[j]}")
+    return launches["flat+kernels fp32"]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout "
+              "of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+
+    checks = Checks()
+    t_start = time.perf_counter()
+    smi = phase_card(torch)
+    phase_build()
+    rows = phase_kernels(torch, checks)
+    launches = phase_main_path(torch, checks)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    if checks.failures:
+        for f in checks.failures:
+            print(f"FAIL {f}", file=sys.stderr)
+        return 1
+
+    source = {"power_iter": ("src/repro_torch/kernels/csrc/power_iter.cu",
+                             "src/repro/kernels/power_iter.py:48"),
+              "abs_rowsum": ("src/repro_torch/kernels/csrc/ring.cu",
+                             "src/repro/kernels/ring.py:29")}
+    kernels = []
+    for name, (src, replaces) in source.items():
+        row = rows[(name, "float32")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": checks.max_abs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "bf16_ms": rows[(name, "bfloat16")]["ms"],
+            "card": smi})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

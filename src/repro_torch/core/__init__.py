@@ -1,0 +1,31 @@
+"""repro_torch.core — Multi-Slice Clustering on torch tensors.
+
+Counterpart of `repro.core` for the ported slice: types, statistics,
+metrics, extraction, synthetic data, the matrix-free eigensolver, the
+sequential entry point and the one-device flat schedule.
+"""
+from .types import MSCConfig, MSCResult, ModeResult, PlantedSpec, resolve_device
+from .synthetic import make_planted_tensor, planted_factors, planted_masks
+from .msc import (
+    cluster_mode_slices,
+    marginal_sums,
+    mode_slices,
+    msc_sequential,
+    msc_similarity_matrices,
+    normalized_eigrows,
+    similarity_matrix,
+)
+from .parallel import build_msc_parallel, build_msc_parallel_flat
+from .schedule import ModeSchedule, epilogue_rowsum
+from .extraction import extract_cluster, max_gap_init, trim_to_theorem
+from .metrics import recovery_rate, similarity_index, similarity_index_mode
+from .stats import (
+    epsilon_ok,
+    standardize_top_eig,
+    theorem_threshold,
+    tw_threshold,
+    wishart_mu_sigma,
+)
+from .power_iter import power_iteration_matrix_free, top_eigenpairs
+
+__all__ = [k for k in dir() if not k.startswith("_")]

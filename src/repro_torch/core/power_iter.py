@@ -1,0 +1,228 @@
+"""Batched top-eigenpair extraction for slice covariances (paper §III-C).
+
+Counterpart of `repro/core/power_iter.py`, matrix-free path: for each
+slice T_i (r × c) iterate v ← Tᵀ(T v) without forming C_i = T_iᵀT_i.
+
+Adaptive gate: when `tol > 0` the sweep count is a cap.  Every
+`check_every` sweeps the solver measures the λ-weighted Rayleigh residual
+max_i (‖C_i v_i − λ_i v_i‖ / max(λ_i, 1)) · λ_i / λ_max and stops once it
+drops below `tol`.  A leading request dim (B, b, r, c) gets one verdict
+per request; a converged request's iterate freezes.
+
+The reference runs the gated loop inside one jit; here it is a host
+loop over gate chunks whose only device-to-host read is `_any_active`,
+once per chunk.
+
+Precision policy `bf16_fp32`: operands of T v and Tᵀ(T v) are rounded
+to bf16 and multiplied and summed in fp32; normalization, the gate and
+the final Rayleigh quotient stay fp32.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+PRECISIONS = ("fp32", "bf16_fp32")
+
+GRAM_TODO = ("matrix_free=False (the explicit gram) is not ported yet: "
+             "ROADMAP.md, queue 2 item 5 (kernels/gram.py:_gram_kernel)")
+
+
+def compute_dtype(precision: str) -> torch.dtype:
+    """Operand dtype of the precision policy ("fp32" | "bf16_fp32")."""
+    if precision == "fp32":
+        return torch.float32
+    if precision == "bf16_fp32":
+        return torch.bfloat16
+    raise ValueError(f"unknown precision {precision!r}; expected {PRECISIONS}")
+
+
+def _init_vectors(batch, dim: int, dtype=torch.float32, c_valid=None,
+                  device="cpu") -> torch.Tensor:
+    """Deterministic start vectors: ones + 0.01·sin(1.37·k + 0.3), unit norm.
+
+    batch: an int or a tuple of leading dims.  c_valid masks the start to
+    the first c_valid columns (a scalar or an array broadcastable against
+    the batch dims), so zero-padded columns stay exactly zero.
+    Returns a contiguous (*batch, dim) tensor.
+    """
+    shape = (batch,) if isinstance(batch, int) else tuple(batch)
+    k = torch.arange(dim, dtype=dtype, device=device)
+    v0 = torch.ones(dim, dtype=dtype, device=device) + 0.01 * torch.sin(
+        1.37 * k + 0.3)
+    if c_valid is not None:
+        cv = torch.as_tensor(c_valid, device=device)
+        v0 = torch.where(torch.arange(dim, device=device) < cv[..., None],
+                         v0, torch.zeros((), dtype=dtype, device=device))
+    v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
+    return v0.expand(*shape, dim).contiguous()
+
+
+def _normalize(v: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps)
+
+
+def convergence_gate(lam: torch.Tensor, resid: torch.Tensor,
+                     tol: float) -> torch.Tensor:
+    """True once every slice's λ-weighted residual is below tol.
+
+    lam, resid: (..., b).  Maxima reduce over the slice dim only, so each
+    leading request gets its own verdict.
+    """
+    weighted = torch.amax(resid / torch.clamp(lam, min=1.0) * lam, dim=-1)
+    lam_max = torch.amax(lam, dim=-1)
+    return weighted <= tol * torch.clamp(lam_max, min=1e-30)
+
+
+@dataclasses.dataclass
+class SolveState:
+    """Resumable eigensolver carry; `step_chunk` maps it to the next one.
+
+    v (..., b, c) unit iterates; lam, resid (..., b) at the last probe;
+    iters (...) int32 realized sweeps; done (...) bool gate verdict.
+    """
+
+    v: torch.Tensor
+    lam: torch.Tensor
+    resid: torch.Tensor
+    iters: torch.Tensor
+    done: torch.Tensor
+
+    def exhausted(self, n_iters: int) -> torch.Tensor:
+        """Per request: converged or capped, so it never advances again."""
+        return self.done | (self.iters >= n_iters)
+
+
+def init_solve_state(v0: torch.Tensor) -> SolveState:
+    """Fresh SolveState from start vectors v0 (..., b, c)."""
+    gshape, b = v0.shape[:-2], v0.shape[-2]
+    z = dict(device=v0.device)
+    return SolveState(v=v0,
+                      lam=torch.zeros(gshape + (b,), dtype=torch.float32, **z),
+                      resid=torch.zeros(gshape + (b,), dtype=torch.float32, **z),
+                      iters=torch.zeros(gshape, dtype=torch.int32, **z),
+                      done=torch.zeros(gshape, dtype=torch.bool, **z))
+
+
+def step_chunk(chunk_fn, state: SolveState, *, k: int, n_iters: int,
+               tol: float) -> SolveState:
+    """One gate chunk: advance every unfinished request by k sweeps.
+
+    chunk_fn(v) -> (v_new, lam, resid).  The chunk always computes on the
+    whole batch; `active` only masks the state update, so a finished
+    request passes through untouched.
+    """
+    active = ~state.done & (state.iters < n_iters)
+    v_new, lam, resid = chunk_fn(state.v)
+    fired = convergence_gate(lam, resid, tol)
+    return SolveState(
+        v=torch.where(active[..., None, None], v_new, state.v),
+        lam=torch.where(active[..., None], lam, state.lam),
+        resid=torch.where(active[..., None], resid, state.resid),
+        iters=torch.where(active, state.iters + k, state.iters),
+        done=state.done | (active & fired))
+
+
+def _any_active(state: SolveState, n_iters: int) -> bool:
+    """The gated loop's one host sync per chunk: is any request still live?"""
+    return bool(torch.any(~state.exhausted(n_iters)))
+
+
+def _gated_loop(chunk_fn, v: torch.Tensor, n_iters: int, k: int, tol: float):
+    """`step_chunk` driven until every request is converged or capped.
+
+    Returns (v, iters) with iters shaped like the request dims.
+    """
+    state = init_solve_state(v)
+    while _any_active(state, n_iters):
+        state = step_chunk(chunk_fn, state, k=k, n_iters=n_iters, tol=tol)
+    return state.v, state.iters
+
+
+def make_chunk_probe(matvec, k: int):
+    """chunk_fn(v) -> (v_new, lam, resid): k matvec sweeps, the last one
+    doubling as the gate probe.  matvec(v) returns the unnormalized C v
+    in fp32."""
+    def chunk_fn(v):
+        for _ in range(k - 1):
+            v = _normalize(matvec(v))
+        w = matvec(v)
+        lam = torch.sum(w * v, dim=-1)  # Rayleigh quotient (v is unit)
+        resid = torch.linalg.vector_norm(w - lam[..., None] * v, dim=-1)
+        return _normalize(w), lam, resid
+
+    return chunk_fn
+
+
+def _run_adaptive(matvec, v: torch.Tensor, n_iters: int, tol: float,
+                  check_every: int):
+    """Fixed loop when tol <= 0, gated chunks otherwise.  Returns (v, iters).
+
+    With tol > 0 the cap rounds up to a multiple of check_every."""
+    if tol <= 0.0:
+        for _ in range(n_iters):
+            v = _normalize(matvec(v))
+        return v, torch.full(v.shape[:-2], n_iters, dtype=torch.int32,
+                             device=v.device)
+    k = max(1, min(check_every, n_iters))
+    return _gated_loop(make_chunk_probe(matvec, k), v, n_iters, k, tol)
+
+
+def matvec_matrix_free(slices: torch.Tensor, precision: str = "fp32"):
+    """matvec(v) = Tᵀ round(T round(v)) with precision-policy operands and
+    fp32 products and sums (the operand copy is made once, not per call)."""
+    dt = compute_dtype(precision)
+    s = slices.to(dt).float()
+
+    def matvec(v):
+        tv = (s @ v.to(dt).float().unsqueeze(-1)).squeeze(-1)
+        return (tv.to(dt).float().unsqueeze(-2) @ s).squeeze(-2)
+
+    return matvec
+
+
+def rayleigh_fp32(slices: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """λ = ‖T v‖² per slice, always fp32."""
+    tv = (slices.float() @ v.unsqueeze(-1)).squeeze(-1)
+    return torch.sum(tv * tv, dim=-1)
+
+
+def build_chunk_fn(slices: torch.Tensor, cfg):
+    """(chunk_fn, k): the gate-chunk body `step_chunk` advances, chosen by
+    cfg.use_kernels (fused CUDA chunk) or the einsum probe."""
+    if not cfg.matrix_free:
+        raise NotImplementedError(GRAM_TODO)
+    k = max(1, min(cfg.power_check_every, cfg.power_iters))
+    if cfg.use_kernels:
+        from repro_torch.kernels import ops as kops
+
+        return kops.build_chunk_fn(slices, k, precision=cfg.precision), k
+    return make_chunk_probe(matvec_matrix_free(slices, cfg.precision), k), k
+
+
+def power_iteration_matrix_free(slices: torch.Tensor, n_iters: int = 60,
+                                tol: float = 0.0, check_every: int = 6,
+                                precision: str = "fp32", c_valid=None):
+    """Top eigenpair of T_iᵀT_i for a batch of slices (b, r, c) or
+    (B, b, r, c).  Returns (lambdas (..., b), vectors (..., b, c), iters
+    with the request shape); λ = ‖T v‖² in fp32 whatever the precision."""
+    v = _init_vectors(slices.shape[:-2], slices.shape[-1], torch.float32,
+                      c_valid, device=slices.device)
+    v, iters = _run_adaptive(matvec_matrix_free(slices, precision), v,
+                             n_iters, tol, check_every)
+    return rayleigh_fp32(slices, v), v, iters
+
+
+def top_eigenpairs(slices: torch.Tensor, cfg, c_valid=None):
+    """Dispatch on MSCConfig.  Returns (lambdas, vectors, iters)."""
+    if not cfg.matrix_free:
+        raise NotImplementedError(GRAM_TODO)
+    kw = dict(n_iters=cfg.power_iters, tol=cfg.power_tol,
+              check_every=cfg.power_check_every, precision=cfg.precision,
+              c_valid=c_valid)
+    if cfg.use_kernels:
+        from repro_torch.kernels import ops as kops
+
+        return kops.power_iterate_matrix_free(slices, **kw)
+    return power_iteration_matrix_free(slices, **kw)

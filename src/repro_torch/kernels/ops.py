@@ -1,0 +1,77 @@
+"""Dispatchers in front of the CUDA kernels (counterpart of `repro/kernels/ops.py`).
+
+A tensor on `cuda` runs the hand-written kernel or raises; only a tensor
+on the CPU takes the kernel's plain version (inside the wrappers in
+`power_iter.py` and `ring.py`).  There is no fallback from one to the
+other.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import power_iter as _pi
+from . import ring as _ring
+
+
+def batched_gram(slices, **kw):
+    raise NotImplementedError(
+        "batched_gram (kernels/gram.py:_gram_kernel) is not ported yet: "
+        "ROADMAP.md, queue 2 item 5")
+
+
+def flash_attention(q, k, v, **kw):
+    raise NotImplementedError(
+        "flash_attention (kernels/flash_attention.py:_flash_kernel) is not "
+        "ported yet: ROADMAP.md, queue 2 item 6")
+
+
+def abs_rowsum(a: torch.Tensor, b: torch.Tensor, acc=None, *,
+               block_i: int = 128, block_j: int = 128) -> torch.Tensor:
+    """acc + Σ_j |a bᵀ|_{:,j} (see ring.py)."""
+    return _ring.abs_rowsum(a, b, acc, block_i=block_i, block_j=block_j)
+
+
+def build_chunk_fn(slices: torch.Tensor, k: int, *, precision: str = "fp32",
+                   block_r: int = 256):
+    """chunk_fn(v) -> (v_new, lam, resid): k fused sweeps and the gate
+    probe in one kernel launch — the kernel form of
+    `core.power_iter.make_chunk_probe`."""
+    from repro_torch.core.power_iter import compute_dtype
+
+    s = slices.to(compute_dtype(precision)).contiguous()
+
+    def chunk_fn(v):
+        return _pi.power_iterate_chunk(s, v, k, block_r=block_r)
+
+    return chunk_fn
+
+
+def power_iterate_matrix_free(slices: torch.Tensor, n_iters: int = 60,
+                              tol: float = 0.0, check_every: int = 6,
+                              precision: str = "fp32", c_valid=None, *,
+                              block_r: int = 256):
+    """Fused power iteration with the same start vectors, gate and `iters`
+    semantics as `core.power_iter.power_iteration_matrix_free`.
+
+    tol <= 0: one launch of n_iters sweeps plus the λ pass (λ re-measured
+    in fp32 under bf16).  tol > 0: one launch per gate chunk of
+    check_every sweeps, driven by the shared `_gated_loop`.
+    Returns (lam (..., b), v (..., b, c), iters with the request shape).
+    """
+    from repro_torch.core.power_iter import (_gated_loop, _init_vectors,
+                                             compute_dtype, rayleigh_fp32)
+
+    v0 = _init_vectors(slices.shape[:-2], slices.shape[-1], torch.float32,
+                       c_valid, device=slices.device)
+    if tol <= 0.0:
+        s = slices.to(compute_dtype(precision)).contiguous()
+        lam, v = _pi.power_iterate(s, v0, n_iters, block_r=block_r)
+        if precision != "fp32":
+            lam = rayleigh_fp32(slices, v)
+        return lam, v, torch.full(slices.shape[:-3], n_iters,
+                                  dtype=torch.int32, device=slices.device)
+    k = max(1, min(check_every, n_iters))
+    chunk_fn = build_chunk_fn(slices, k, precision=precision,
+                              block_r=block_r)
+    v, iters = _gated_loop(chunk_fn, v0, n_iters, k, tol)
+    return rayleigh_fp32(slices, v), v, iters

@@ -1,0 +1,86 @@
+"""Plain PyTorch versions of the CUDA kernels on the port's path.
+
+Each function computes exactly what its kernel computes, in the same
+precision: operands are rounded to the input's dtype (fp32 or bf16) at
+the places the kernel rounds them, and every product and sum runs in
+fp32.  `torch.einsum` on bf16 tensors would return bf16, so the bf16
+operands enter an fp32 product as `x.to(bfloat16).float()`, the plain
+form of `preferred_element_type=float32`.
+
+The kernel wrappers (`power_iter.py`, `ring.py`) call these for tensors
+on the CPU; `chip_smoke.py` holds each kernel against them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _round(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Round an fp32 tensor to the operand dtype and back to fp32."""
+    return x.to(dtype).float()
+
+
+def power_sweeps(slices: torch.Tensor, v0: torch.Tensor, n_upd: int, *,
+                 lambda_pass: bool, emit_gate: bool, normalize: bool = True):
+    """The fused sweep body shared by the three entry points.
+
+    slices (..., b, r, c) in fp32 or bf16; v0 (..., b, c) fp32.  Runs
+    n_upd sweeps of w = Tᵀ round(T round(v)) (normalizing v ← w/(‖w‖+1e-30)
+    when `normalize`), then optionally a λ = ‖T round(v)‖² pass.  With
+    `emit_gate`, λ = vᵀw and resid = ‖w − λv‖ from the last sweep, before
+    normalizing.  Returns (lam, v, resid, w), all fp32.
+    """
+    dt = slices.dtype
+    s = slices.float()
+    v = v0.float()
+    lam = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+    resid = torch.zeros_like(lam)
+    w = torch.zeros_like(v)
+    for it in range(n_upd):
+        tv = (s @ _round(v, dt).unsqueeze(-1)).squeeze(-1)
+        w = (_round(tv, dt).unsqueeze(-2) @ s).squeeze(-2)
+        if emit_gate and it == n_upd - 1:
+            lam = torch.sum(w * v, dim=-1)
+            resid = torch.sqrt(torch.sum((w - lam[..., None] * v) ** 2,
+                                         dim=-1))
+        if normalize:
+            v = w / (torch.sqrt(torch.sum(w * w, dim=-1, keepdim=True))
+                     + 1e-30)
+    if lambda_pass:
+        tv = (s @ _round(v, dt).unsqueeze(-1)).squeeze(-1)
+        lam = torch.sum(tv * tv, dim=-1)
+    return lam, v, resid, w
+
+
+def power_iterate(slices: torch.Tensor, v0: torch.Tensor, n_iters: int):
+    """n_iters sweeps then λ = ‖T v‖².  Returns (lam (..., b), v (..., b, c))."""
+    lam, v, _, _ = power_sweeps(slices, v0, n_iters, lambda_pass=True,
+                                emit_gate=False)
+    return lam, v
+
+
+def power_iterate_chunk(slices: torch.Tensor, v: torch.Tensor, k: int):
+    """k sweeps with the gate probe.  Returns (v_new, lam, resid)."""
+    lam, v_new, resid, _ = power_sweeps(slices, v, k, lambda_pass=False,
+                                        emit_gate=True)
+    return v_new, lam, resid
+
+
+def power_matvec(slices: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One unnormalized sweep: w = Tᵀ(T v) in fp32."""
+    _, _, _, w = power_sweeps(slices, v, 1, lambda_pass=False,
+                              emit_gate=False, normalize=False)
+    return w
+
+
+def abs_rowsum(a: torch.Tensor, b: torch.Tensor,
+               acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """acc + Σ_j |a bᵀ|_{:,j} with an fp32 product and accumulator.
+
+    a (bl, c), b (bc, c), acc (bl,) or None; batched a (B, bl, c),
+    b (B, bc, c), acc (B, bl) keeps requests apart.  Returns fp32.
+    """
+    d = torch.abs(a.float() @ b.float().transpose(-1, -2)).sum(dim=-1)
+    return d if acc is None else acc.float() + d

@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Where the port's main path spends its time on the card.
+
+    PYTHONPATH=src python tools/torch_profile.py [--m 1000] [--precision fp32]
+
+Builds the CLI's planted tensor (γ = m, seed 0, the CLI's default
+config with kernels) on the card, solves it once unprofiled (warm-up),
+then once under `torch.profiler` (CPU + CUDA activities), and prints the
+device time per kernel name, the launch counts, the solve's host wall
+time and the device's busy share (device kernel time over that wall
+time; device events only, so an operator and the kernels it launches
+are not counted twice), and the operators with the most device time by
+input shape.  Needs a CUDA card; prints the card's name and
+power limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src"))
+
+
+def _dev_us(e, self_only=False):
+    for name in (("self_device_time_total", "self_cuda_time_total")
+                 if self_only else ("device_time_total", "cuda_time_total")):
+        if hasattr(e, name):
+            return float(getattr(e, name))
+    return 0.0
+
+
+def main(argv=None) -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--m", type=int, default=1000)
+    ap.add_argument("--precision", default="fp32")
+    ap.add_argument("--schedule", default="flat")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+
+    from repro_torch.kernels import power_iter as kpi
+    from repro_torch.kernels import ring as kring
+    from repro_torch.core import (MSCConfig, PlantedSpec, build_msc_parallel,
+                                  make_planted_tensor, msc_sequential)
+
+    m, l = args.m, max(1, args.m // 10)
+    cfg = MSCConfig(epsilon=0.5 / (m - l) ** 2, precision=args.precision,
+                    max_extraction_iters=m, use_kernels=True)
+    tensor = make_planted_tensor(
+        torch.Generator(device="cuda").manual_seed(0),
+        PlantedSpec.paper(m, float(m)))
+    solve = (build_msc_parallel(cfg, device="cuda")
+             if args.schedule == "flat"
+             else lambda t: msc_sequential(t, cfg, device="cuda"))
+    solve(tensor)  # warm-up: kernel build, allocator, cuBLAS handles
+    kpi.launches = kring.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        result = solve(tensor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total_us = sum(_dev_us(e, self_only=True) for e in events)
+    print(f"profiled solve (m={m}, {args.schedule}, {args.precision}): wall "
+          f"{wall * 1e3:.1f} ms, device kernel time {total_us / 1e3:.1f} ms, "
+          f"busy share {total_us / 1e6 / wall:.3f}, sweeps "
+          f"{[mr.power_iters_run for mr in result.modes]}, launches "
+          f"power_iter={kpi.launches} abs_rowsum={kring.launches}")
+    if total_us == 0:
+        print("device time: not measured (the profiler saw no device "
+              "activity)")
+    top = sorted(events, key=lambda e: _dev_us(e, True), reverse=True)[:12]
+    for e in top:
+        us = _dev_us(e, True)
+        if us > 0:
+            print(f"  {us / 1e3:9.2f} ms  {100 * us / total_us:5.1f}%  "
+                  f"x{e.count:<5d} {e.key[:90]}")
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == DeviceType.CPU and _dev_us(e, True) > 0]
+    print("operators by device time and input shapes:")
+    for e in sorted(ops, key=lambda e: _dev_us(e, True), reverse=True)[:8]:
+        print(f"  {_dev_us(e, True) / 1e3:9.2f} ms  x{e.count:<5d} {e.key} "
+              f"{str(e.input_shapes)[:80]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
