@@ -18,12 +18,21 @@ line):
    same function (timed here only; the port never calls it).
 4. The main path at the paper's size: `launch/msc_run.py` at m = 1000
    (the 4 GB fp32 tensor of Fig. 6), γ = 1000, seed 0, the CLI's
-   default ε — flat+kernels in fp32 and bf16_fp32, sequential+kernels
-   in fp32, and the einsum path in fp32 as this run's oracle.  Requires
-   identical fp32 masks, sweeps equal or one gate chunk apart, finite
-   d, and every kernel launched by the flat+kernels fp32 run; then one
-   flat+kernels fp32 run at γ = 10000 must recover the planted cluster
-   (rec=1.000).
+   default ε, with each eigensolver.  Matrix-free: flat+kernels in fp32
+   and bf16_fp32, sequential+kernels in fp32, and the einsum path in
+   fp32 as this run's oracle.  Explicit gram (`--gram`, paper Alg. 1):
+   the same four runs, held to the gram einsum oracle and to the
+   matrix-free oracle.  Requires identical fp32 masks, sweeps equal or
+   one gate chunk apart, finite d, and every kernel of a path launched
+   by its run (launch counts set to 0 just before each run and read
+   just after); then one flat+kernels fp32 run per eigensolver at
+   γ = 10000 must recover the planted cluster (rec=1.000).
+5. Batched serving: `msc_run --batch 2 --kernels` at m = 1000, with
+   and without `--gram` (MSCServeEngine, seeds 0 and 1 in one
+   dispatch).  Each request must give the masks of the single-tensor
+   flat run of its seed, with sweeps equal or one gate chunk apart; the
+   engine must build 1 runner cold and 0 warm.  Prints the warm and
+   looped-warm times, the speedup and the peak device memory.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -252,7 +261,70 @@ def phase_kernels(torch, checks):
             f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
             f"(matmul(a, b.T).abs().sum(1)) {row['library_ms']:.3f} ms, "
             f"bound {bms:.4f} ms ({by})")
+    del a, bb, acc
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rows.update(phase_gram(torch, checks, gen))
+    return rows
+
+
+def phase_gram(torch, checks, gen):
+    """batched_gram against its plain version, and its times at the main
+    path's mode slices (1000, 1000, 1000) with the fp32 result the
+    solver asks for."""
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    dev = torch.device(DEVICE)
+    # fp32 result: sums in another order; bf16 result: a sum on the
+    # other side of a bf16 rounding boundary moves the entry by 2^-8
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    log("batched_gram against its plain version (tolerance relative to "
+        "the largest plain entry: 1e-5 for an fp32 result, 1e-2 for a "
+        "bf16 result)")
+    rows = {}
+    cases = [(M, M, M), (37, 1003, 301), (2, 300, 257, 131)]
+    for shape in cases:
+        x = torch.randn(shape, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            s = x.to(dt)
+            name = str(dt).split(".")[-1]
+            for out in (None, torch.float32):
+                got = ops.batched_gram(s, out_dtype=out)
+                want = ref.batched_gram(s, out)
+                checks.compare("batched_gram", f"batched_gram {name} "
+                               f"{shape} out={str(got.dtype)[6:]}",
+                               (got.float(),), (want.float(),),
+                               tol[got.dtype])
+                del got, want
+            if shape == (M, M, M):
+                b, r, c = shape
+                # C is symmetric: the function needs one triangle's
+                # r·c(c+1)/2 multiply-adds per slice; the fp32 result is
+                # written in full
+                bms, by = bound_ms(b * r * c * s.element_size()
+                                   + b * c * c * 4, b * r * c * (c + 1), name)
+                fp32 = torch.float32
+                row = {
+                    "ms": cuda_ms(torch, lambda: kgram.batched_gram(
+                        s, out_dtype=fp32), 3, 1),
+                    "plain_ms": cuda_ms(
+                        torch, lambda: ref.batched_gram(s, fp32), 3, 1),
+                    "library_ms": cuda_ms(
+                        torch, lambda: torch.bmm(s.mT, s), 3, 1),
+                    "bound_ms": bms, "bound_by": by,
+                }
+                rows[("batched_gram", name)] = row
+                log(f"  time batched_gram {name} {shape} -> fp32: kernel "
+                    f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+                    f"library (torch.bmm(t.mT, t), result in {name}"
+                    f"{', rounded' if name == 'bfloat16' else ''}) "
+                    f"{row['library_ms']:.3f} ms, bound {bms:.3f} ms ({by})")
+            del s
+        del x
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -284,90 +356,172 @@ def gate_trace(torch, cfg):
     return out
 
 
-def phase_main_path(torch, checks):
+KERNELS = ("power_iter", "abs_rowsum", "batched_gram")
+
+
+def counters():
+    from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import power_iter as kpi
     from repro_torch.kernels import ring as kring
+
+    return {"power_iter": kpi, "abs_rowsum": kring, "batched_gram": kgram}
+
+
+def drive(torch, label, argv):
+    """One `msc_run` run with every launch count set to 0 just before it
+    and read just after.  Returns (what run() returned, counts)."""
     from repro_torch.launch import msc_run
 
+    log(f"main path: {label}")
+    mods = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    out = msc_run.run(msc_run.parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: mod.launches for n, mod in mods.items()}
+    log(f"  wall {wall:.2f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{counts}")
+    return out, counts
+
+
+def hold(torch, checks, label, res, oracle, oracle_name, chunk):
+    """Masks identical to the oracle's; sweeps equal or one gate chunk
+    apart.  Returns the modes whose sweeps differ."""
+    diverged = []
+    for j in range(3):
+        same = torch.equal(res[j].mask.cpu(), oracle[j].mask.cpu())
+        dd = ((res[j].d.cpu() - oracle[j].d.cpu()).abs().max()
+              / oracle[j].d.abs().max().cpu()).item()
+        log(f"  {label} mode {j}: mask == {oracle_name} {same}, d rel diff "
+            f"{dd:.3e}, sweeps {res[j].power_iters_run} vs "
+            f"{oracle[j].power_iters_run}")
+        if not same:
+            checks.failures.append(f"{label} mode {j}: mask differs from "
+                                   f"{oracle_name}")
+        gap = abs(res[j].power_iters_run - oracle[j].power_iters_run)
+        if gap > chunk:
+            checks.failures.append(f"{label} mode {j}: sweeps more than one "
+                                   f"gate chunk from {oracle_name}")
+        if gap:
+            diverged.append(j)
+    return diverged
+
+
+def main_cfg():
+    """The MSCConfig `msc_run` builds at m = M (its gate chunk too)."""
+    from repro_torch.core import MSCConfig
+
+    return MSCConfig(epsilon=0.5 / (M - M // 10) ** 2, max_extraction_iters=M)
+
+
+def phase_main_path(torch, checks):
+    """Both eigensolvers at m = 1000 through the CLI.  Returns
+    ({label: counts}, {label: MSCResult})."""
     base = ["--m", str(M), "--gamma", str(GAMMA), "--seed", str(SEED),
             "--device", DEVICE]
-    runs = [
-        ("flat+kernels fp32", ["--schedule", "flat", "--kernels"]),
-        ("flat+kernels bf16_fp32", ["--schedule", "flat", "--kernels",
-                                    "--precision", "bf16_fp32"]),
-        ("sequential+kernels fp32", ["--schedule", "sequential",
-                                     "--kernels"]),
-        ("flat einsum fp32 (oracle)", ["--schedule", "flat"]),
-        (f"flat+kernels fp32 gamma={GAMMA_RECOVERY:g} (recovery)",
-         ["--schedule", "flat", "--kernels", "--gamma",
-          str(GAMMA_RECOVERY)]),
-    ]
+    recovery = ["--gamma", str(GAMMA_RECOVERY)]
+    cfg = main_cfg()
+    chunk = cfg.power_check_every
+    # (label, extra argv, kernels the run must launch)
+    runs = []
+    for solver, flag in (("", []), ("gram ", ["--gram"])):
+        solve = ("batched_gram",) if flag else ("power_iter",)
+        runs += [
+            (f"flat+kernels {solver}fp32", ["--kernels", *flag],
+             solve + ("abs_rowsum",)),
+            (f"flat+kernels {solver}bf16_fp32",
+             ["--kernels", "--precision", "bf16_fp32", *flag],
+             solve + ("abs_rowsum",)),
+            (f"sequential+kernels {solver}fp32",
+             ["--schedule", "sequential", "--kernels", *flag], solve),
+            (f"flat einsum {solver}fp32 (oracle)", flag, ()),
+            (f"flat+kernels {solver}fp32 gamma={GAMMA_RECOVERY:g} "
+             "(recovery)", ["--kernels", *recovery, *flag],
+             solve + ("abs_rowsum",)),
+        ]
     results, launches = {}, {}
-    for label, extra in runs:
-        log(f"main path: {label}")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kpi.launches = 0
-        kring.launches = 0
-        t0 = time.perf_counter()
-        rec = msc_run.run(msc_run.parse_args(base + extra))[0]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {"power_iter": kpi.launches, "abs_rowsum": kring.launches}
+    for label, extra, want in runs:
+        out, counts = drive(torch, label, base + extra)
+        rec = out[0]
         launches[label] = counts
-        results[label] = rec
-        log(f"  wall {wall:.2f} s (solve {rec['t']:.3f} s; the rest is data "
-            f"and the sim metric), max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"launches {counts}")
+        results[label] = rec["result"]
+        log(f"  solve {rec['t']:.3f} s (the rest of the wall time is data "
+            f"and the sim metric), rec={rec['rec']:.3f}")
         if label.endswith("(recovery)") and rec["rec"] != 1.0:
             checks.failures.append(f"{label}: rec={rec['rec']:.3f} != 1.000")
         for mr in rec["result"].modes:
             if not bool(torch.isfinite(mr.d).all()):
                 checks.failures.append(f"{label}: non-finite d")
-        want = {"flat+kernels": ("power_iter", "abs_rowsum"),
-                "sequential+kernels": ("power_iter",)}
-        for prefix, names in want.items():
-            if label.startswith(prefix):
-                for n in names:
-                    if counts[n] == 0:
-                        checks.failures.append(f"{label}: {n} never launched")
-        if label.startswith("flat einsum") and any(counts.values()):
-            checks.failures.append(f"{label}: a kernel ran on the einsum path")
+        for n in KERNELS:
+            if n in want and counts[n] == 0:
+                checks.failures.append(f"{label}: {n} never launched")
+            if n not in want and counts[n]:
+                checks.failures.append(f"{label}: {n} ran off its path")
 
-    fp32 = [k for k, _ in runs[:4] if "bf16" not in k]
-    oracle = results["flat einsum fp32 (oracle)"]["result"]
-    recs = {results[k]["rec"] for k in fp32}
-    log(f"  rec at gamma={GAMMA:g}: {sorted(recs)} on every fp32 path")
-    for label in fp32:
-        res = results[label]["result"]
-        for j in range(3):
-            same = torch.equal(res[j].mask, oracle[j].mask)
-            dd = ((res[j].d - oracle[j].d).abs().max()
-                  / oracle[j].d.abs().max()).item()
-            log(f"  {label} mode {j}: mask == oracle {same}, d rel diff "
-                f"{dd:.3e}, sweeps {res[j].power_iters_run} vs "
-                f"{oracle[j].power_iters_run}")
-            if not same:
-                checks.failures.append(f"{label} mode {j}: mask differs")
-    from repro_torch.core import MSCConfig
+    mf_oracle = results["flat einsum fp32 (oracle)"]
+    gram_oracle = results["flat einsum gram fp32 (oracle)"]
+    for label in ("flat+kernels fp32", "sequential+kernels fp32"):
+        for j in hold(torch, checks, label, results[label], mf_oracle,
+                      "oracle", chunk):
+            log(f"  sweeps diverge ({label}, mode {j}); gate values per "
+                "chunk (fires at <= power_tol 1e-2):")
+            for name, c in ((label, cfg.with_(use_kernels=True)),
+                            ("oracle", cfg)):
+                log(f"    {name}: {gate_trace(torch, c)[j]}")
+    for label in ("flat+kernels gram fp32", "sequential+kernels gram fp32",
+                  "flat einsum gram fp32 (oracle)"):
+        if "oracle" not in label:
+            hold(torch, checks, label, results[label], gram_oracle,
+                 "gram oracle", chunk)
+        hold(torch, checks, label, results[label], mf_oracle,
+             "matrix-free oracle", chunk)
+    return launches, results
 
-    l = M // 10
-    cfg = MSCConfig(epsilon=0.5 / (M - l) ** 2, max_extraction_iters=M)
-    for label in fp32:
-        res = results[label]["result"]
-        for j in range(3):
-            gap = abs(res[j].power_iters_run - oracle[j].power_iters_run)
-            if gap > cfg.power_check_every:
-                checks.failures.append(f"{label} mode {j}: sweeps more than "
-                                       "one gate chunk from the oracle")
-            if gap:
-                log(f"  sweeps diverge ({label}, mode {j}); gate values per "
-                    "chunk (fires at <= power_tol 1e-2):")
-                for name, c in ((label, cfg.with_(use_kernels=True)),
-                                ("oracle", cfg)):
-                    log(f"    {name}: {gate_trace(torch, c)[j]}")
-    return launches["flat+kernels fp32"]
+
+def phase_batched(torch, checks, singles):
+    """--batch 2 at m = 1000 with and without --gram, each request held
+    to the single-tensor flat run of its seed."""
+    def argv(seed, *extra):
+        return ["--m", str(M), "--gamma", str(GAMMA), "--seed", str(seed),
+                "--device", DEVICE, "--kernels", *extra]
+
+    chunk = main_cfg().power_check_every
+    launches = {}
+    for solver, flag in (("", []), ("gram ", ["--gram"])):
+        label = f"batch 2 flat+kernels {solver}fp32"
+        seed1 = f"flat+kernels {solver}fp32 seed 1"
+        out, _ = drive(torch, seed1, argv(SEED + 1, *flag))
+        singles[seed1] = out[0]["result"]
+        out, counts = drive(torch, label, argv(SEED, "--batch", "2", *flag))
+        launches[label] = counts
+        cold, warm = out["stats_cold"], out["stats_warm"]
+        log(f"  cold {out['cold']:.3f} s, warm {out['warm']:.3f} s, "
+            f"looped-warm {out['loop_warm']:.3f} s, speedup="
+            f"{out['loop_warm'] / out['warm']:.2f}x, compiles "
+            f"{cold.compiles} cold / {warm.compiles} warm (first dispatches "
+            "of a bucket: bookkeeping, eager PyTorch compiles nothing)")
+        # the engine returns host results and keeps no device state: a
+        # run that leaves device memory allocated (a cached buffer, a gram
+        # held by a closure) fails here
+        if (out["kept_cold"], out["kept_warm"]) != (0, 0):
+            checks.failures.append(
+                f"{label}: device memory left allocated, {out['kept_cold']} B "
+                f"by the cold run and {out['kept_warm']} B by the warm run")
+        solve = "batched_gram" if flag else "power_iter"
+        for n in (solve, "abs_rowsum"):
+            if counts[n] == 0:
+                checks.failures.append(f"{label}: {n} never launched")
+        for i, res in enumerate(out["results"]):
+            one = singles[f"flat+kernels {solver}fp32" + (" seed 1" if i
+                                                          else "")]
+            hold(torch, checks, f"{label} req {i}", res, one,
+                 f"single-tensor run of seed {i}", chunk)
+    return launches
 
 
 def main() -> int:
@@ -391,27 +545,39 @@ def main() -> int:
     smi = phase_card(torch)
     phase_build()
     rows = phase_kernels(torch, checks)
-    launches = phase_main_path(torch, checks)
+    launches, singles = phase_main_path(torch, checks)
+    launches.update(phase_batched(torch, checks, singles))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:
             print(f"FAIL {f}", file=sys.stderr)
         return 1
 
+    # kernel: (source, TPU kernel it replaces, the main-path run whose
+    # launch count is reported)
     source = {"power_iter": ("src/repro_torch/kernels/csrc/power_iter.cu",
-                             "src/repro/kernels/power_iter.py:48"),
+                             "src/repro/kernels/power_iter.py:48",
+                             "flat+kernels fp32"),
               "abs_rowsum": ("src/repro_torch/kernels/csrc/ring.cu",
-                             "src/repro/kernels/ring.py:29")}
+                             "src/repro/kernels/ring.py:29",
+                             "flat+kernels fp32"),
+              "batched_gram": ("src/repro_torch/kernels/csrc/gram.cu",
+                               "src/repro/kernels/gram.py:23",
+                               "flat+kernels gram fp32")}
     kernels = []
-    for name, (src, replaces) in source.items():
+    for name, (src, replaces, path) in source.items():
         row = rows[(name, "float32")]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches[path][name],
             "max_abs_err": checks.max_abs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "bf16_ms": rows[(name, "bfloat16")]["ms"],
+            "bf16_bound_ms": rows[(name, "bfloat16")]["bound_ms"],
+            "launches_path": path,
+            "launches_by_path": {k: v[name] for k, v in launches.items()
+                                 if v[name]},
             "card": smi})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

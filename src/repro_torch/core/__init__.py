@@ -1,8 +1,9 @@
 """repro_torch.core — Multi-Slice Clustering on torch tensors.
 
 Counterpart of `repro.core` for the ported slice: types, statistics,
-metrics, extraction, synthetic data, the matrix-free eigensolver, the
-sequential entry point and the one-device flat schedule.
+metrics, extraction, synthetic data, the matrix-free and explicit-gram
+eigensolvers, the sequential entry point, and the one-device flat
+schedule with its request-batched form.
 """
 from .types import MSCConfig, MSCResult, ModeResult, PlantedSpec, resolve_device
 from .synthetic import make_planted_tensor, planted_factors, planted_masks
@@ -26,6 +27,11 @@ from .stats import (
     tw_threshold,
     wishart_mu_sigma,
 )
-from .power_iter import power_iteration_matrix_free, top_eigenpairs
+from .power_iter import (
+    power_iteration_gram,
+    power_iteration_matrix_free,
+    power_iteration_on_gram,
+    top_eigenpairs,
+)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,7 +1,10 @@
 """Batched top-eigenpair extraction for slice covariances (paper §III-C).
 
-Counterpart of `repro/core/power_iter.py`, matrix-free path: for each
-slice T_i (r × c) iterate v ← Tᵀ(T v) without forming C_i = T_iᵀT_i.
+Counterpart of `repro/core/power_iter.py`.  Two paths:
+
+* explicit gram (paper-faithful, Alg. 1): form C_i = T_iᵀT_i once
+  (`batched_gram`), then iterate v ← C_i v;
+* matrix-free: iterate v ← Tᵀ(T v) without forming C_i.
 
 Adaptive gate: when `tol > 0` the sweep count is a cap.  Every
 `check_every` sweeps the solver measures the λ-weighted Rayleigh residual
@@ -15,7 +18,9 @@ once per chunk.
 
 Precision policy `bf16_fp32`: operands of T v and Tᵀ(T v) are rounded
 to bf16 and multiplied and summed in fp32; normalization, the gate and
-the final Rayleigh quotient stay fp32.
+the final Rayleigh quotient stay fp32.  On the gram path the formation
+rounds only T to bf16 (C is summed and kept in fp32), the iteration
+rounds C and v to bf16, and λ = vᵀCv uses the fp32 C.
 """
 from __future__ import annotations
 
@@ -24,10 +29,6 @@ import dataclasses
 import torch
 
 PRECISIONS = ("fp32", "bf16_fp32")
-
-GRAM_TODO = ("matrix_free=False (the explicit gram) is not ported yet: "
-             "ROADMAP.md, queue 2 item 5 (kernels/gram.py:_gram_kernel)")
-
 
 def compute_dtype(precision: str) -> torch.dtype:
     """Operand dtype of the precision policy ("fp32" | "bf16_fp32")."""
@@ -192,7 +193,9 @@ def build_chunk_fn(slices: torch.Tensor, cfg):
     """(chunk_fn, k): the gate-chunk body `step_chunk` advances, chosen by
     cfg.use_kernels (fused CUDA chunk) or the einsum probe."""
     if not cfg.matrix_free:
-        raise NotImplementedError(GRAM_TODO)
+        raise ValueError("chunk-resumable solves require matrix_free=True "
+                         "(the explicit gram has no persistent-operand "
+                         "form yet)")
     k = max(1, min(cfg.power_check_every, cfg.power_iters))
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
@@ -214,13 +217,60 @@ def power_iteration_matrix_free(slices: torch.Tensor, n_iters: int = 60,
     return rayleigh_fp32(slices, v), v, iters
 
 
+def power_iteration_gram(slices: torch.Tensor, n_iters: int = 60,
+                         tol: float = 0.0, check_every: int = 6,
+                         precision: str = "fp32", use_kernel: bool = False,
+                         c_valid=None):
+    """Paper-faithful path: form C_i = T_iᵀT_i explicitly, then iterate.
+
+    slices (b, r, c) or request-batched (B, b, r, c).  C is summed and
+    stored in fp32 (the `batched_gram` kernel when use_kernel, else a
+    plain fp32 product of the precision-policy operands).  Returns
+    (lambdas (..., b), vectors (..., b, c), iters with the request shape).
+    """
+    s = slices.to(compute_dtype(precision))
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+
+        gram = kops.batched_gram(s.contiguous(), out_dtype=torch.float32)
+    else:
+        gram = s.float().transpose(-1, -2) @ s.float()
+    del s  # a bf16 operand copy is not needed while iterating
+    return power_iteration_on_gram(gram, n_iters=n_iters, tol=tol,
+                                   check_every=check_every,
+                                   precision=precision, c_valid=c_valid)
+
+
+def power_iteration_on_gram(gram: torch.Tensor, n_iters: int = 60,
+                            tol: float = 0.0, check_every: int = 6,
+                            precision: str = "fp32", c_valid=None):
+    """Power iteration given covariance matrices (..., b, c, c).
+
+    The matvec is a plain product on C with precision-policy operands
+    (C and v rounded to bf16 under bf16_fp32) and fp32 sums; λ = vᵀCv
+    on the fp32 C whatever the precision."""
+    dt = compute_dtype(precision)
+    g = gram.to(dt).float()  # bf16-rounded copy; in fp32 gram itself
+
+    def matvec(v):
+        return (g @ v.to(dt).float().unsqueeze(-1)).squeeze(-1)
+
+    v = _init_vectors(gram.shape[:-2], gram.shape[-1], torch.float32,
+                      c_valid, device=gram.device)
+    v, iters = _run_adaptive(matvec, v, n_iters, tol, check_every)
+    del g, matvec
+    cv = (gram.float() @ v.unsqueeze(-1)).squeeze(-1)
+    return torch.sum(v * cv, dim=-1), v, iters
+
+
 def top_eigenpairs(slices: torch.Tensor, cfg, c_valid=None):
-    """Dispatch on MSCConfig.  Returns (lambdas, vectors, iters)."""
-    if not cfg.matrix_free:
-        raise NotImplementedError(GRAM_TODO)
+    """Dispatch on MSCConfig: matrix_free / use_kernels select the path.
+    Returns (lambdas (..., b), vectors (..., b, c), iters per request)."""
     kw = dict(n_iters=cfg.power_iters, tol=cfg.power_tol,
               check_every=cfg.power_check_every, precision=cfg.precision,
               c_valid=c_valid)
+    if not cfg.matrix_free:
+        return power_iteration_gram(slices, use_kernel=cfg.use_kernels, **kw)
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
 

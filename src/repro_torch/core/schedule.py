@@ -6,6 +6,13 @@ covers the one-device case: the slice dim needs no padding, the λ max
 and the convergence gate need no collective, and both epilogues reduce
 to one `_chunk_rowsum(V, V)` over the whole V, as the reference does
 at one shard.  More than one device is ROADMAP queue 1 item 9.
+
+Request batching: `run_mode_batched` / `finalize_mode_batched` run B
+independent requests, bucket-padded to one (B, M, R, C) shape, through
+the same body.  Every reduction stays per request (λ max, the gate, the
+epilogue's block-diagonal |V Vᵀ| row-sum), padded slices are masked by
+`valid`, and padded columns are kept at zero by masking the start
+vectors to each request's true column count.
 """
 from __future__ import annotations
 
@@ -95,3 +102,35 @@ class ModeSchedule:
                                      self.cfg.max_extraction_iters)
         return ModeResult(mask=mask[:m], d=d[:m], lambdas=lam[:m],
                           n_iters=n_it, power_iters_run=int(iters.max()))
+
+    def run_mode_batched(self, slices: torch.Tensor, m_req: torch.Tensor,
+                         c_req: torch.Tensor):
+        """One mode for a bucket of B requests.
+
+        slices (B, M, R, C): bucket-padded slice-major unfoldings, request
+        i's data in the leading (m_req[i], r, c_req[i]) corner and zeros
+        beyond.  m_req / c_req (B,) int: true slice and column counts
+        (rows need no bound: zero rows add nothing to any contraction).
+        Returns (d, lam, iters (B, 1), valid (B, M)) at the padded size.
+        """
+        m = slices.shape[1]
+        valid = (torch.arange(m, device=slices.device)[None, :]
+                 < m_req.to(slices.device)[:, None])
+        d, lam, iters = self.mode_local(
+            slices, valid, c_valid=c_req.to(slices.device)[:, None])
+        return d, lam, iters, valid
+
+    def finalize_mode_batched(self, d, lam, iters, valid) -> ModeResult:
+        """Extraction per request (a loop over the request dim).  Fields
+        keep the leading B dim at the padded size; `n_iters` and
+        `power_iters_run` are per-request lists, never maxed across
+        requests."""
+        masks, n_its = [], []
+        for dd, vv in zip(d, valid):
+            mask, n_it = extract_cluster(dd, self.cfg.epsilon, vv,
+                                         self.cfg.max_extraction_iters)
+            masks.append(mask)
+            n_its.append(n_it)
+        return ModeResult(mask=torch.stack(masks), d=d, lambdas=lam,
+                          n_iters=n_its,
+                          power_iters_run=torch.amax(iters, dim=-1).tolist())

@@ -23,13 +23,14 @@ class MSCConfig:
       rounds up to a multiple of power_check_every.
     power_check_every: sweeps between gate probes (one host sync each).
     precision: "fp32" or "bf16_fp32" (bf16 operands, fp32 accumulation).
-    matrix_free: iterate v ← Tᵀ(T v) without forming TᵀT.  False (the
-      explicit gram) is not ported yet.
+    matrix_free: iterate v ← Tᵀ(T v) without forming TᵀT; False forms
+      the explicit gram C_i = T_iᵀT_i first (paper Alg. 1).
     epilogue: "allgather" or "ring"; on one device both are a single
       |V Vᵀ| row-sum.
     max_extraction_iters: cap on the trimming loop (0 → m).
-    use_kernels: route the eigensolve and the flat schedule's epilogue
-      through the CUDA kernels (their plain versions on the CPU).
+    use_kernels: route the eigensolve (power iteration or gram
+      formation) and the flat schedule's epilogue through the CUDA
+      kernels (their plain versions on the CPU).
     block_r / block_i / block_j: tile hints of the reference's Pallas
       kernels.  Numerics-neutral; the CUDA kernels size their tiles
       from shared memory and ignore them.
@@ -62,6 +63,8 @@ class ModeResult:
     mask: bool (m,) cluster membership; d: fp32 (m,) marginal sums;
     lambdas: fp32 (m,) top eigenvalues; n_iters: int trimming
     iterations; power_iters_run: int realized power-iteration sweeps.
+    A request-batched result (`build_msc_batched`) has a leading B dim
+    on the tensors and one int per request in lists for the counts.
     """
 
     mask: torch.Tensor

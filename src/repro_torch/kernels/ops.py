@@ -9,14 +9,22 @@ from __future__ import annotations
 
 import torch
 
+from . import gram as _gram
 from . import power_iter as _pi
 from . import ring as _ring
 
 
-def batched_gram(slices, **kw):
-    raise NotImplementedError(
-        "batched_gram (kernels/gram.py:_gram_kernel) is not ported yet: "
-        "ROADMAP.md, queue 2 item 5")
+def batched_gram(slices: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """Batched slice covariance C_i = T_iᵀT_i (see gram.py).
+
+    A leading request dim (B, b, r, c) flattens into the kernel's slice
+    axis and unflattens on exit."""
+    lead = slices.shape[:-3]
+    if lead:
+        flat = batched_gram(slices.reshape((-1,) + slices.shape[-2:]),
+                            out_dtype=out_dtype)
+        return flat.reshape(lead + (slices.shape[-3],) + flat.shape[1:])
+    return _gram.batched_gram(slices, out_dtype=out_dtype)
 
 
 def flash_attention(q, k, v, **kw):

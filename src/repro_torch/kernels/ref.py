@@ -7,8 +7,9 @@ fp32.  `torch.einsum` on bf16 tensors would return bf16, so the bf16
 operands enter an fp32 product as `x.to(bfloat16).float()`, the plain
 form of `preferred_element_type=float32`.
 
-The kernel wrappers (`power_iter.py`, `ring.py`) call these for tensors
-on the CPU; `chip_smoke.py` holds each kernel against them on the card.
+The kernel wrappers (`power_iter.py`, `ring.py`, `gram.py`) call these
+for tensors on the CPU; `chip_smoke.py` holds each kernel against them
+on the card.
 """
 from __future__ import annotations
 
@@ -84,3 +85,14 @@ def abs_rowsum(a: torch.Tensor, b: torch.Tensor,
     """
     d = torch.abs(a.float() @ b.float().transpose(-1, -2)).sum(dim=-1)
     return d if acc is None else acc.float() + d
+
+
+def batched_gram(slices: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """C_i = T_iᵀ T_i: (..., r, c) → (..., c, c).
+
+    Operands keep the input dtype (fp32 or bf16, upcast exactly for the
+    product), every product and sum is fp32, and the result is cast to
+    `out_dtype` (default: the input dtype), as the Pallas kernel does.
+    """
+    s = slices.float()
+    return (s.transpose(-1, -2) @ s).to(out_dtype or slices.dtype)

@@ -1,14 +1,20 @@
 """MSC command line on torch — counterpart of `repro/launch/msc_run.py`.
 
 Generates the paper's planted rank-1 tensor (§IV) on the device, runs
-MSC (the sequential entry point or the one-device flat schedule) and reports
+MSC (the sequential entry point or the one-device flat schedule, either
+eigensolver: matrix-free or the explicit gram with `--gram`) and reports
 recovery rate, similarity index (Eq. 6), cluster sizes, realized power
 sweeps and wall time, with the same output lines as the reference.
+`--batch B` serves B planted requests (seeds seed … seed+B−1) through
+MSCServeEngine in one dispatch and compares warm time with a loop of
+single-request dispatches.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.msc_run --m 1000 --kernels
+  PYTHONPATH=src python -m repro_torch.launch.msc_run --m 1000 --kernels \\
+      --gram --batch 2
   PYTHONPATH=src python -m repro_torch.launch.msc_run --m 24 --device cpu \\
-      --schedule sequential
+      --schedule sequential --gram
 """
 from __future__ import annotations
 
@@ -54,11 +60,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=("fp32", "bf16_fp32"),
                     help="eigensolve operand precision policy")
     ap.add_argument("--gram", action="store_true",
-                    help="paper-faithful explicit covariance (not ported)")
+                    help="paper-faithful explicit covariance (default: "
+                         "matrix-free, beyond-paper)")
     ap.add_argument("--kernels", action="store_true",
                     help="route hot spots through the CUDA kernels")
     ap.add_argument("--batch", type=int, default=0,
-                    help="batched serving (not ported)")
+                    help="serve this many independent planted requests "
+                         "through MSCServeEngine in one batched dispatch "
+                         "instead of one tensor; flat schedule only")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -67,17 +76,85 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace) -> list:
+def _peak_gib(dev) -> str:
+    """' peak_mem=X GiB' on a card (max_memory_allocated since the last
+    reset), '' on the CPU."""
+    if dev.type != "cuda":
+        return ""
+    return f" peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}GiB"
+
+
+def _allocated(dev) -> int:
+    """Bytes of live device tensors (0 on the CPU)."""
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _timed(dev, fn):
+    """(fn(), host seconds around work that ends in a device sync)."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (
+        lambda _: None)
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev) -> dict:
+    """--batch B: serve B independent planted requests in one dispatch
+    and report per-request quality, cold / warm / looped-warm times, the
+    engine's compile counts and, on a card, the device memory each run
+    left allocated.  Returns {"results", "recs", "sweeps", "cold",
+    "warm", "loop_warm", "stats_cold", "stats_warm", "kept_cold",
+    "kept_warm"}."""
+    from repro_torch.serving import MSCServeEngine
+
+    tensors = [make_planted_tensor(
+        torch.Generator(device=dev).manual_seed(args.seed + i), spec)
+        for i in range(args.batch)]
+    true_masks = planted_masks(spec, device=dev)
+    engine = MSCServeEngine(cfg, max_batch=args.batch, device=dev)
+    _reset_peak(dev)
+    held = _allocated(dev)
+    results, cold = _timed(dev, lambda: engine.run(tensors))
+    stats_cold = engine.stats
+    kept_cold = _allocated(dev) - held
+    _, warm = _timed(dev, lambda: engine.run(tensors))
+    stats_warm = engine.stats.delta(stats_cold)
+    kept_warm = _allocated(dev) - held - kept_cold
+    peak = _peak_gib(dev)
+    recs = [float(recovery_rate(true_masks, [r[j].mask for j in range(3)]))
+            for r in results]
+    sweeps = [[r[j].power_iters_run for j in range(3)] for r in results]
+    for i, (rec, sw) in enumerate(zip(recs, sweeps)):
+        print(f"  req {i}: rec={rec:.3f} "
+              f"sizes={[r.size for r in results[i].modes]} sweeps={sw}")
+    loop = MSCServeEngine(cfg, max_batch=1, device=dev)
+    loop.run(tensors)
+    _, loop_warm = _timed(dev, lambda: loop.run(tensors))
+    print(f"mean rec={np.mean(recs):.3f} B={args.batch} "
+          f"cold={cold:.3f}s warm={warm:.3f}s "
+          f"looped-warm={loop_warm:.3f}s speedup={loop_warm / warm:.2f}x "
+          f"(compiles: {stats_cold.compiles} cold, "
+          f"{stats_warm.compiles} warm){peak}")
+    if dev.type == "cuda":
+        print(f"device memory left allocated: {kept_cold} B by the cold "
+              f"run, {kept_warm} B more by the warm run")
+    return {"results": results, "recs": recs, "sweeps": sweeps,
+            "cold": cold, "warm": warm, "loop_warm": loop_warm,
+            "stats_cold": stats_cold, "stats_warm": stats_warm,
+            "kept_cold": kept_cold, "kept_warm": kept_warm}
+
+
+def run(args: argparse.Namespace):
     """Run the CLI's work and print its lines.  Returns one record per
-    repeat: {"result": MSCResult, "rec", "sim", "t"}."""
-    if args.gram:
-        raise NotImplementedError(
-            "--gram: the explicit gram is not ported yet (ROADMAP.md, "
-            "queue 2 item 5)")
-    if args.batch:
-        raise NotImplementedError(
-            "--batch: batched serving is not ported yet (ROADMAP.md, "
-            "queue 1 item 7)")
+    repeat, {"result": MSCResult, "rec", "sim", "t"}, or with --batch the
+    dict of `_run_batched`."""
     if args.mesh_shape not in (None, "1"):
         raise NotImplementedError(f"--mesh-shape {args.mesh_shape}: "
                                   f"{MULTI_DEVICE_TODO}")
@@ -90,18 +167,23 @@ def run(args: argparse.Namespace) -> list:
     spec = PlantedSpec.paper(m, gamma)
     cfg = MSCConfig(epsilon=eps, power_iters=args.power_iters,
                     power_tol=args.power_tol, precision=args.precision,
-                    matrix_free=True, epilogue=args.epilogue,
+                    matrix_free=not args.gram, epilogue=args.epilogue,
                     max_extraction_iters=m, use_kernels=args.kernels)
 
     print(f"MSC m={m}^3 gamma={gamma} eps={eps:.2e} l={l} "
-          f"schedule={args.schedule} matrix_free=True "
+          f"schedule={args.schedule} matrix_free={not args.gram} "
           f"power_tol={args.power_tol} precision={args.precision} "
           f"epilogue={args.epilogue} devices=1 device={dev}")
 
     if args.schedule == "sequential":
+        if args.batch:
+            raise SystemExit("--batch needs a parallel schedule (the "
+                             "serving engine runs the flat schedule)")
         run_fn = lambda t: msc_sequential(t, cfg, device=dev)  # noqa: E731
     else:
         print("mesh: {'slice': 1}")
+        if args.batch and args.schedule == "flat":
+            return _run_batched(cfg, spec, args, dev)
         run_fn = build_msc_parallel(cfg, schedule=args.schedule, device=dev,
                                     relayout=args.relayout)
 
@@ -110,13 +192,9 @@ def run(args: argparse.Namespace) -> list:
         gen = torch.Generator(device=dev).manual_seed(args.seed + r)
         tensor = make_planted_tensor(gen, spec)
         true_masks = planted_masks(spec, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        result = run_fn(tensor)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t = time.perf_counter() - t0
+        _reset_peak(dev)
+        result, t = _timed(dev, lambda: run_fn(tensor))
+        peak = _peak_gib(dev)
         pred = [mr.mask for mr in result.modes]
         rec = float(recovery_rate(true_masks, pred))
         c_mats = msc_similarity_matrices(tensor, cfg, device=dev)
@@ -125,7 +203,7 @@ def run(args: argparse.Namespace) -> list:
         sweeps = [mr.power_iters_run for mr in result.modes]
         print(f"  run {r}: rec={rec:.3f} sim={sim:.3f} "
               f"sizes={[mr.size for mr in result.modes]} "
-              f"t={t:.2f}s sweeps={sweeps}")
+              f"t={t:.2f}s sweeps={sweeps}{peak}")
         records.append({"result": result, "rec": rec, "sim": sim, "t": t})
 
     print(f"mean rec={np.mean([x['rec'] for x in records]):.3f} "

@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import gram as tgram  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import power_iter as tpik  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -176,8 +177,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 def test_unported_kernels_raise_with_roadmap_pointer():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.batched_gram(torch.zeros(1, 2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.flash_attention(None, None, None)
 
 
@@ -191,7 +190,8 @@ def cuda_device():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions(cuda_device):
     """Every CUDA kernel against its plain version on the card, at small
-    ragged shapes and in both dtypes; the launch counters move."""
+    ragged shapes and in both dtypes (batched_gram also request-batched
+    and with an fp32 result); the launch counters move."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in ("float32", "bfloat16"):
         for b, r, c in [(3, 37, 19), (5, 300, 257), (2, 1, 1000)]:
@@ -227,4 +227,15 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 _close(tring.abs_rowsum(a, b, ac).cpu().numpy(),
                        ref.abs_rowsum(a, b, ac).cpu().numpy(), dtype)
             assert tring.launches == n0 + 2
+        for shape in [(3, 37, 19), (2, 2, 300, 257), (4, 1, 1)]:
+            x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            x = x.to(cuda_device, TDT[dtype])
+            n0 = tgram.launches
+            for out in (None, torch.float32):
+                got = ops.batched_gram(x, out_dtype=out)
+                want = ref.batched_gram(x, out)
+                assert got.dtype == want.dtype and got.shape == want.shape
+                _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                       "float32" if out is not None else dtype)
+            assert tgram.launches == n0 + 2
     torch.cuda.synchronize()

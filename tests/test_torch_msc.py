@@ -12,8 +12,12 @@ largest reference entry.
   without kernels (the reference's flat kernel path does not run on
   this jax: `pallas_call` inside `shard_map` has no `vma`).
 * The prototype grid m ∈ {45, 60} × γ ∈ {20, 70, 150} × both
-  precisions: the port's sequential einsum path and its flat kernel
-  path against the reference's sequential einsum path.
+  precisions × both eigensolvers (matrix-free and the explicit gram):
+  the port's sequential einsum path and its flat kernel path against
+  the reference's sequential einsum path.
+* The explicit gram at m ∈ {16, 24}: sequential with kernels against
+  the reference's (the gram kernel in interpret mode), and the flat
+  schedule against the reference's flat einsum path.
 """
 import dataclasses
 import functools
@@ -68,8 +72,9 @@ def _assert_same(port, ref, precision):
 
 
 @functools.cache
-def _ref_sequential(m, gamma, precision, use_kernels):
-    cfg = _jcfg(m, precision=precision, use_kernels=use_kernels)
+def _ref_sequential(m, gamma, precision, use_kernels, matrix_free=True):
+    cfg = _jcfg(m, precision=precision, use_kernels=use_kernels,
+                matrix_free=matrix_free)
     return jax.device_get(jseq(jax.numpy.asarray(_tensor(m, gamma)), cfg))
 
 
@@ -98,12 +103,39 @@ def test_flat_one_device_matches_reference_flat(epilogue, use_kernels):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16_fp32"])
+@pytest.mark.parametrize("m,gamma", [(16, 40.0), (24, 40.0)])
+def test_gram_sequential_kernels_match_reference_kernels(m, gamma,
+                                                         precision):
+    ref = _ref_sequential(m, gamma, precision, True, matrix_free=False)
+    cfg = _port_cfg(_jcfg(m, precision=precision, use_kernels=True,
+                          matrix_free=False))
+    port = msc_sequential(bridge.tensor_from_numpy(_tensor(m, gamma)), cfg,
+                          device="cpu")
+    _assert_same(port, ref, precision)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["einsum", "kernels"])
+@pytest.mark.parametrize("m", [16, 24])
+def test_gram_flat_one_device_matches_reference_flat(m, use_kernels):
+    jcfg = _jcfg(m, matrix_free=False)
+    x = _tensor(m, 40.0)
+    ref = jax.device_get(jpar(make_msc_mesh("flat"), jcfg)(
+        jax.numpy.asarray(x)))
+    run = build_msc_parallel(_port_cfg(jcfg, use_kernels=use_kernels),
+                             device="cpu")
+    _assert_same(run(bridge.tensor_from_numpy(x)), ref, "fp32")
+
+
+@pytest.mark.parametrize("matrix_free", [True, False],
+                         ids=["matrix_free", "gram"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16_fp32"])
 @pytest.mark.parametrize("gamma", [20.0, 70.0, 150.0])
 @pytest.mark.parametrize("m", [45, 60])
-def test_prototype_grid(m, gamma, precision):
-    ref = _ref_sequential(m, gamma, precision, False)
+def test_prototype_grid(m, gamma, precision, matrix_free):
+    ref = _ref_sequential(m, gamma, precision, False, matrix_free)
     x = bridge.tensor_from_numpy(_tensor(m, gamma))
-    jcfg = _jcfg(m, precision=precision)
+    jcfg = _jcfg(m, precision=precision, matrix_free=matrix_free)
     _assert_same(msc_sequential(x, _port_cfg(jcfg), device="cpu"), ref,
                  precision)
     run = build_msc_parallel(_port_cfg(jcfg, use_kernels=True), device="cpu")

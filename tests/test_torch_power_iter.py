@@ -125,7 +125,12 @@ def test_top_eigenpairs_dispatch():
     lam_k, v_k, it_k = tpi.top_eigenpairs(x, cfg.with_(use_kernels=True))
     assert int(it) == int(it_k)
     torch.testing.assert_close(lam_k, lam, rtol=3e-5, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpi.top_eigenpairs(x, cfg.with_(matrix_free=False))
+    for use_kernels in (False, True):
+        gram = cfg.with_(matrix_free=False, use_kernels=use_kernels)
+        lam_g, v_g, it_g = tpi.top_eigenpairs(x, gram)
+        want = tpi.power_iteration_gram(x, n_iters=12, tol=cfg.power_tol,
+                                        check_every=cfg.power_check_every)
+        assert int(it_g) == int(want[2])
+        torch.testing.assert_close(lam_g, want[0], rtol=3e-5, atol=0)
     with pytest.raises(ValueError):
         tpi.compute_dtype("fp16")

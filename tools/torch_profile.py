@@ -2,16 +2,19 @@
 """Where the port's main path spends its time on the card.
 
     PYTHONPATH=src python tools/torch_profile.py [--m 1000] [--precision fp32]
+        [--schedule flat|sequential] [--gram]
 
 Builds the CLI's planted tensor (γ = m, seed 0, the CLI's default
-config with kernels) on the card, solves it once unprofiled (warm-up),
-then once under `torch.profiler` (CPU + CUDA activities), and prints the
-device time per kernel name, the launch counts, the solve's host wall
-time and the device's busy share (device kernel time over that wall
-time; device events only, so an operator and the kernels it launches
-are not counted twice), and the operators with the most device time by
-input shape.  Needs a CUDA card; prints the card's name and
-power limit first.
+config with kernels; `--gram` for the explicit-gram eigensolver) on the
+card, solves it once unprofiled (warm-up), then once under
+`torch.profiler` (CPU + CUDA activities), and prints the device time per
+kernel name, the launch counts, the solve's host wall time and the
+device's busy share (device kernel time over that wall time; device
+events only, so an operator and the kernels it launches are not counted
+twice), the device time by stage (gram formation, power sweeps and λ,
+similarity epilogue, unfolding copies and the rest, and the idle time),
+and the operators with the most device time by input shape.  Needs a
+CUDA card; prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -33,6 +36,25 @@ def _dev_us(e, self_only=False):
     return 0.0
 
 
+# stage of a device kernel, by the first substring of its name that matches
+STAGES = (("gram_kernel", "formation (batched_gram)"),
+          ("power_kernel", "sweeps (power_iter)"),
+          ("gemv", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
+          ("gemm", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
+          ("abs_rowsum", "epilogue (abs_rowsum)"),
+          ("copy", "unfolding copies and casts"),
+          ("elementwise", "elementwise, reductions, extraction"),
+          ("reduce", "elementwise, reductions, extraction"))
+
+
+def _stage(name: str) -> str:
+    low = name.lower()
+    for key, stage in STAGES:
+        if key in low:
+            return stage
+    return "other"
+
+
 def main(argv=None) -> int:
     import torch
     from torch.autograd import DeviceType
@@ -42,6 +64,8 @@ def main(argv=None) -> int:
     ap.add_argument("--m", type=int, default=1000)
     ap.add_argument("--precision", default="fp32")
     ap.add_argument("--schedule", default="flat")
+    ap.add_argument("--gram", action="store_true",
+                    help="explicit-gram eigensolver (paper Alg. 1)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
@@ -51,6 +75,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
 
+    from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import power_iter as kpi
     from repro_torch.kernels import ring as kring
     from repro_torch.core import (MSCConfig, PlantedSpec, build_msc_parallel,
@@ -58,7 +83,8 @@ def main(argv=None) -> int:
 
     m, l = args.m, max(1, args.m // 10)
     cfg = MSCConfig(epsilon=0.5 / (m - l) ** 2, precision=args.precision,
-                    max_extraction_iters=m, use_kernels=True)
+                    max_extraction_iters=m, use_kernels=True,
+                    matrix_free=not args.gram)
     tensor = make_planted_tensor(
         torch.Generator(device="cuda").manual_seed(0),
         PlantedSpec.paper(m, float(m)))
@@ -66,7 +92,7 @@ def main(argv=None) -> int:
              if args.schedule == "flat"
              else lambda t: msc_sequential(t, cfg, device="cuda"))
     solve(tensor)  # warm-up: kernel build, allocator, cuBLAS handles
-    kpi.launches = kring.launches = 0
+    kpi.launches = kring.launches = kgram.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -77,14 +103,25 @@ def main(argv=None) -> int:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     total_us = sum(_dev_us(e, self_only=True) for e in events)
-    print(f"profiled solve (m={m}, {args.schedule}, {args.precision}): wall "
+    print(f"profiled solve (m={m}, {args.schedule}, {args.precision}, "
+          f"{'gram' if args.gram else 'matrix-free'}): wall "
           f"{wall * 1e3:.1f} ms, device kernel time {total_us / 1e3:.1f} ms, "
           f"busy share {total_us / 1e6 / wall:.3f}, sweeps "
           f"{[mr.power_iters_run for mr in result.modes]}, launches "
-          f"power_iter={kpi.launches} abs_rowsum={kring.launches}")
+          f"power_iter={kpi.launches} abs_rowsum={kring.launches} "
+          f"batched_gram={kgram.launches}")
     if total_us == 0:
         print("device time: not measured (the profiler saw no device "
               "activity)")
+    stages = {}
+    for e in events:
+        st = _stage(e.key)
+        stages[st] = stages.get(st, 0.0) + _dev_us(e, self_only=True)
+    print("device time by stage:")
+    for st, us in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / 1e3:9.2f} ms  {st}")
+    print(f"  {wall * 1e3 - total_us / 1e3:9.2f} ms  idle (wall minus "
+          "device kernel time)")
     top = sorted(events, key=lambda e: _dev_us(e, True), reverse=True)[:12]
     for e in top:
         us = _dev_us(e, True)
