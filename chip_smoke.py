@@ -33,6 +33,23 @@ line):
    flat run of its seed, with sweeps equal or one gate chunk apart; the
    engine must build 1 runner cold and 0 warm.  Prints the warm and
    looped-warm times, the speedup and the peak device memory.
+6. `flash_attention` against its plain version at the LM path's shapes
+   (whisper-tiny at batch 16: the encoder's self-attention and the
+   prefill and decode cross-attention over 1500 frames), at gemma2-27b's
+   (b·h = 32, s = 8192, d = 128, causal, softcap 50, global and with
+   the 4096 window) and on small ragged cases with q_offset, in fp32
+   and bf16; then its times, bound, plain time and the time of
+   `F.scaled_dot_product_attention` where it computes the same function.
+7. LM serving: `launch/serve.py --arch whisper-tiny --batch 16
+   --prompt-len 32 --gen 16 --attn-impl pallas` at full size (random
+   weights from seed 0), twice, each launching `flash_attention` exactly
+   n_enc_layers + n_layers + n_layers·gen = 72 times and no other
+   kernel; the same with the plain route (`--attn-impl chunked`) for
+   its times.  Then the kernel route against the plain route on the
+   same weights by teacher forcing (both fed the plain route's tokens):
+   prefill and per-step logits within 2e-2 of max |logit| in bf16 and
+   1e-4 in fp32, and identical greedy tokens in fp32.  Prints prefill
+   ms, decode ms per token, tokens/s and the peak device memory.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -356,15 +373,17 @@ def gate_trace(torch, cfg):
     return out
 
 
-KERNELS = ("power_iter", "abs_rowsum", "batched_gram")
+KERNELS = ("power_iter", "abs_rowsum", "batched_gram", "flash_attention")
 
 
 def counters():
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import power_iter as kpi
     from repro_torch.kernels import ring as kring
 
-    return {"power_iter": kpi, "abs_rowsum": kring, "batched_gram": kgram}
+    return {"power_iter": kpi, "abs_rowsum": kring, "batched_gram": kgram,
+            "flash_attention": kfa}
 
 
 def drive(torch, label, argv):
@@ -524,6 +543,254 @@ def phase_batched(torch, checks, singles):
     return launches
 
 
+def _flash_work(torch, b, sq, skv, d, elt, kw):
+    """(bytes, flops) of one flash_attention call: q, k, v read once and o
+    written once; 4·d flops per (query, key) pair the masks keep."""
+    qpos = torch.arange(sq)[:, None] + kw.get("q_offset", 0)
+    kpos = torch.arange(skv)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool)
+    if kw.get("causal", True):
+        keep &= kpos <= qpos
+    if kw.get("window") is not None:
+        keep &= kpos > qpos - kw["window"]
+    pairs = int(keep.sum()) * b
+    return (2 * b * sq * d + 2 * b * skv * d) * elt, 4 * d * pairs
+
+
+def _plain_flash(torch, q, k, v, kw, group):
+    """The plain version over `group` rows of b at a time (the gemma2
+    shape's fp32 scores are 8.6 GB at once)."""
+    from repro_torch.kernels import ref
+
+    return torch.cat([ref.flash_attention(q[i:i + group], k[i:i + group],
+                                          v[i:i + group], **kw)
+                      for i in range(0, q.shape[0], group)])
+
+
+# whisper-tiny at the serving phase's batch: 16 sequences x 6 heads
+LM_B, LM_PROMPT, LM_GEN = 16, 32, 16
+LM_RUN = "lm serve whisper-tiny pallas"
+SHORT = {"float32": "fp32", "bfloat16": "bf16"}
+
+# (label, b, sq, skv, d, options, timed, rows of b per plain call): the
+# LM path's three calls (b = 16 sequences x 6 heads, 1500 frames),
+# gemma2-27b's attention, and small ragged cases
+FLASH_CASES = [
+    ("whisper encoder self", LM_B * 6, 1500, 1500, 64, dict(causal=False),
+     True, LM_B * 6),
+    ("whisper prefill cross", LM_B * 6, LM_PROMPT, 1500, 64,
+     dict(causal=False), True, LM_B * 6),
+    ("whisper decode cross", LM_B * 6, 1, 1500, 64, dict(causal=False),
+     True, LM_B * 6),
+    ("gemma2-27b global", 32, 8192, 8192, 128,
+     dict(causal=True, softcap=50.0), True, 4),
+    ("gemma2-27b local", 32, 8192, 8192, 128,
+     dict(causal=True, softcap=50.0, window=4096), True, 4),
+    ("ragged q_offset", 5, 70, 133, 32, dict(causal=True, q_offset=63),
+     False, 5),
+    ("ragged window", 3, 100, 300, 128,
+     dict(causal=True, q_offset=200, window=77, softcap=30.0), False, 3),
+    ("ragged decode", 7, 1, 100, 256, dict(causal=True, q_offset=99),
+     False, 7),
+]
+
+
+def phase_flash(torch, checks):
+    """flash_attention against its plain version at the LM path's shapes
+    and gemma2-27b's, then its times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # fp32 output: sums in another order; bf16 output: an fp32 value on
+    # the other side of a bf16 rounding boundary moves by 2^-8
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    log("flash_attention against its plain version (tolerance relative to "
+        "the largest |plain| entry: 1e-5 for fp32, 1e-2 for bf16 outputs)")
+    rows, shapes = {}, {}
+    for label, b, sq, skv, d, kw, timed, group in FLASH_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            q = torch.randn((b, sq, d), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, skv, d), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, skv, d), generator=gen, device=dev).to(dt)
+            got = kfa.flash_attention(q, k, v, **kw)
+            want = _plain_flash(torch, q, k, v, kw, group)
+            checks.compare("flash_attention", f"flash_attention {name} "
+                           f"{label} q {tuple(q.shape)} kv {tuple(k.shape)} "
+                           f"{kw}", (got.float(),), (want.float(),),
+                           tol[dt])
+            del got, want
+            if not timed:
+                continue
+            n_bytes, flops = _flash_work(torch, b, sq, skv, d,
+                                         q.element_size(), kw)
+            bms, by = bound_ms(n_bytes, flops, name)
+            reps = 3 if sq > 4096 else 20
+            row = {
+                "ms": cuda_ms(torch, lambda: kfa.flash_attention(
+                    q, k, v, **kw), reps),
+                "plain_ms": cuda_ms(torch, lambda: _plain_flash(
+                    torch, q, k, v, kw, group), 3, 1),
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} {kw}",
+            }
+            if "softcap" not in kw and "window" not in kw:
+                # the same function (no mask but causality, no cap) as
+                # one library call; its flash path rounds P to the input
+                # dtype, so it is a yardstick and no oracle
+                causal = kw.get("causal", True)
+                row["library_ms"] = cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q[:, None], k[:, None], v[:, None],
+                        is_causal=causal), reps)
+            lib = ("n/a (no library call takes a softcap)"
+                   if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f} ms")
+            log(f"  time flash_attention {name} {label}: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library (F.scaled_dot_product_attention) {lib}, bound "
+                f"{bms:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
+                f"{flops:.3e} flops)")
+            shapes[f"{label} {name}"] = row
+            if label == "whisper encoder self":
+                rows[("flash_attention", name)] = row
+            del q, k, v
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    rows[("flash_attention", "shapes")] = shapes
+    return rows
+
+
+def drive_lm(torch, label, argv):
+    """One `serve` run with every launch count set to 0 just before it
+    and read just after.  Returns (what run() returned, counts)."""
+    from repro_torch.launch import serve
+
+    log(f"LM serving: {label}")
+    mods = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    out = serve.run(serve.parse_args(argv))
+    counts = {n: mod.launches for n, mod in mods.items()}
+    tm = out["timings"]
+    log(f"  wall {out['seconds']:.3f} s, prefill {tm['prefill_ms']:.3f} ms "
+        f"(encoder, prompt and first token), decode "
+        f"{tm['decode_ms'] / LM_GEN:.3f} ms per token "
+        f"({LM_B * LM_GEN / tm['decode_ms'] * 1e3:.1f} tok/s in decode, "
+        f"{LM_B * LM_GEN / out['seconds']:.1f} tok/s over the whole "
+        f"request), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, launches "
+        f"{counts}")
+    return out, counts
+
+
+def teacher_forced(torch, model, params, batch, tokens):
+    """Prefill and per-step logits of `model` fed `tokens` (B, n)."""
+    logits, cache = model.prefill(params, batch, max_len=LM_PROMPT + LM_GEN)
+    out = [logits]
+    for i in range(tokens.shape[1]):
+        logits, cache = model.decode_step(params, tokens[:, i:i + 1], cache,
+                                          LM_PROMPT + i)
+        out.append(logits)
+    return out
+
+
+def phase_lm(torch, checks, smi):
+    """whisper-tiny served through the kernel route: launch counts, times
+    (on the card `smi`), and the kernel route held to the plain route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    base = ["--arch", "whisper-tiny", "--batch", str(LM_B), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--device", DEVICE]
+    cfg = get_config("whisper-tiny")
+    want = cfg.n_enc_layers + cfg.n_layers + cfg.n_layers * LM_GEN
+    launches = {}
+    log(f"  card: {smi}")
+    for label, impl in ((LM_RUN, "pallas"), (LM_RUN + " (warm)", "pallas"),
+                        ("lm serve whisper-tiny chunked (plain)", "chunked")):
+        out, counts = drive_lm(torch, label, base + ["--attn-impl", impl])
+        launches[label] = counts
+        n = counts["flash_attention"]
+        expect = want if impl == "pallas" else 0
+        if n != expect:
+            checks.failures.append(f"{label}: flash_attention launched {n} "
+                                   f"times, not {expect}")
+        for other in KERNELS:
+            if other != "flash_attention" and counts[other]:
+                checks.failures.append(f"{label}: {other} ran off its path")
+        if tuple(out["tokens"].shape) != (LM_B, LM_GEN):
+            checks.failures.append(f"{label}: tokens {out['tokens'].shape}")
+    log(f"  flash_attention launches per request: {want} "
+        f"({cfg.n_enc_layers} encoder self-attention + {cfg.n_layers} "
+        f"prefill cross-attention + {cfg.n_layers} x {LM_GEN} decode "
+        "cross-attention)")
+
+    # the kernel route against the plain route on the same weights:
+    # teacher forcing feeds both the plain route's greedy tokens.  fp32:
+    # sums in another order, 1e-4 of max |logit|; bf16: an activation on
+    # the other side of a bf16 rounding boundary moves by 2^-8 and eight
+    # blocks carry it on, 2e-2 of max |logit|
+    dev = torch.device(DEVICE)
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    tol = {"bfloat16": 2e-2, "float32": 1e-4}
+    for cdt in ("bfloat16", "float32"):
+        plain = build_model(dataclasses.replace(cfg, compute_dtype=cdt,
+                                                attn_impl="chunked"))
+        kern = build_model(dataclasses.replace(cfg, compute_dtype=cdt,
+                                               attn_impl="pallas"))
+        batch = make_batch(plain.cfg, LM_B, LM_PROMPT, kind="serve",
+                           device=dev)
+        engine = ServeEngine(plain, params, LM_B, LM_PROMPT + LM_GEN)
+        toks = engine.generate(batch, LM_GEN)
+        want_l = teacher_forced(torch, plain, params, batch, toks)
+        got_l = teacher_forced(torch, kern, params, batch, toks)
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got_l, want_l)):
+            rel = ((g - w).abs().max() / w.abs().max()).item()
+            worst = max(worst, rel)
+            if not bool(torch.isfinite(g).all()) or rel > tol[cdt]:
+                checks.failures.append(
+                    f"teacher forcing {cdt} step {i}: logits rel diff "
+                    f"{rel:.3e} > {tol[cdt]:g} or non-finite")
+        log(f"  {'ok  ' if worst <= tol[cdt] else 'FAIL'} teacher forcing "
+            f"{cdt}: prefill and {LM_GEN} decode steps, max |kernel - plain| "
+            f"/ max |plain logit| = {worst:.3e} (tol {tol[cdt]:g})")
+        if cdt == "bfloat16":
+            # context for the bf16 tolerance: how far bf16 rounding alone
+            # moves the plain route (plain bf16 against plain fp32, on the
+            # same tokens and frames)
+            fp32 = build_model(dataclasses.replace(
+                cfg, compute_dtype="float32", attn_impl="chunked"))
+            ref_l = teacher_forced(torch, fp32, params, {
+                k: v.float() if v.is_floating_point() else v
+                for k, v in batch.items()}, toks)
+            floor = max(((w - r).abs().max() / r.abs().max()).item()
+                        for w, r in zip(want_l, ref_l))
+            log(f"       bf16 rounding alone: max |plain bf16 - plain fp32| "
+                f"/ max |logit| = {floor:.3e}")
+        if cdt == "float32":
+            k_toks = ServeEngine(kern, params, LM_B,
+                                 LM_PROMPT + LM_GEN).generate(batch, LM_GEN)
+            same = torch.equal(k_toks, toks)
+            log(f"  {'ok  ' if same else 'FAIL'} fp32 greedy tokens, kernel "
+                f"route == plain route: {same}")
+            if not same:
+                checks.failures.append("fp32 greedy tokens differ between "
+                                       "the kernel and the plain route")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -547,6 +814,8 @@ def main() -> int:
     rows = phase_kernels(torch, checks)
     launches, singles = phase_main_path(torch, checks)
     launches.update(phase_batched(torch, checks, singles))
+    rows.update(phase_flash(torch, checks))
+    launches.update(phase_lm(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:
@@ -564,21 +833,35 @@ def main() -> int:
               "batched_gram": ("src/repro_torch/kernels/csrc/gram.cu",
                                "src/repro/kernels/gram.py:23",
                                "flat+kernels gram fp32")}
+    source["flash_attention"] = (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:31", LM_RUN)
     kernels = []
     for name, (src, replaces, path) in source.items():
-        row = rows[(name, "float32")]
-        kernels.append({
+        # the row's own numbers are in the main path's dtype: fp32 for the
+        # MSC kernels, the LM's bf16 compute for flash_attention (its row
+        # carries the fp32 numbers and the other shapes beside them)
+        main, other = (("bfloat16", "float32") if name == "flash_attention"
+                       else ("float32", "bfloat16"))
+        row = rows[(name, main)]
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[path][name],
             "max_abs_err": checks.max_abs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "bf16_ms": rows[(name, "bfloat16")]["ms"],
-            "bf16_bound_ms": rows[(name, "bfloat16")]["bound_ms"],
+            "dtype": main, "shape": row.get("shape"),
+            f"{SHORT[other]}_ms": rows[(name, other)]["ms"],
+            f"{SHORT[other]}_bound_ms": rows[(name, other)]["bound_ms"],
             "launches_path": path,
             "launches_by_path": {k: v[name] for k, v in launches.items()
                                  if v[name]},
-            "card": smi})
+            "card": smi}
+        if name == "flash_attention":
+            entry["fp32_plain_ms"] = rows[(name, other)]["plain_ms"]
+            entry["fp32_library_ms"] = rows[(name, other)]["library_ms"]
+            entry["other_shapes"] = rows[(name, "shapes")]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

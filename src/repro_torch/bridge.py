@@ -1,7 +1,8 @@
 """State carried across from the JAX reference to the port.
 
 MSC has no weights: what carries over is the configuration, the input
-tensor and the eigensolver's carry.  Everything crosses as plain Python
+tensor and the eigensolver's carry.  The LM side carries its
+`ModelConfig` and its parameters.  Everything crosses as plain Python
 values or numpy arrays, so this module needs neither package's internals.
 """
 from __future__ import annotations
@@ -13,6 +14,8 @@ import torch
 
 from .core.power_iter import SolveState
 from .core.types import MSCConfig
+from .models import ModelConfig, model_defs
+from .models.params import build
 
 
 def config_from_fields(fields: dict) -> MSCConfig:
@@ -39,3 +42,37 @@ def solve_state_from_numpy(v, lam, resid, iters, done,
         resid=tensor_from_numpy(np.asarray(resid, np.float32), device),
         iters=tensor_from_numpy(np.asarray(iters, np.int32), device),
         done=tensor_from_numpy(np.asarray(done, bool), device))
+
+
+def lm_config_from_fields(fields: dict) -> ModelConfig:
+    """ModelConfig from `dataclasses.asdict` of the reference's
+    ModelConfig; a field the port does not know raises."""
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"unknown ModelConfig fields: {unknown}")
+    return ModelConfig(**fields)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu"):
+    """The port's parameter modules holding the reference's parameter
+    pytree (nested dicts and tuples of numpy arrays, e.g.
+    `jax.tree.map(np.asarray, params)`).  The reference's stacked
+    `layers` / `enc_layers` (a leading layer dim) become one module per
+    layer; every shape must match the port's defs."""
+
+    def make(d, path):
+        node, layer = tree, None
+        for key in path:
+            if isinstance(key, int) and isinstance(node, dict):
+                layer = key  # a stacked block: index its leaves' first dim
+            else:
+                node = node[key]
+        a = np.asarray(node) if layer is None else np.asarray(node)[layer]
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"parameter {'/'.join(map(str, path))}: shape "
+                             f"{a.shape}, the port's def {d.shape}")
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device, d.dtype)
+
+    return build(model_defs(cfg), make)

@@ -2,13 +2,14 @@
 
 A tensor on `cuda` runs the hand-written kernel or raises; only a tensor
 on the CPU takes the kernel's plain version (inside the wrappers in
-`power_iter.py` and `ring.py`).  There is no fallback from one to the
-other.
+`power_iter.py`, `ring.py`, `gram.py` and `flash_attention.py`).  There
+is no fallback from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
 from . import gram as _gram
 from . import power_iter as _pi
 from . import ring as _ring
@@ -27,10 +28,14 @@ def batched_gram(slices: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     return _gram.batched_gram(slices, out_dtype=out_dtype)
 
 
-def flash_attention(q, k, v, **kw):
-    raise NotImplementedError(
-        "flash_attention (kernels/flash_attention.py:_flash_kernel) is not "
-        "ported yet: ROADMAP.md, queue 2 item 6")
+def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
+                    window=None, softcap=None):
+    """Fused flash attention (see flash_attention.py); the kernel's tiles
+    are fixed by d, so the reference's block_q / block_k hints have no
+    counterpart."""
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                               q_offset=q_offset, window=window,
+                               softcap=softcap)
 
 
 def abs_rowsum(a: torch.Tensor, b: torch.Tensor, acc=None, *,

@@ -7,7 +7,8 @@ fp32.  `torch.einsum` on bf16 tensors would return bf16, so the bf16
 operands enter an fp32 product as `x.to(bfloat16).float()`, the plain
 form of `preferred_element_type=float32`.
 
-The kernel wrappers (`power_iter.py`, `ring.py`, `gram.py`) call these
+The kernel wrappers (`power_iter.py`, `ring.py`, `gram.py`,
+`flash_attention.py`) call these
 for tensors on the CPU; `chip_smoke.py` holds each kernel against them
 on the card.
 """
@@ -96,3 +97,35 @@ def batched_gram(slices: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """
     s = slices.float()
     return (s.transpose(-1, -2) @ s).to(out_dtype or slices.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: int = 0, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Attention with the flash kernel's masks, in fp32.
+
+    q (b, sq, d), k / v (b, skv, d) → (b, sq, d) in q's dtype.  Query row
+    i sits at global position q_offset + i; `causal` keeps keys at or
+    before it, `window` W only the last W of those; `softcap` t maps a
+    score s to t·tanh(s/t).  Masked scores are -1e30, and the result is
+    Σ p v / (Σ p + 1e-30) with p = exp(s − max s), as the kernel
+    normalizes it.
+    """
+    sq, d = q.shape[-2:]
+    skv = k.shape[-2]
+    scale = d ** -0.5 if scale is None else scale
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = (p @ v.float()) / (p.sum(dim=-1, keepdim=True) + 1e-30)
+    return out.to(q.dtype)

@@ -1,0 +1,330 @@
+"""Shared transformer layers — counterpart of `repro/models/layers.py`.
+
+Functions of (params, x, cfg, ...) → y as in the reference; `p` is a
+`ParamTree` read like the reference's dict.  The reference's activation
+sharding constraints have no counterpart on one device and are dropped.
+
+Attention implementations (cfg.attn_impl), dispatched under the
+reference's three conditions (`attention` below):
+  full    — materialized scores.
+  chunked — online softmax over KV chunks in plain PyTorch, GQA grouped
+            so repeated KV is never materialized.
+  pallas  — the hand-written CUDA kernel (`kernels/flash_attention.py`),
+            taken only without a KV cache and with an int position
+            offset: the encoder's self-attention and the cross-attention
+            of an encoder–decoder model; on the CPU the kernel's plain
+            version.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .params import ParamDef
+
+_NEG = -1e30
+
+# moe is not on the port's serving path yet
+MOE_TODO = ("mixture-of-experts layers are not ported yet: ROADMAP.md, "
+            "queue 1 item 12")
+
+
+# ---------------------------------------------------------------- norms ----
+def rmsnorm_defs(d: int):
+    return {"scale": ParamDef((d,), ("embed",), init="ones")}
+
+
+def rmsnorm(p, x, eps: float):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].float())).to(x.dtype)
+
+
+# ----------------------------------------------------------------- rope ----
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotate-half RoPE.  x: (B, S, H, dh); positions: (S,) or (B, S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    if positions.dim() == 1:
+        ang = positions[:, None].float() * freq[None, :]   # (S, half)
+        ang = ang[None, :, None, :]                        # (1,S,1,half)
+    else:
+        ang = positions[..., None].float() * freq          # (B,S,half)
+        ang = ang[:, :, None, :]
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ attention ----
+def padded_heads(cfg: ModelConfig) -> int:
+    """Query-head count including the reference's TP padding
+    (cfg.head_pad); padded heads carry zero-masked outputs."""
+    return max(cfg.n_heads, cfg.head_pad or 0)
+
+
+def attention_defs(cfg: ModelConfig, cross: bool = False):
+    d, k, dh = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    h = padded_heads(cfg)
+    defs = {
+        "wq": ParamDef((d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, k, dh), ("embed", "kv_heads", "kv_head_dim")),
+        "wv": ParamDef((d, k, dh), ("embed", "kv_heads", "kv_head_dim")),
+        "wo": ParamDef((h, dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        defs |= {
+            "bq": ParamDef((h, dh), ("heads", "head_dim"), init="zeros"),
+            "bk": ParamDef((k, dh), ("kv_heads", "kv_head_dim"), init="zeros"),
+            "bv": ParamDef((k, dh), ("kv_heads", "kv_head_dim"), init="zeros"),
+        }
+    return defs
+
+
+def _grouped(q, h_kv):
+    """(B,S,H,dh) → (B,S,K,G,dh): group query heads by their kv head."""
+    b, s, h, dh = q.shape
+    return q.reshape(b, s, h_kv, h // h_kv, dh)
+
+
+def _mask(qpos, kpos, causal, window, kv_len):
+    """(…Sq, Sk) boolean mask from position vectors."""
+    m = (kpos[None, :] < kv_len).expand(qpos.shape[0], kpos.shape[0])
+    if causal:
+        m = m & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        m = m & (kpos[None, :] > qpos[:, None] - window)
+    return m
+
+
+def _scores(qf, k, scale, softcap):
+    """fp32 scores (B,K,G,S,T) of grouped q (B,S,K,G,dh) over k (B,T,K,dh)."""
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def _attn_full(q, k, v, *, scale, causal, window, softcap, qpos, kv_len,
+               kpos_vec=None):
+    # q: (B,S,K,G,dh); k/v: (B,T,K,dh)
+    s = _scores(q.float(), k, scale, softcap)
+    kpos = (torch.arange(k.shape[1], device=k.device) if kpos_vec is None
+            else kpos_vec)
+    m = _mask(qpos, kpos, causal, window, kv_len)
+    s = torch.where(m, s, torch.full((), _NEG, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.float())
+
+
+def _attn_chunked(q, k, v, *, scale, causal, window, softcap, qpos, kv_len,
+                  chunk, kpos_vec=None):
+    """Online softmax over KV chunks (the flash dataflow in PyTorch)."""
+    b, sq, hk, g, dh = q.shape
+    t = k.shape[1]
+    chunk = min(chunk, t)
+    qf = q.float()
+    acc = torch.zeros((b, hk, g, sq, dh), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, hk, g, sq), _NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hk, g, sq), dtype=torch.float32, device=q.device)
+    neg = torch.full((), _NEG, device=q.device)
+    for c0 in range(0, t, chunk):
+        # the reference pads the last chunk to full width; its padded
+        # keys are masked and add exp(-1e30 - m) = 0, so a narrower last
+        # chunk gives the same sums
+        k_c, v_c = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        s = _scores(qf, k_c, scale, softcap)
+        kpos = (torch.arange(c0, c0 + k_c.shape[1], device=q.device)
+                if kpos_vec is None else kpos_vec[c0:c0 + chunk])
+        msk = _mask(qpos, kpos, causal, window, kv_len)
+        s = torch.where(msk, s, neg)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p, v_c.float())
+        m = m_new
+    out = acc / (l[..., None] + 1e-30)           # (B,K,G,S,dh)
+    return out.permute(0, 3, 1, 2, 4)            # (B,S,K,G,dh)
+
+
+def _attn_pallas(q, k, v, *, scale, causal, window, softcap, q_offset):
+    from repro_torch.kernels import ops as kops
+
+    b, sq, hk, g, dh = q.shape
+    t = k.shape[1]
+    # expand kv to one per q head; flatten (B,K,G) into the kernel batch
+    kx = k[:, :, :, None].expand(b, t, hk, g, dh)
+    vx = v[:, :, :, None].expand(b, t, hk, g, dh)
+    qf = q.permute(0, 2, 3, 1, 4).reshape(b * hk * g, sq, dh).contiguous()
+    kf = kx.permute(0, 2, 3, 1, 4).reshape(b * hk * g, t, dh).contiguous()
+    vf = vx.permute(0, 2, 3, 1, 4).reshape(b * hk * g, t, dh).contiguous()
+    o = kops.flash_attention(qf, kf, vf, causal=causal, scale=scale,
+                             q_offset=q_offset, window=window,
+                             softcap=softcap)
+    return o.reshape(b, hk, g, sq, dh).permute(0, 3, 1, 2, 4)
+
+
+def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
+              pos_offset=0, kv_cache: Optional[Tuple] = None,
+              cache_len=None, kv_source: Optional[torch.Tensor] = None,
+              static_kv: Optional[Tuple] = None, causal: bool = True):
+    """GQA attention.  x: (B, S, D) → (out (B, S, D), new kv_cache).
+
+    kind: 'attn'/'global' = full causal; 'local' = sliding window.
+    kv_cache: optional (k, v) buffers (B, T, K, dh) — decode path: new kv
+      written at positions [cache_len, cache_len+S), in place (the
+      counterpart of the reference's donated buffers).  cache_len is a
+      Python int, so no device value is read.
+    kv_source: cross-attention source (encoder output); no cache, no rope;
+      the computed (k, v) is returned so prefill can cache it.
+    static_kv: precomputed (k, v) to attend over read-only (cross-attn at
+      decode: the cached encoder projections are never rewritten).
+    """
+    b, s, d = x.shape
+    hk, dh = cfg.n_kv_heads, cfg.head_dim
+    h = padded_heads(cfg)
+    cd = cfg.cdtype
+    dev = x.device
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(cd))
+    is_cross = kv_source is not None or static_kv is not None
+    if static_kv is not None:
+        k, v = static_kv
+    else:
+        src = x if kv_source is None else kv_source
+        k = torch.einsum("bsd,dhe->bshe", src, p["wk"].to(cd))
+        v = torch.einsum("bsd,dhe->bshe", src, p["wv"].to(cd))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        if static_kv is None:
+            k = k + p["bk"].to(cd)
+            v = v + p["bv"].to(cd)
+
+    if not is_cross:
+        qpos_vec = pos_offset + torch.arange(s, device=dev)
+        q = rope(q, qpos_vec, cfg.rope_theta)
+        k = rope(k, qpos_vec, cfg.rope_theta)
+
+    kpos_vec = None
+    if is_cross:
+        new_cache = (k, v)  # prefill caches the encoder projections
+        kv_len = k.shape[1]
+        qpos = torch.arange(s, device=dev)
+    elif kv_cache is not None:
+        ck, cv = kv_cache
+        w_buf = ck.shape[1]
+        ring = (kind == "local" and cfg.local_window is not None
+                and w_buf == cfg.local_window)
+        if ring:
+            # ring buffer for sliding-window layers: the cache holds only
+            # the last `window` keys (slot = pos % W).  Decode attends
+            # over the ring with reconstructed absolute positions; the
+            # window mask kills unwritten/evicted slots.  Prefill writes
+            # the ring (wrapping) but attends over the in-flight k/v.
+            pos = cache_len + torch.arange(s, device=dev)
+            slots = pos % w_buf
+            # write only the last ≤W keys: earlier ones would be
+            # overwritten in the same write
+            tail = max(s - w_buf, 0)
+            ck[:, slots[tail:]] = k[:, tail:].to(ck.dtype)
+            cv[:, slots[tail:]] = v[:, tail:].to(cv.dtype)
+            new_cache = (ck, cv)
+            qpos = cache_len + torch.arange(s, device=dev)
+            if s == 1:
+                j = torch.arange(w_buf, device=dev)
+                last = cache_len  # abs position of the newest token
+                pabs = last - torch.remainder(last - j, w_buf)
+                written = (j <= last) | (last + 1 >= w_buf)
+                kpos_vec = torch.where(
+                    written, pabs, torch.full((), -1_000_000_000,
+                                              device=dev))
+                k, v = ck, cv
+                kv_len = cache_len + 1  # upper bound; mask uses kpos_vec
+            else:
+                kv_len = cache_len + s  # attend in-flight (prefill)
+        else:
+            ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
+            cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
+            k, v = ck, cv
+            new_cache = (ck, cv)
+            kv_len = cache_len + s
+            qpos = cache_len + torch.arange(s, device=dev)
+    else:
+        new_cache = None
+        kv_len = k.shape[1]
+        qpos = qpos_vec
+
+    qg = _grouped(q, hk)
+    scale = dh ** -0.5
+    window = cfg.local_window if kind == "local" else None
+    softcap = cfg.attn_softcap
+    causal = causal and not is_cross
+
+    impl = cfg.attn_impl
+    if impl == "pallas" and kv_cache is None and isinstance(pos_offset, int):
+        out = _attn_pallas(qg, k, v, scale=scale, causal=causal,
+                           window=window, softcap=softcap,
+                           q_offset=pos_offset)
+    elif impl == "full":
+        out = _attn_full(qg, k, v, scale=scale, causal=causal, window=window,
+                         softcap=softcap, qpos=qpos, kv_len=kv_len,
+                         kpos_vec=kpos_vec)
+    else:
+        out = _attn_chunked(qg, k, v, scale=scale, causal=causal,
+                            window=window, softcap=softcap, qpos=qpos,
+                            kv_len=kv_len, chunk=cfg.attn_chunk,
+                            kpos_vec=kpos_vec)
+    if h > cfg.n_heads:
+        # zero the TP-padding heads (grouped layout: the first
+        # n_heads//n_kv_heads slots of each kv group are the real heads)
+        g_real = cfg.n_heads // hk
+        gmask = torch.arange(out.shape[3], device=dev) < g_real
+        out = out * gmask[None, None, None, :, None].to(out.dtype)
+    out = out.reshape(b, s, h, dh).to(cd)
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd))
+    return y, new_cache
+
+
+# ------------------------------------------------------------------ mlp ----
+def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None, gated: bool = True):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    defs = {
+        "w1": ParamDef((d, f), ("embed", "ffn")),
+        "w2": ParamDef((f, d), ("ffn", "embed")),
+    }
+    if gated:
+        defs["w3"] = ParamDef((d, f), ("embed", "ffn"))
+    return defs
+
+
+def _act(x, name):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh") if name == "gelu" else F.silu(x)
+
+
+def mlp(p, x, cfg: ModelConfig):
+    cd = cfg.cdtype
+    h = _act(x @ p["w1"].to(cd), cfg.act)
+    if "w3" in p:
+        h = h * (x @ p["w3"].to(cd))
+    return h @ p["w2"].to(cd)
+
+
+# ------------------------------------------------------------------ moe ----
+def moe_defs(cfg: ModelConfig):
+    raise NotImplementedError(MOE_TODO)
+
+
+def moe(p, x, cfg: ModelConfig):
+    raise NotImplementedError(MOE_TODO)

@@ -1,0 +1,121 @@
+"""Declarative parameter construction — counterpart of `repro/models/params.py`.
+
+Every model parameter is declared once as a `ParamDef` (shape, logical
+axis names, init), with the reference's shapes.  A tree of defs is a
+nested dict (a block), a tuple (unstacked layers) or a `Stacked` (the
+reference's `stack_defs`: n layers of one block).  `init_params` turns
+the tree into modules:
+
+  dict     → `ParamTree`, an `nn.Module` whose parameters and children
+             are the dict's entries, read as `p["wq"]`, `"w3" in p`
+  Stacked  → `nn.ModuleList` of n `ParamTree`s (the reference's leading
+             layer dim, unstacked: layers run in a Python loop)
+  tuple    → `nn.ModuleList`
+
+Parameters hold no gradient: the port serves and does not train.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]  # logical axis name per dim
+    init: str = "normal"                # normal | zeros | ones
+    scale: Optional[float] = None       # stddev; None → 1/sqrt(fan_in)
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes "
+                             f"{self.logical} differ in rank")
+
+
+@dataclasses.dataclass(frozen=True)
+class Stacked:
+    """n layers of the block `defs` (the reference stacks them)."""
+    defs: Any
+    n: int
+
+
+def stack_defs(defs, n: int) -> Stacked:
+    return Stacked(defs, n)
+
+
+class ParamTree(nn.Module):
+    """One block of parameters, read like the reference's dict."""
+
+    def __init__(self, items: dict):
+        super().__init__()
+        for k, v in items.items():
+            if isinstance(v, nn.Module):
+                self.add_module(k, v)
+            else:
+                self.register_parameter(k, v)
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        if key in self._modules:
+            return self._modules[key]
+        raise KeyError(key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def _fan_in(shape) -> int:
+    return shape[0] if len(shape) == 1 else math.prod(shape[:-1])
+
+
+def _init_one(d: ParamDef, gen: torch.Generator) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=gen.device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=gen.device)
+    scale = d.scale if d.scale is not None else \
+        1.0 / math.sqrt(max(_fan_in(d.shape), 1))
+    return (torch.randn(d.shape, generator=gen, device=gen.device) *
+            scale).to(d.dtype)
+
+
+def build(defs, leaf: Callable[[ParamDef, Tuple], torch.Tensor],
+          path: Tuple = ()):
+    """Modules for a tree of defs; `leaf(def, path)` gives each value.
+
+    `path` holds the dict keys and, under a `Stacked` or a tuple, the
+    layer index, from the root down."""
+    if isinstance(defs, ParamDef):
+        return nn.Parameter(leaf(defs, path), requires_grad=False)
+    if isinstance(defs, Stacked):
+        return nn.ModuleList(build(defs.defs, leaf, path + (i,))
+                             for i in range(defs.n))
+    if isinstance(defs, tuple):
+        return nn.ModuleList(build(d, leaf, path + (i,))
+                             for i, d in enumerate(defs))
+    return ParamTree({k: build(v, leaf, path + (k,))
+                      for k, v in defs.items()})
+
+
+def init_params(defs, generator: torch.Generator):
+    """Random weights on the generator's device, drawn in the order of
+    the tree (the reference's values differ: jax.random is another
+    generator)."""
+    return build(defs, lambda d, _: _init_one(d, generator))
+
+
+def count_params(defs) -> int:
+    if isinstance(defs, ParamDef):
+        return math.prod(defs.shape)
+    if isinstance(defs, Stacked):
+        return defs.n * count_params(defs.defs)
+    if isinstance(defs, tuple):
+        return sum(count_params(d) for d in defs)
+    return sum(count_params(d) for d in defs.values())

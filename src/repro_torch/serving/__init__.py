@@ -1,3 +1,5 @@
-"""Serving of many MSC requests — counterpart of `repro.serving` (the
-static batched engine on one device)."""
+"""Serving on one device — counterpart of `repro.serving`: many MSC
+requests through the static batched engine (`MSCServeEngine`), and
+greedy LM generation (`ServeEngine`)."""
 from .msc_engine import MSCServeEngine, ServeStats
+from .engine import ServeEngine

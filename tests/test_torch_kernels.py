@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import gram as tgram  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import power_iter as tpik  # noqa: E402
@@ -175,9 +176,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tring.abs_rowsum(tv, tv, torch.zeros(4, dtype=torch.float64))
 
 
-def test_unported_kernels_raise_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(None, None, None)
+def test_flash_attention_on_cpu_runs_the_plain_version_and_counts_nothing():
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=(3, s, 32)).astype(
+        np.float32)) for s in (5, 9, 9))
+    before = tfa.launches
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=4, window=6,
+                              softcap=30.0)
+    want = ref.flash_attention(q, k, v, causal=True, q_offset=4, window=6,
+                               softcap=30.0)
+    assert torch.equal(got, want)
+    assert tfa.launches == before
 
 
 @pytest.fixture
@@ -191,7 +200,8 @@ def cuda_device():
 def test_cuda_kernels_match_plain_versions(cuda_device):
     """Every CUDA kernel against its plain version on the card, at small
     ragged shapes and in both dtypes (batched_gram also request-batched
-    and with an fp32 result); the launch counters move."""
+    and with an fp32 result, flash_attention with each of its masks); the
+    launch counters move."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in ("float32", "bfloat16"):
         for b, r, c in [(3, 37, 19), (5, 300, 257), (2, 1, 1000)]:
@@ -238,4 +248,22 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                        "float32" if out is not None else dtype)
             assert tgram.launches == n0 + 2
+        # (b, sq, skv, d, flash options): ragged tiles, q_offset, window,
+        # softcap and one-row decode, at every head dim the kernel takes
+        for b, sq, skv, d, kw in [
+                (3, 70, 70, 32, dict(causal=True)),
+                (2, 33, 65, 64, dict(causal=False)),
+                (2, 48, 100, 128, dict(causal=True, q_offset=52, window=24)),
+                (2, 40, 40, 256, dict(causal=True, softcap=30.0)),
+                (4, 1, 100, 64, dict(causal=True, q_offset=63))]:
+            q, k, v = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(
+                np.float32)).to(cuda_device, TDT[dtype])
+                for s in (sq, skv, skv))
+            n0 = tfa.launches
+            got = ops.flash_attention(q, k, v, **kw)
+            assert got.dtype == q.dtype and got.shape == q.shape
+            _close(got.float().cpu().numpy(),
+                   ref.flash_attention(q, k, v, **kw).float().cpu().numpy(),
+                   dtype)
+            assert tfa.launches == n0 + 1
     torch.cuda.synchronize()

@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python tools/torch_profile.py [--m 1000] [--precision fp32]
         [--schedule flat|sequential] [--gram]
+    PYTHONPATH=src python tools/torch_profile.py --lm [--attn-impl chunked]
 
 Builds the CLI's planted tensor (γ = m, seed 0, the CLI's default
 config with kernels; `--gram` for the explicit-gram eigensolver) on the
@@ -15,6 +16,13 @@ twice), the device time by stage (gram formation, power sweeps and λ,
 similarity epilogue, unfolding copies and the rest, and the idle time),
 and the operators with the most device time by input shape.  Needs a
 CUDA card; prints the card's name and power limit first.
+
+`--lm` profiles LM serving instead: whisper-tiny at its published size,
+batch 16, prompt 32, 16 generated tokens (`launch/serve.py`'s engine,
+random weights from seed 0), warmed up once, then one `generate` under
+the profiler, with the same report and LM stages (flash_attention,
+matmuls, elementwise and reductions, copies and casts).  `--attn-impl`
+picks the attention route (default `pallas`, the CUDA kernel).
 """
 from __future__ import annotations
 
@@ -47,9 +55,18 @@ STAGES = (("gram_kernel", "formation (batched_gram)"),
           ("reduce", "elementwise, reductions, extraction"))
 
 
-def _stage(name: str) -> str:
+LM_STAGES = (("flash_kernel", "attention (flash_attention)"),
+             ("gemm", "matmuls (cuBLAS)"),
+             ("gemv", "matmuls (cuBLAS)"),
+             ("copy", "copies and casts"),
+             ("elementwise", "elementwise and reductions"),
+             ("reduce", "elementwise and reductions"),
+             ("softmax", "elementwise and reductions"))
+
+
+def _stage(name: str, stages=STAGES) -> str:
     low = name.lower()
-    for key, stage in STAGES:
+    for key, stage in stages:
         if key in low:
             return stage
     return "other"
@@ -57,7 +74,6 @@ def _stage(name: str) -> str:
 
 def main(argv=None) -> int:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
@@ -66,6 +82,11 @@ def main(argv=None) -> int:
     ap.add_argument("--schedule", default="flat")
     ap.add_argument("--gram", action="store_true",
                     help="explicit-gram eigensolver (paper Alg. 1)")
+    ap.add_argument("--lm", action="store_true",
+                    help="profile whisper-tiny serving instead of MSC")
+    ap.add_argument("--attn-impl", default="pallas",
+                    choices=("pallas", "chunked"),
+                    help="attention route of --lm")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
@@ -74,6 +95,9 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+
+    if args.lm:
+        return profile_lm(torch, args.attn_impl)
 
     from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import power_iter as kpi
@@ -100,22 +124,59 @@ def main(argv=None) -> int:
         result = solve(tensor)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    total_us = sum(_dev_us(e, self_only=True) for e in events)
     print(f"profiled solve (m={m}, {args.schedule}, {args.precision}, "
-          f"{'gram' if args.gram else 'matrix-free'}): wall "
-          f"{wall * 1e3:.1f} ms, device kernel time {total_us / 1e3:.1f} ms, "
-          f"busy share {total_us / 1e6 / wall:.3f}, sweeps "
+          f"{'gram' if args.gram else 'matrix-free'}): sweeps "
           f"{[mr.power_iters_run for mr in result.modes]}, launches "
           f"power_iter={kpi.launches} abs_rowsum={kring.launches} "
           f"batched_gram={kgram.launches}")
+    report(prof, wall, STAGES)
+    return 0
+
+
+def profile_lm(torch, attn_impl: str) -> int:
+    """One warm whisper-tiny `generate` under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(["--arch", "whisper-tiny", "--batch", "16",
+                             "--prompt-len", "32", "--gen", "16",
+                             "--attn-impl", attn_impl])
+    engine, batch = serve.build(args)
+    engine.generate(batch, args.gen)  # warm-up: library load, cuBLAS
+    kfa.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        engine.generate(batch, args.gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"profiled generate (whisper-tiny, batch {args.batch}, prompt "
+          f"{args.prompt_len}, {args.gen} tokens, {attn_impl}, "
+          f"{engine.model.cfg.compute_dtype}): launches "
+          f"flash_attention={kfa.launches}")
+    report(prof, wall, LM_STAGES)
+    return 0
+
+
+def report(prof, wall: float, stages_of) -> None:
+    """Device time per stage and per kernel, busy share and the top
+    operators of one profiled window of `wall` host seconds."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total_us = sum(_dev_us(e, self_only=True) for e in events)
+    print(f"wall {wall * 1e3:.1f} ms, device kernel time "
+          f"{total_us / 1e3:.1f} ms, busy share {total_us / 1e6 / wall:.3f}")
     if total_us == 0:
         print("device time: not measured (the profiler saw no device "
               "activity)")
     stages = {}
     for e in events:
-        st = _stage(e.key)
+        st = _stage(e.key, stages_of)
         stages[st] = stages.get(st, 0.0) + _dev_us(e, self_only=True)
     print("device time by stage:")
     for st, us in sorted(stages.items(), key=lambda kv: -kv[1]):
@@ -134,7 +195,6 @@ def main(argv=None) -> int:
     for e in sorted(ops, key=lambda e: _dev_us(e, True), reverse=True)[:8]:
         print(f"  {_dev_us(e, True) / 1e3:9.2f} ms  x{e.count:<5d} {e.key} "
               f"{str(e.input_shapes)[:80]}")
-    return 0
 
 
 if __name__ == "__main__":
