@@ -6,10 +6,12 @@ own with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<digest>.so csrc/<name>.cu
 
-into `kernels/build/` (listed in .gitignore) at first use.  The file
-name carries a digest of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  `build()` starts one
-nvcc per missing source, all at once, and waits for them together.
+into `kernels/build/` (listed in .gitignore) at first use; the sources
+include the shared PTX wrappers of `csrc/*.cuh`.  The file name carries
+a digest of the source, the headers and the flags, so an edited source
+or header is rebuilt and a stale library is never loaded.  `build()`
+starts one nvcc per missing source, all at once, and waits for them
+together.
 Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
@@ -55,6 +57,8 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: an edited header rebuilds every source
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -11,7 +11,12 @@ fp32, and the output has the input dtype.  The kernel takes d = 32, 64,
 
 A CUDA tensor launches the kernel on the current stream (or raises); a
 CPU tensor runs the plain version in `ref.py`.  `launches` counts kernel
-launches and nothing else.
+launches and nothing else.  On the card each call is one launch of one of
+three routes, which the kernel picks by sq and dtype (`csrc/
+flash_attention.cu`): a small-sq kernel for sq <= `sq_small()` (both
+dtypes, the decode cross-attention), a tensor-core tile kernel for bf16
+above it, and the CUDA-core tile kernel for fp32 above it.  `route`
+forces one of them, for timing the routes against each other.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
+ROUTES = {None: 0, "small": 1, "tile": 2}
 
 
 @functools.cache
@@ -34,8 +40,10 @@ def _lib():
     lib = _build.load("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.msc_flash_attention.argtypes = [i, i, i, p, p, p, p, i, i, i, f, i,
-                                        i, i, i, i, f, p]
+                                        i, i, i, i, f, i, p]
     lib.msc_flash_attention.restype = i
+    lib.msc_flash_sq_small.argtypes = []
+    lib.msc_flash_sq_small.restype = i
     lib.msc_flash_attention_error.argtypes = [i]
     lib.msc_flash_attention_error.restype = ctypes.c_char_p
     return lib
@@ -60,13 +68,22 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention kernel takes contiguous tensors")
 
 
-def _launch(q, k, v, causal, scale, q_offset, window, softcap):
+def sq_small() -> int:
+    """The largest sq that takes the small-sq route (the kernel's
+    SQ_SMALL; builds the library)."""
+    return _lib().msc_flash_sq_small()
+
+
+def _launch(q, k, v, causal, scale, q_offset, window, softcap, route):
     global launches
     b, sq, d = q.shape
     skv = k.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes d in {HEAD_DIMS}, "
                          f"got {d}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel takes 16-byte aligned "
+                         "tensors")
     out = torch.empty_like(q)
     lib = _lib()
     dev = q.device
@@ -76,7 +93,7 @@ def _launch(q, k, v, causal, scale, q_offset, window, softcap):
         out.data_ptr(), b, sq, skv, scale, int(causal), q_offset,
         int(window is not None), 0 if window is None else window,
         int(softcap is not None), 0.0 if softcap is None else softcap,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ROUTES[route], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel refused (b={b}, sq={sq}, skv={skv}, "
@@ -88,12 +105,21 @@ def _launch(q, k, v, causal, scale, q_offset, window, softcap):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     q_offset: int = 0, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """Fused attention, (b, sq, d) x (b, skv, d) → (b, sq, d)."""
+                    softcap: Optional[float] = None,
+                    route: Optional[str] = None) -> torch.Tensor:
+    """Fused attention, (b, sq, d) x (b, skv, d) → (b, sq, d).
+
+    `route` ("small" or "tile") forces a kernel route on the card; None
+    lets the kernel pick by sq and dtype.  Every route computes the same
+    function.
+    """
     _check(q, k, v)
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {list(ROUTES)}, got {route!r}")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal, scale, int(q_offset), window, softcap)
+        return _launch(q, k, v, causal, scale, int(q_offset), window, softcap,
+                       route)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, scale=scale,
                                    q_offset=q_offset, window=window,

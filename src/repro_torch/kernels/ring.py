@@ -9,11 +9,15 @@ and the sums are fp32.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a
 CPU tensor runs the plain version in `ref.py`.  `launches` counts kernel
-launches and nothing else.
+launches and nothing else.  The kernel covers (i-tile, j-tile, request)
+with 64 x 64 tiles; `tile_plan` gives its grid and the scratch this
+wrapper allocates for it (row partials per j-tile and one ticket per
+i-tile, see `csrc/ring.cu`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -24,13 +28,35 @@ from . import _build, ref
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64  # rows of a and of b per CTA (BI = BJ in csrc/ring.cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The launch of one call: grid (i-tiles, j-tiles, requests), the fp32
+    workspace of row partials (B, nj, bl) and the int32 tickets (B,
+    i-tiles), zeroed, that find the last CTA of each i-tile."""
+
+    grid: tuple
+    nj: int
+    workspace: tuple
+    tickets: tuple
+
+
+def tile_plan(batch: int, bl: int, bc: int) -> TilePlan:
+    """The kernel's grid and scratch for a (batch, bl, c) x (batch, bc, c)
+    call; bc = 0 takes one j-tile of zero rows."""
+    ni = -(-bl // TILE)
+    nj = max(1, -(-bc // TILE))
+    return TilePlan(grid=(ni, nj, batch), nj=nj, workspace=(batch, nj, bl),
+                    tickets=(batch, ni))
 
 
 @functools.cache
 def _lib():
     lib = _build.load("ring")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msc_abs_rowsum.argtypes = [i, i, p, p, p, p, i, i, i, i, p]
+    lib.msc_abs_rowsum.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.msc_abs_rowsum.restype = i
     lib.msc_abs_rowsum_error.argtypes = [i]
     lib.msc_abs_rowsum_error.restype = ctypes.c_char_p
@@ -65,14 +91,18 @@ def _launch(a, b, acc):
     bl, c = a.shape[-2:]
     bc = b.shape[-2]
     batch = a.shape[0] if a.dim() == 3 else 1
-    out = torch.empty(a.shape[:-1], dtype=torch.float32, device=a.device)
-    lib = _lib()
     dev = a.device
+    plan = tile_plan(batch, bl, bc)
+    out = torch.empty(a.shape[:-1], dtype=torch.float32, device=dev)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=dev)
+    tickets = torch.zeros(plan.tickets, dtype=torch.int32, device=dev)
+    lib = _lib()
     err = lib.msc_abs_rowsum(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
         acc.data_ptr() if acc is not None else None, out.data_ptr(),
-        batch, bl, bc, c, torch.cuda.current_stream(dev).cuda_stream)
+        ws.data_ptr(), tickets.data_ptr(), plan.nj, batch, bl, bc, c,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"abs_rowsum kernel refused (B={batch}, bl={bl}, bc={bc}, c={c}, "

@@ -226,17 +226,24 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                     _close(g.cpu().numpy(), w.cpu().numpy(), dtype)
             assert tpik.launches == n0 + 3
         rng = np.random.default_rng(5)
+        # one tile, ragged c; several i- and j-tiles, request-batched, with
+        # c a multiple of 16 bytes (16-byte loads) and not (single loads)
         for shape_a, shape_b in [((13, 21), (70, 21)), ((4, 30, 57),
-                                                        (4, 65, 57))]:
+                                                        (4, 65, 57)),
+                                 ((3, 130, 64), (3, 200, 64)),
+                                 ((2, 129, 301), (2, 65, 301))]:
             a = torch.from_numpy(rng.normal(size=shape_a).astype(np.float32))
             b = torch.from_numpy(rng.normal(size=shape_b).astype(np.float32))
             a, b = a.to(cuda_device, TDT[dtype]), b.to(cuda_device, TDT[dtype])
             acc = torch.rand(a.shape[:-1], device=cuda_device)
             n0 = tring.launches
             for ac in (None, acc):
-                _close(tring.abs_rowsum(a, b, ac).cpu().numpy(),
+                got = tring.abs_rowsum(a, b, ac)
+                _close(got.cpu().numpy(),
                        ref.abs_rowsum(a, b, ac).cpu().numpy(), dtype)
-            assert tring.launches == n0 + 2
+                # the partials are added in a fixed order: same bits again
+                assert torch.equal(got, tring.abs_rowsum(a, b, ac))
+            assert tring.launches == n0 + 4
         for shape in [(3, 37, 19), (2, 2, 300, 257), (4, 1, 1)]:
             x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
             x = x.to(cuda_device, TDT[dtype])
@@ -249,21 +256,72 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                        "float32" if out is not None else dtype)
             assert tgram.launches == n0 + 2
         # (b, sq, skv, d, flash options): ragged tiles, q_offset, window,
-        # softcap and one-row decode, at every head dim the kernel takes
+        # softcap and one-row decode, at every head dim the kernel takes;
+        # sq on both sides of the small-sq route's limit and past one
+        # 64-row tile, skv of one key and on both sides of a kv tile
+        small = tfa.sq_small()
         for b, sq, skv, d, kw in [
                 (3, 70, 70, 32, dict(causal=True)),
                 (2, 33, 65, 64, dict(causal=False)),
                 (2, 48, 100, 128, dict(causal=True, q_offset=52, window=24)),
                 (2, 40, 40, 256, dict(causal=True, softcap=30.0)),
-                (4, 1, 100, 64, dict(causal=True, q_offset=63))]:
+                (4, 1, 100, 64, dict(causal=True, q_offset=63)),
+                (3, 2, 63, 64, dict(causal=False)),
+                (2, small, 65, 128, dict(causal=True, q_offset=60)),
+                (2, small + 1, 65, 64, dict(causal=True, q_offset=60)),
+                (2, 65, 1, 32, dict(causal=False)),
+                (2, 65, 63, 256, dict(causal=True, window=20)),
+                (2, 3, 300, 32, dict(causal=True, q_offset=297, window=40,
+                                     softcap=20.0))]:
             q, k, v = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(
                 np.float32)).to(cuda_device, TDT[dtype])
                 for s in (sq, skv, skv))
+            want = ref.flash_attention(q, k, v, **kw).float().cpu().numpy()
             n0 = tfa.launches
             got = ops.flash_attention(q, k, v, **kw)
             assert got.dtype == q.dtype and got.shape == q.shape
-            _close(got.float().cpu().numpy(),
-                   ref.flash_attention(q, k, v, **kw).float().cpu().numpy(),
-                   dtype)
+            _close(got.float().cpu().numpy(), want, dtype)
             assert tfa.launches == n0 + 1
+            # every route computes the same function
+            for route in ("small", "tile"):
+                got = tfa.flash_attention(q, k, v, route=route, **kw)
+                _close(got.float().cpu().numpy(), want, dtype)
+            assert tfa.launches == n0 + 3
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batch,bl,bc,grid", [
+    (1, 1000, 1000, (16, 16, 1)),   # the flat epilogue: 256 CTAs
+    (3, 1000, 1000, (16, 16, 3)),   # request-batched, requests on grid.z
+    (2, 129, 65, (3, 2, 2)),        # ragged i and j tiles
+    (1, 64, 64, (1, 1, 1)),
+    (1, 5, 0, (1, 1, 1)),           # no rows of b: one zero j-tile
+])
+def test_abs_rowsum_tile_plan(batch, bl, bc, grid):
+    plan = tring.tile_plan(batch, bl, bc)
+    assert plan.grid == grid
+    assert plan.nj == grid[1]
+    assert plan.workspace == (batch, grid[1], bl)
+    assert plan.tickets == (batch, grid[0])
+    if (bl, bc) == (1000, 1000):
+        assert grid[0] * grid[1] >= 128  # fills the card's 132 SMs
+
+
+def test_abs_rowsum_partials_in_j_order_match_plain():
+    """The kernel's reduction: per j-tile row partials Σ_j |a bᵀ| in the
+    plan's workspace, then acc and the partials added in j order, equal
+    the plain version within 1e-6."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.normal(size=(2, 129, 40)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(2, 200, 40)).astype(np.float32))
+    acc = torch.from_numpy(rng.uniform(size=(2, 129)).astype(np.float32))
+    plan = tring.tile_plan(2, 129, 200)
+    ws = torch.empty(plan.workspace)
+    for j in range(plan.nj):
+        bj = b[:, j * tring.TILE:(j + 1) * tring.TILE]
+        ws[:, j] = (a @ bj.transpose(1, 2)).abs().sum(-1)
+    got = acc.clone()
+    for j in range(plan.nj):
+        got += ws[:, j]
+    want = ref.abs_rowsum(a, b, acc)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-6

@@ -49,13 +49,15 @@ STAGES = (("gram_kernel", "formation (batched_gram)"),
           ("power_kernel", "sweeps (power_iter)"),
           ("gemv", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
           ("gemm", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
-          ("abs_rowsum", "epilogue (abs_rowsum)"),
+          ("abs_rowsum", "epilogue (abs_rowsum)"),  # abs_rowsum_kernel
           ("copy", "unfolding copies and casts"),
           ("elementwise", "elementwise, reductions, extraction"),
           ("reduce", "elementwise, reductions, extraction"))
 
 
-LM_STAGES = (("flash_kernel", "attention (flash_attention)"),
+# flash_kernel (fp32 tile route), flash_small_kernel (small-sq route) and
+# flash_mma_kernel (bf16 tile route) are all attention
+LM_STAGES = (("flash_", "attention (flash_attention)"),
              ("gemm", "matmuls (cuBLAS)"),
              ("gemv", "matmuls (cuBLAS)"),
              ("copy", "copies and casts"),
