@@ -16,8 +16,16 @@ line):
    its time (CUDA events over warm launches, and the device time of the
    same launches replayed from a CUDA graph), its bound, the plain
    version's time and the time of one library call that computes the
-   same function (timed here only; the port never calls it).
-   `abs_rowsum` must also give the same bits in two calls.
+   same function (timed here only; the port never calls it): for bf16
+   operands `torch.bmm(..., out_dtype=torch.float32)`, fp32 sums and an
+   fp32 result as the kernels keep them (the rounded bf16 form of
+   `batched_gram` is timed beside it, labelled).  `power_iter` is held
+   and timed on every route it takes (`power_iter.routes`: general,
+   direct, ring) at the main path's (1000, 1000, 1000), at c = 2048 (the
+   register budget's edge) and at a ragged (37, 1003, 301);
+   `batched_gram` also at c = 1, 127, 128, 129 (one tile, a mirror at
+   the tile edge) and (5, 200, 1000) (a ragged last tile).  `power_iter`,
+   `abs_rowsum` and `batched_gram` must give the same bits in two calls.
 4. The main path at the paper's size: `launch/msc_run.py` at m = 1000
    (the 4 GB fp32 tensor of Fig. 6), γ = 1000, seed 0, the CLI's
    default ε, with each eigensolver.  Matrix-free: flat+kernels in fp32
@@ -148,6 +156,23 @@ def bound_ms(n_bytes, flops, dtype):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+def bmm_fp32(torch, a, b):
+    """torch.bmm(a, b) with fp32 sums and an fp32 result for bf16 operands
+    (the `out_dtype` overload); where this torch refuses it, the product
+    in the operands' dtype, upcast (a rounded result, said once)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    try:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        if not getattr(bmm_fp32, "said", False):
+            log(f"  torch.bmm(..., out_dtype=torch.float32) refused "
+                f"({type(e).__name__}: {str(e).splitlines()[0]}); the bf16 "
+                "library forms round their results to bf16")
+            bmm_fp32.said = True
+        return torch.bmm(a, b).float()
+
+
 class Checks:
     """Kernel-against-plain comparisons; failures are collected."""
 
@@ -226,70 +251,120 @@ def phase_kernels(torch, checks):
         "a sum on the other side of a bf16 rounding moves an operand by "
         "2^-8 and later sweeps carry it on)")
 
-    # ---- power_iter: slices (1000, 1000, 1000), the main path's mode slices
+    # ---- power_iter: slices (1000, 1000, 1000), the main path's mode
+    # slices, on every route the kernel takes there
     b = r = c = M
     t32 = torch.randn((b, r, c), generator=gen, device=dev)
     v0 = torch.randn((b, c), generator=gen, device=dev)
     v0 /= v0.norm(dim=-1, keepdim=True)
     k = 6
 
-    def chunk(label, s, v):
-        # resid = ‖w − λv‖ is rounding noise on a converged slice: it is
-        # held to the scale of λ
+    def power_cases(label, s, v, n_iter=60):
+        """Each entry point on the route `route()` picks and on every
+        route forced, against the plain version; each chunk again with a
+        same-bits check."""
         plain = ref.power_iterate_chunk(s, v, k)
-        checks.compare("power_iter", f"power_iterate_chunk k={k} {label}",
-                       kpi.power_iterate_chunk(s, v, k), plain,
-                       tol[s.dtype], [None, None, plain[1].abs().max().item()])
+        plain_it = ref.power_iterate(s, v, n_iter)
+        plain_mv = (ref.power_matvec(s, v),)
+        for route in (None,) + kpi.routes(s.shape[-1], s.dtype):
+            tag = f"{label} route={route or kpi.route(s.shape[-1], s.dtype)}"
+            tag += "" if route else " (auto)"
+            got = kpi.power_iterate_chunk(s, v, k, route=route)
+            # resid = ‖w − λv‖ is rounding noise on a converged slice: it
+            # is held to the scale of λ
+            checks.compare("power_iter", f"power_iterate_chunk k={k} {tag}",
+                           got, plain, tol[s.dtype],
+                           [None, None, plain[1].abs().max().item()])
+            # the partials add in a fixed order: a second call gives the
+            # same bits (the trim and the max-gap extraction read d)
+            again = kpi.power_iterate_chunk(s, v, k, route=route)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                checks.failures.append(f"power_iterate_chunk {tag}: two "
+                                       "calls differ")
+            checks.compare("power_iter", f"power_iterate n={n_iter}+lambda "
+                           f"{tag}", kpi.power_iterate(s, v, n_iter,
+                                                       route=route),
+                           plain_it, tol[s.dtype])
+            checks.compare("power_iter", f"power_matvec {tag}",
+                           (kpi.power_matvec(s, v, route=route),), plain_mv,
+                           tol[s.dtype])
 
     for dt in (torch.float32, torch.bfloat16):
         s = t32.to(dt)
         name = str(dt).split(".")[-1]
-        chunk(f"{name} {tuple(s.shape)}", s, v0)
-        checks.compare("power_iter", f"power_iterate n=60+lambda {name} "
-                       f"{tuple(s.shape)}", kpi.power_iterate(s, v0, 60),
-                       ref.power_iterate(s, v0, 60), tol[dt])
-        checks.compare("power_iter", f"power_matvec {name} {tuple(s.shape)}",
-                       (kpi.power_matvec(s, v0),), (ref.power_matvec(s, v0),),
-                       tol[dt])
+        power_cases(f"{name} {tuple(s.shape)}", s, v0)
         elt = s.element_size()
         n_bytes = b * r * c * elt + 2 * b * c * 4 + 2 * b * 4
         flops = 4 * b * r * c * k
         bms, by = bound_ms(n_bytes, flops, name)
-        def library():  # two torch.bmm per sweep, operands in dtype dt
-            v = v0.to(dt)
+
+        def library():  # two torch.bmm per sweep, operands in dtype dt,
+            v = v0.to(dt)  # w summed and kept in fp32 (as the kernel does)
             for _ in range(k):
                 tv = torch.bmm(s, v.unsqueeze(-1))
-                v = torch.bmm(tv.transpose(1, 2), s).squeeze(1)
+                v = bmm_fp32(torch, tv.transpose(1, 2), s).squeeze(1).to(dt)
             return v
 
+        def chunk_on(route):
+            return lambda: kpi.power_iterate_chunk(s, v0, k, route=route)
+
         row = {
-            "ms": cuda_ms(torch, lambda: kpi.power_iterate_chunk(s, v0, k), 5),
+            "ms": cuda_ms(torch, chunk_on(None), 5),
+            "route": kpi.route(c, dt),
+            "route_ms": {rt: cuda_ms(torch, chunk_on(rt), 5)
+                         for rt in kpi.routes(c, dt)},
             "plain_ms": cuda_ms(
                 torch, lambda: ref.power_iterate_chunk(s, v0, k), 3, 1),
             "library_ms": cuda_ms(torch, library, 3, 1),
             "bound_ms": bms, "bound_by": by,
             "sweep_bound_ms": k * b * r * c * elt / HBM_BYTES_PER_S * 1e3,
         }
+        # waves: one CTA per slice; the tail is the time above what a
+        # whole number of waves takes per slice
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        row["waves"] = {}
+        for rt in (rt for rt in kpi.routes(c, dt) if rt != "general"):
+            slots = kpi.ctas_per_sm(c, dt, rt) * sms
+            full = b // slots * slots
+            w = row["waves"][rt] = {"ctas_per_sm": slots // sms,
+                                    "waves": b / slots,
+                                    "whole_waves_slices": full}
+            if 0 < full < b:
+                w["whole_waves_ms"] = cuda_ms(
+                    torch, lambda: kpi.power_iterate_chunk(
+                        s[:full], v0[:full], k, route=rt), 5)
+                w["tail_ms"] = (row["route_ms"][rt]
+                                - w["whole_waves_ms"] * b / full)
+            log(f"  waves power_iterate_chunk {name} route {rt}: "
+                f"{w['ctas_per_sm']} CTAs per SM x {sms} SMs, {b} slices = "
+                f"{w['waves']:.2f} waves; {full} slices (whole waves) "
+                f"{fmt_ms(w.get('whole_waves_ms'))}, tail "
+                f"{fmt_ms(w.get('tail_ms'))} (the {b} slices' time above "
+                "the whole waves' time per slice)")
         rows[("power_iter", name)] = row
+        routes = ", ".join(f"{rt} {t:.3f} ms"
+                           for rt, t in row["route_ms"].items())
         log(f"  time power_iterate_chunk k={k} {name}: kernel "
-            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
-            f"(2 torch.bmm per sweep) {row['library_ms']:.3f} ms, bound "
-            f"{bms:.3f} ms ({by}; T read once), streaming bound "
+            f"{row['ms']:.3f} ms (route {row['route']}; every route: "
+            f"{routes}), plain {row['plain_ms']:.3f} ms, library "
+            f"(2 torch.bmm per sweep, w in fp32) {row['library_ms']:.3f} ms, "
+            f"bound {bms:.3f} ms ({by}; T read once), streaming bound "
             f"{row['sweep_bound_ms']:.3f} ms (T read once per sweep)")
         del s
     del t32
     torch.cuda.empty_cache()
 
-    # ragged: r and c not multiples of any tile, tile rows cut mid-slice
-    for dt in (torch.float32, torch.bfloat16):
-        x = torch.randn((37, 1003, 301), generator=gen, device=dev).to(dt)
-        v = torch.randn((37, 301), generator=gen, device=dev)
+    # the register budget's edge (c = 2048: fp32 streams on the ring only)
+    # and ragged r and c (the general route, tile rows cut mid-slice)
+    for shape in ((64, 500, 2048), (37, 1003, 301)):
+        x32 = torch.randn(shape, generator=gen, device=dev)
+        v = torch.randn((shape[0], shape[2]), generator=gen, device=dev)
         v /= v.norm(dim=-1, keepdim=True)
-        name = str(dt).split(".")[-1]
-        chunk(f"{name} (37, 1003, 301)", x, v)
-        checks.compare("power_iter", f"power_matvec {name} (37, 1003, 301)",
-                       (kpi.power_matvec(x, v),), (ref.power_matvec(x, v),),
-                       tol[dt])
+        for dt in (torch.float32, torch.bfloat16):
+            power_cases(f"{str(dt).split('.')[-1]} {shape}", x32.to(dt), v,
+                        n_iter=12)
+        del x32
+    torch.cuda.empty_cache()
 
     # ---- abs_rowsum: V (1000, 1000) against itself, the flat epilogue
     # the flat epilogue's (1000, 1000) and a request-batched ragged c
@@ -352,7 +427,11 @@ def phase_gram(torch, checks, gen):
         "the largest plain entry: 1e-5 for an fp32 result, 1e-2 for a "
         "bf16 result)")
     rows = {}
-    cases = [(M, M, M), (37, 1003, 301), (2, 300, 257, 131)]
+    # the main path's slices; ragged r and c (single-element loads);
+    # request-batched; one tile (c = 1, 127), a mirror at the edge of one
+    # and two tiles (128, 129); an aligned c with a ragged last tile
+    cases = [(M, M, M), (37, 1003, 301), (2, 300, 257, 131), (3, 50, 1),
+             (3, 50, 127), (3, 50, 128), (3, 50, 129), (5, 200, M)]
     for shape in cases:
         x = torch.randn(shape, generator=gen, device=dev)
         for dt in (torch.float32, torch.bfloat16):
@@ -361,10 +440,12 @@ def phase_gram(torch, checks, gen):
             for out in (None, torch.float32):
                 got = ops.batched_gram(s, out_dtype=out)
                 want = ref.batched_gram(s, out)
-                checks.compare("batched_gram", f"batched_gram {name} "
-                               f"{shape} out={str(got.dtype)[6:]}",
-                               (got.float(),), (want.float(),),
-                               tol[got.dtype])
+                label = f"batched_gram {name} {shape} out={str(got.dtype)[6:]}"
+                checks.compare("batched_gram", label, (got.float(),),
+                               (want.float(),), tol[got.dtype])
+                # sums in a fixed order: a second call gives the same bits
+                if not torch.equal(got, ops.batched_gram(s, out_dtype=out)):
+                    checks.failures.append(f"{label}: two calls differ")
                 del got, want
             if shape == (M, M, M):
                 b, r, c = shape
@@ -379,16 +460,25 @@ def phase_gram(torch, checks, gen):
                         s, out_dtype=fp32), 3, 1),
                     "plain_ms": cuda_ms(
                         torch, lambda: ref.batched_gram(s, fp32), 3, 1),
+                    # the same function: fp32 sums, an fp32 C
                     "library_ms": cuda_ms(
-                        torch, lambda: torch.bmm(s.mT, s), 3, 1),
+                        torch, lambda: bmm_fp32(torch, s.mT, s), 3, 1),
                     "bound_ms": bms, "bound_by": by,
                 }
+                if dt == torch.bfloat16:
+                    # the rounded form, bf16 C: not the same function
+                    row["library_rounded_ms"] = cuda_ms(
+                        torch, lambda: torch.bmm(s.mT, s), 3, 1)
+                    lib = (f"(torch.bmm(t.mT, t, out_dtype=torch.float32)) "
+                           f"{row['library_ms']:.3f} ms, rounded to a bf16 "
+                           f"C (torch.bmm(t.mT, t)) "
+                           f"{row['library_rounded_ms']:.3f} ms")
+                else:
+                    lib = f"(torch.bmm(t.mT, t)) {row['library_ms']:.3f} ms"
                 rows[("batched_gram", name)] = row
                 log(f"  time batched_gram {name} {shape} -> fp32: kernel "
                     f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-                    f"library (torch.bmm(t.mT, t), result in {name}"
-                    f"{', rounded' if name == 'bfloat16' else ''}) "
-                    f"{row['library_ms']:.3f} ms, bound {bms:.3f} ms ({by})")
+                    f"library {lib}, bound {bms:.3f} ms ({by})")
             del s
         del x
         torch.cuda.synchronize()
@@ -983,6 +1073,23 @@ def main() -> int:
             "launches_by_path": {k: v[name] for k, v in launches.items()
                                  if v[name]},
             "card": smi}
+        if name != "flash_attention":
+            entry["bf16_library_ms"] = rows[(name, other)]["library_ms"]
+        if name == "power_iter":
+            entry["sweep_bound_ms"] = row["sweep_bound_ms"]
+            # "route" is the contract's (cuda); the kernel's own route
+            # (what power_iter.route() picks at 1000³) goes here
+            entry["kernel_route"] = {n: rows[(name, n)]["route"]
+                                     for n in ("float32", "bfloat16")}
+            entry["route_ms"] = {n: rows[(name, n)]["route_ms"]
+                                 for n in ("float32", "bfloat16")}
+            entry["waves"] = {n: rows[(name, n)]["waves"]
+                              for n in ("float32", "bfloat16")}
+            entry["bf16_sweep_bound_ms"] = rows[(name, other)][
+                "sweep_bound_ms"]
+        if name == "batched_gram":
+            entry["bf16_library_rounded_ms"] = rows[(name, other)][
+                "library_rounded_ms"]
         if name == "flash_attention":
             entry["fp32_plain_ms"] = rows[(name, other)]["plain_ms"]
             entry["fp32_library_ms"] = rows[(name, other)]["library_ms"]

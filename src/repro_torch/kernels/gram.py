@@ -7,11 +7,13 @@ the input dtype).  Leading request dims are flattened by `ops.py`.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a
 CPU tensor runs the plain version in `ref.py`.  `launches` counts kernel
-launches and nothing else.
+launches and nothing else.  The kernel computes one triangle of each
+symmetric C and writes both: `tile_plan(c)` gives its CTAs per slice.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -21,6 +23,25 @@ from . import _build, ref
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 128  # C tile edge (BM in csrc/gram.cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The CTAs of one slice, in launch order (the grid's x axis): the
+    (ti, tj) tile pair of each, ti ≤ tj.  An off-diagonal CTA writes the
+    tile (ti, tj) of C and its mirror (tj, ti)."""
+
+    tiles: int
+    pairs: tuple
+
+
+def tile_plan(c: int) -> TilePlan:
+    """The kernel's tile pairs for c columns (`tile_pair` in csrc/gram.cu):
+    row by row over ti ≤ tj, tiles·(tiles + 1)/2 of them."""
+    tiles = -(-c // TILE)
+    return TilePlan(tiles, tuple((i, j) for i in range(tiles)
+                                 for j in range(i, tiles)))
 
 
 @functools.cache
@@ -69,7 +90,7 @@ def _launch(slices: torch.Tensor, out_dtype) -> torch.Tensor:
 
 def batched_gram(slices: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """(b, r, c) → (b, c, c), accumulated in fp32.  The kernel's tile is
-    fixed (128 × 128 of C, 8 rows of T per step)."""
+    fixed (128 × 128 of C; 16 rows of T per stage in fp32, 32 in bf16)."""
     out_dtype = out_dtype or slices.dtype
     _check(slices, out_dtype)
     if slices.device.type == "cuda":

@@ -93,6 +93,30 @@ def test_gram_wrapper_rejects_what_the_kernel_does_not_take():
         tgram.batched_gram(torch.zeros(2, 5, 0))
 
 
+@pytest.mark.parametrize("c", [1, 127, 128, 129, 1000, 1291])
+def test_gram_tile_plan_covers_one_triangle_and_its_mirror(c):
+    """The kernel's CTAs cover each tile pair (ti <= tj) once and their
+    mirrors the rest of C; C assembled from the plan's tiles and mirrors
+    is the plain version's, every entry written (NaN where none is)."""
+    plan = tgram.tile_plan(c)
+    tiles = -(-c // tgram.TILE)
+    assert plan.tiles == tiles
+    assert len(plan.pairs) == len(set(plan.pairs)) == tiles * (tiles + 1) // 2
+    assert all(i <= j for i, j in plan.pairs)
+    assert set(plan.pairs) | {(j, i) for i, j in plan.pairs} == {
+        (i, j) for i in range(tiles) for j in range(tiles)}
+    x = torch.from_numpy(np.random.default_rng(c).normal(size=(3, c)).astype(
+        np.float32))
+    t = tgram.TILE
+    got = torch.full((c, c), float("nan"))
+    for i, j in plan.pairs:
+        blk = x[:, i * t:(i + 1) * t].T @ x[:, j * t:(j + 1) * t]
+        got[i * t:(i + 1) * t, j * t:(j + 1) * t] = blk
+        got[j * t:(j + 1) * t, i * t:(i + 1) * t] = blk.T
+    _close(got.numpy(), ref.batched_gram(x[None])[0].numpy(),
+           OUT_TOL["float32"])
+
+
 def _slices(b=12, r=20, c=16, lead=(), gamma=25.0, seed=0):
     """A planted rank-1 signal on three slices plus noise, so the gate
     fires within the cap."""

@@ -109,6 +109,118 @@ def test_power_iterate_chunk_batched_plain_matches_pallas(pallas):
         _close(g.numpy(), w, "float32")
 
 
+# (c, dtype, streams): rows of a 16-byte multiple up to MAX_COLS stream;
+# ragged pitches and wider rows take the general route
+ROUTE_CASES = [(1000, "float32", True), (1000, "bfloat16", True),
+               (2048, "float32", True), (2048, "bfloat16", True),
+               (1024, "float32", True), (1028, "float32", True),
+               (2052, "float32", False), (2056, "bfloat16", False),
+               (301, "float32", False), (301, "bfloat16", False),
+               (12, "bfloat16", False), (8, "bfloat16", True),
+               (4, "float32", True), (1, "float32", False)]
+
+
+@pytest.mark.parametrize("c,dtype,streams", ROUTE_CASES, ids=str)
+def test_power_route_streams_only_aligned_rows_in_the_register_budget(
+        c, dtype, streams):
+    dt = TDT[dtype]
+    elt = torch.empty((), dtype=dt).element_size()
+    assert streams == ((c * elt) % 16 == 0 and c <= tpik.MAX_COLS)
+    got = tpik.route(c, dt)
+    assert (got != "general") == streams
+    assert got in tpik.routes(c, dt)
+    assert ("direct" in tpik.routes(c, dt)) == (
+        streams and c * elt <= tpik.DIRECT_BYTES)
+    if streams:
+        assert got == tpik.STREAM[dt] or "direct" not in tpik.routes(c, dt)
+
+
+def test_power_route_names_are_checked_and_the_cpu_ignores_them():
+    """route= forces a kernel route on the card; on the CPU every route
+    name runs the plain version, and an unknown name raises."""
+    x, v = _power_inputs(3, 9, 8)
+    ts, tv = torch.from_numpy(x), torch.from_numpy(v)
+    want = ref.power_iterate_chunk(ts, tv, 2)
+    for route in ("general", "direct", "ring"):
+        got = tpik.power_iterate_chunk(ts, tv, 2, route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        tpik.power_matvec(ts, tv, route="stream")
+
+
+def _stream_sweeps(slices, v0, n_upd, *, lambda_pass, emit_gate,
+                   normalize=True, warps=tpik.WARPS):
+    """The streaming route's order of operations in plain torch: v rounded
+    once per sweep; warp q's partial w over rows k = q, q + warps, ...,
+    added row by row; the partials added in warp order; the λ pass's tv²
+    summed per warp, then in warp order."""
+    dt, s, v = slices.dtype, slices.float(), v0.float()
+    r = s.shape[-2]
+    lam = torch.zeros(v.shape[:-1])
+    resid = torch.zeros_like(lam)
+    w = torch.zeros_like(v)
+
+    def tv_of(v):
+        return (s @ v.to(dt).float().unsqueeze(-1)).squeeze(-1)
+
+    for it in range(n_upd):
+        rt = tv_of(v).to(dt).float()
+        parts = []
+        for q in range(warps):
+            p = torch.zeros_like(v)
+            for k in range(q, r, warps):
+                p = p + rt[..., k, None] * s[..., k, :]
+            parts.append(p)
+        w = parts[0]
+        for p in parts[1:]:
+            w = w + p
+        if emit_gate and it == n_upd - 1:
+            lam = torch.sum(w * v, dim=-1)
+            resid = torch.sqrt(torch.sum((w - lam[..., None] * v) ** 2, -1))
+        if normalize:
+            v = w / (torch.sqrt(torch.sum(w * w, -1, keepdim=True)) + 1e-30)
+    if lambda_pass:
+        tv = tv_of(v)
+        sums = []
+        for q in range(warps):
+            a = torch.zeros(tv.shape[:-1])
+            for k in range(q, r, warps):
+                a = a + tv[..., k] * tv[..., k]
+            sums.append(a)
+        lam = sums[0]
+        for a in sums[1:]:
+            lam = lam + a
+    return lam, v, resid, w
+
+
+# tolerance of the emulation against the plain version, relative to the
+# largest plain entry: fp32 sums in another order; bf16 as in TOL
+STREAM_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
+
+
+@pytest.mark.parametrize("entry", ["chunk", "iterate", "matvec"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stream_sweep_order_matches_plain(entry, dtype):
+    """r = 37 is not a multiple of WARPS: the warps take 10, 9, 9 and 9
+    rows.  resid, rounding noise on a converging slice, is held to the
+    scale of λ."""
+    x, v = _power_inputs(3, 37, 24, lead=(2,), seed=8)
+    ts = torch.from_numpy(x).to(TDT[dtype])
+    tv = torch.from_numpy(v)
+    flags = {"chunk": dict(n_upd=3, lambda_pass=False, emit_gate=True),
+             "iterate": dict(n_upd=4, lambda_pass=True, emit_gate=False),
+             "matvec": dict(n_upd=1, lambda_pass=False, emit_gate=False,
+                            normalize=False)}[entry]
+    got = _stream_sweeps(ts, tv, **flags)
+    want = ref.power_sweeps(ts, tv, **flags)
+    lam_scale = np.abs(want[0].numpy()).max()
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.numpy().astype(np.float64), w.numpy().astype(np.float64)
+        assert g.shape == w.shape
+        scale = max(lam_scale if i == 2 else np.abs(w).max(), 1e-30)
+        assert np.abs(g - w).max() / scale <= STREAM_TOL[dtype]
+
+
 # (bl, bc, c, block_i, block_j, batch): tile-aligned, ragged i/j, batched
 ROWSUM_CASES = [(16, 16, 8, 8, 8, None), (13, 21, 7, 8, 8, None),
                 (9, 12, 5, 4, 8, 3)]
@@ -199,32 +311,44 @@ def cuda_device():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions(cuda_device):
     """Every CUDA kernel against its plain version on the card, at small
-    ragged shapes and in both dtypes (batched_gram also request-batched
-    and with an fp32 result, flash_attention with each of its masks); the
-    launch counters move."""
+    ragged shapes and in both dtypes (power_iter on each of its routes,
+    batched_gram also request-batched, with an fp32 result and at the
+    mirror's edges, flash_attention with each of its masks); the launch
+    counters move, and power_iter, abs_rowsum and batched_gram give the
+    same bits in a second call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in ("float32", "bfloat16"):
-        for b, r, c in [(3, 37, 19), (5, 300, 257), (2, 1, 1000)]:
+        # ragged c (general route); c = 1000, 1024 and 2048 stream (2048:
+        # fp32 at the register budget, on the ring only)
+        for b, r, c in [(3, 37, 19), (5, 300, 257), (2, 1, 1000),
+                        (4, 50, 1000), (3, 41, 1024), (2, 40, 2048)]:
             x, v = _power_inputs(b, r, c)
             ts = torch.from_numpy(x).to(cuda_device, TDT[dtype])
             tv = torch.from_numpy(v).to(cuda_device)
             n0 = tpik.launches
-            (kv, kl, kr), (pv, pl, pr) = (
-                tpik.power_iterate_chunk(ts, tv, 4),
-                ref.power_iterate_chunk(ts, tv, 4))
-            # resid = ‖w − λv‖ is rounding noise once a slice has converged
-            # (r = 1 converges in one sweep): hold it to the scale of λ
-            _close(kr.cpu().numpy(), pr.cpu().numpy(), dtype,
-                   scale=pl.abs().max().item())
-            for got, want in [
-                    ((kv, kl), (pv, pl)),
-                    (tpik.power_iterate(ts, tv, 6),
-                     ref.power_iterate(ts, tv, 6)),
-                    ((tpik.power_matvec(ts, tv),),
-                     (ref.power_matvec(ts, tv),))]:
-                for g, w in zip(got, want):
-                    _close(g.cpu().numpy(), w.cpu().numpy(), dtype)
-            assert tpik.launches == n0 + 3
+            routes = tpik.routes(c, TDT[dtype])
+            for route in (None,) + routes:
+                (kv, kl, kr), (pv, pl, pr) = (
+                    tpik.power_iterate_chunk(ts, tv, 4, route=route),
+                    ref.power_iterate_chunk(ts, tv, 4))
+                # resid = ‖w − λv‖ is rounding noise once a slice has
+                # converged (r = 1 converges in one sweep): hold it to the
+                # scale of λ
+                _close(kr.cpu().numpy(), pr.cpu().numpy(), dtype,
+                       scale=pl.abs().max().item())
+                for got, want in [
+                        ((kv, kl), (pv, pl)),
+                        (tpik.power_iterate(ts, tv, 6, route=route),
+                         ref.power_iterate(ts, tv, 6)),
+                        ((tpik.power_matvec(ts, tv, route=route),),
+                         (ref.power_matvec(ts, tv),))]:
+                    for g, w in zip(got, want):
+                        _close(g.cpu().numpy(), w.cpu().numpy(), dtype)
+                # sums in a fixed order: the same bits again
+                again = tpik.power_iterate_chunk(ts, tv, 4, route=route)
+                assert all(torch.equal(g, a) for g, a in
+                           zip((kv, kl, kr), again))
+            assert tpik.launches == n0 + 4 * (1 + len(routes))
         rng = np.random.default_rng(5)
         # one tile, ragged c; several i- and j-tiles, request-batched, with
         # c a multiple of 16 bytes (16-byte loads) and not (single loads)
@@ -244,7 +368,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 # the partials are added in a fixed order: same bits again
                 assert torch.equal(got, tring.abs_rowsum(a, b, ac))
             assert tring.launches == n0 + 4
-        for shape in [(3, 37, 19), (2, 2, 300, 257), (4, 1, 1)]:
+        # one tile, and a mirror at the edge of one and two tiles (c =
+        # 127, 128, 129); an aligned c with a ragged last tile
+        for shape in [(3, 37, 19), (2, 2, 300, 257), (4, 1, 1), (3, 7, 127),
+                      (2, 9, 128), (3, 5, 129), (2, 40, 1000)]:
             x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
             x = x.to(cuda_device, TDT[dtype])
             n0 = tgram.launches
@@ -254,7 +381,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 assert got.dtype == want.dtype and got.shape == want.shape
                 _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                        "float32" if out is not None else dtype)
-            assert tgram.launches == n0 + 2
+                assert torch.equal(got, ops.batched_gram(x, out_dtype=out))
+            assert tgram.launches == n0 + 4
         # (b, sq, skv, d, flash options): ragged tiles, q_offset, window,
         # softcap and one-row decode, at every head dim the kernel takes;
         # sq on both sides of the small-sq route's limit and past one

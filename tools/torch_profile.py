@@ -44,9 +44,12 @@ def _dev_us(e, self_only=False):
     return 0.0
 
 
-# stage of a device kernel, by the first substring of its name that matches
-STAGES = (("gram_kernel", "formation (batched_gram)"),
-          ("power_kernel", "sweeps (power_iter)"),
+# stage of a device kernel, by the first substring of its name that matches:
+# every kernel of csrc/gram.cu starts with gram_, every kernel of
+# csrc/power_iter.cu (power_kernel, the general route, and
+# power_stream_kernel, the streaming one) with power_
+STAGES = (("gram_", "formation (batched_gram)"),
+          ("power_", "sweeps (power_iter)"),
           ("gemv", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
           ("gemm", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
           ("abs_rowsum", "epilogue (abs_rowsum)"),  # abs_rowsum_kernel
