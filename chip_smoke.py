@@ -33,16 +33,31 @@ line):
    fp32 as this run's oracle.  Explicit gram (`--gram`, paper Alg. 1):
    the same four runs, held to the gram einsum oracle and to the
    matrix-free oracle.  Requires identical fp32 masks, sweeps equal or
-   one gate chunk apart, finite d, and every kernel of a path launched
-   by its run (launch counts set to 0 just before each run and read
-   just after); then one flat+kernels fp32 run per eigensolver at
-   γ = 10000 must recover the planted cluster (rec=1.000).
+   one gate chunk apart, finite d, every kernel of a path launched by
+   its run (launch counts set to 0 just before each run and read just
+   after), and no host read in any extraction (each runs under
+   `torch.cuda.set_sync_debug_mode("error")`); prints each solve's time
+   beside the one recorded before the trim moved to the device (PERF.md
+   §5); then one flat+kernels fp32 run per
+   eigensolver at γ = 10000 must recover the planted cluster (rec=1.000).
 5. Batched serving: `msc_run --batch 2 --kernels` at m = 1000, with
-   and without `--gram` (MSCServeEngine, seeds 0 and 1 in one
-   dispatch).  Each request must give the masks of the single-tensor
-   flat run of its seed, with sweeps equal or one gate chunk apart; the
-   engine must build 1 runner cold and 0 warm.  Prints the warm and
-   looped-warm times, the speedup and the peak device memory.
+   and without `--gram` (MSCServeEngine replaying CUDA graphs, seeds 0
+   and 1 in one dispatch).  Each request must give the masks of the
+   single-tensor flat run of its seed, with sweeps equal or one gate
+   chunk apart; the engine must capture its graphs cold and none warm,
+   hold no more device memory than its static buffers and graph pools,
+   and leave 0 B once closed.  Prints the warm and looped-warm times,
+   the speedup and the peak device memory.
+5b. Static serving: `launch/msc_serve.py` at the reference's defaults
+   (9 requests over m = 16, 21, 33, B = 4) must capture 9 graphs per
+   bucket cold (a head, a gate chunk and a tail per mode) and none warm.
+   Then MSCServeEngine with kernels, fp32, B = 4, on 8 planted requests
+   over m = 200 and 400 (γ = m; the low end of paper Fig. 6): each
+   request's masks, d and sweeps equal the eager runner's
+   (`build_msc_batched`) bit for bit on the same microbatch, and its
+   masks equal msc_sequential's with sweeps one gate chunk apart at
+   most; prints the warm times of the graphed engine, the eager runner
+   and the looped B = 1 engine.
 6. `flash_attention` against its plain version at the LM path's shapes
    (whisper-tiny at batch 16: the encoder's self-attention and the
    prefill and decode cross-attention over 1500 frames), at gemma2-27b's
@@ -64,8 +79,12 @@ line):
    its times.  Then the kernel route against the plain route on the
    same weights by teacher forcing (both fed the plain route's tokens):
    prefill and per-step logits within 2e-2 of max |logit| in bf16 and
-   1e-4 in fp32, and identical greedy tokens in fp32.  Prints prefill
-   ms, decode ms per token, tokens/s and the peak device memory.
+   1e-4 in fp32, and identical greedy tokens in fp32.  The engine's
+   decode step replayed from one CUDA graph against an eager loop of
+   `decode_step`: identical greedy tokens in fp32, the last step's
+   logits within the same tolerances, no host sync in the replays; the
+   decode ms per token of both.  Prints prefill ms, decode ms per
+   token, tokens/s and the peak device memory.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -527,9 +546,39 @@ def counters():
             "flash_attention": kfa}
 
 
+class NoHostReadsInExtraction:
+    """While active, every `extract_cluster` of the MSC paths runs under
+    `torch.cuda.set_sync_debug_mode("error")`: a read back to the host
+    inside an extraction raises.  `calls` counts the extractions."""
+
+    def __init__(self, torch):
+        from repro_torch.core import msc, schedule
+
+        self.torch, self.mods, self.calls = torch, (msc, schedule), 0
+        self.orig = schedule.extract_cluster
+
+    def guarded(self, *a, **kw):
+        self.calls += 1
+        self.torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self.orig(*a, **kw)
+        finally:
+            self.torch.cuda.set_sync_debug_mode("default")
+
+    def __enter__(self):
+        for mod in self.mods:
+            mod.extract_cluster = self.guarded
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.extract_cluster = self.orig
+
+
 def drive(torch, label, argv):
     """One `msc_run` run with every launch count set to 0 just before it
-    and read just after.  Returns (what run() returned, counts)."""
+    and read just after, and no host read allowed in its extractions.
+    Returns (what run() returned, counts)."""
     from repro_torch.launch import msc_run
 
     log(f"main path: {label}")
@@ -539,13 +588,14 @@ def drive(torch, label, argv):
     for mod in mods.values():
         mod.launches = 0
     t0 = time.perf_counter()
-    out = msc_run.run(msc_run.parse_args(argv))
+    with NoHostReadsInExtraction(torch) as guard:
+        out = msc_run.run(msc_run.parse_args(argv))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: mod.launches for n, mod in mods.items()}
     log(f"  wall {wall:.2f} s, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-        f"{counts}")
+        f"{counts}, {guard.calls} extractions with no host read")
     return out, counts
 
 
@@ -557,19 +607,29 @@ def hold(torch, checks, label, res, oracle, oracle_name, chunk):
         same = torch.equal(res[j].mask.cpu(), oracle[j].mask.cpu())
         dd = ((res[j].d.cpu() - oracle[j].d.cpu()).abs().max()
               / oracle[j].d.abs().max().cpu()).item()
+        got, want = int(res[j].power_iters_run), int(
+            oracle[j].power_iters_run)
         log(f"  {label} mode {j}: mask == {oracle_name} {same}, d rel diff "
-            f"{dd:.3e}, sweeps {res[j].power_iters_run} vs "
-            f"{oracle[j].power_iters_run}")
+            f"{dd:.3e}, sweeps {got} vs {want}")
         if not same:
             checks.failures.append(f"{label} mode {j}: mask differs from "
                                    f"{oracle_name}")
-        gap = abs(res[j].power_iters_run - oracle[j].power_iters_run)
+        gap = abs(got - want)
         if gap > chunk:
             checks.failures.append(f"{label} mode {j}: sweeps more than one "
                                    f"gate chunk from {oracle_name}")
         if gap:
             diverged.append(j)
     return diverged
+
+
+# warm solve walls at m = 1000 while the trim loop still read the host once
+# per member dropped (PERF.md §5: tools/torch_profile.py, two runs; NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's
+HOST_TRIM_WALL_MS = {"flat+kernels fp32": "359.0 / 383.8",
+                "flat+kernels bf16_fp32": "309.2 / 288.9",
+                "flat+kernels gram fp32": "461.4 / 460.7",
+                "flat+kernels gram bf16_fp32": "417.6 / 395.4"}
 
 
 def main_cfg():
@@ -610,8 +670,10 @@ def phase_main_path(torch, checks):
         rec = out[0]
         launches[label] = counts
         results[label] = rec["result"]
-        log(f"  solve {rec['t']:.3f} s (the rest of the wall time is data "
-            f"and the sim metric), rec={rec['rec']:.3f}")
+        before = (f"; with the host-driven trim: {HOST_TRIM_WALL_MS[label]} "
+                  "ms" if label in HOST_TRIM_WALL_MS else "")
+        log(f"  solve t={rec['t'] * 1e3:.1f} ms{before} (the rest of the wall "
+            f"time is data and the sim metric), rec={rec['rec']:.3f}")
         if label.endswith("(recovery)") and rec["rec"] != 1.0:
             checks.failures.append(f"{label}: rec={rec['rec']:.3f} != 1.000")
         for mr in rec["result"].modes:
@@ -662,16 +724,26 @@ def phase_batched(torch, checks, singles):
         cold, warm = out["stats_cold"], out["stats_warm"]
         log(f"  cold {out['cold']:.3f} s, warm {out['warm']:.3f} s, "
             f"looped-warm {out['loop_warm']:.3f} s, speedup="
-            f"{out['loop_warm'] / out['warm']:.2f}x, compiles "
-            f"{cold.compiles} cold / {warm.compiles} warm (first dispatches "
-            "of a bucket: bookkeeping, eager PyTorch compiles nothing)")
-        # the engine returns host results and keeps no device state: a
-        # run that leaves device memory allocated (a cached buffer, a gram
-        # held by a closure) fails here
-        if (out["kept_cold"], out["kept_warm"]) != (0, 0):
+            f"{out['loop_warm'] / out['warm']:.2f}x, CUDA graphs captured "
+            f"{cold.compiles} cold / {warm.compiles} warm")
+        if cold.compiles != GRAPHS_PER_BUCKET or warm.compiles:
+            checks.failures.append(f"{label}: {cold.compiles} graphs captured "
+                                   f"cold, {warm.compiles} warm")
+        # the live engine holds its bucket's static buffers and graph pool
+        # and no more; once closed it leaves nothing (a buffer kept by a
+        # closure, a gram held past its mode, would show here)
+        static, pools = out["reckoned"]
+        log(f"  device memory held by the live engine {out['held']} B, "
+            f"reckoned {static} B static + {pools} B graph pools; left "
+            f"once closed {out['left']} B (looped engine {out['loop_left']} "
+            "B)")
+        if out["held"] > static + pools:
+            checks.failures.append(f"{label}: the live engine holds "
+                                   f"{out['held']} B > {static + pools} B")
+        if (out["left"], out["loop_left"]) != (0, 0):
             checks.failures.append(
-                f"{label}: device memory left allocated, {out['kept_cold']} B "
-                f"by the cold run and {out['kept_warm']} B by the warm run")
+                f"{label}: device memory left allocated once closed, "
+                f"{out['left']} B (B = 2) and {out['loop_left']} B (B = 1)")
         solve = "batched_gram" if flag else "power_iter"
         for n in (solve, "abs_rowsum"):
             if counts[n] == 0:
@@ -682,6 +754,132 @@ def phase_batched(torch, checks, singles):
             hold(torch, checks, f"{label} req {i}", res, one,
                  f"single-tensor run of seed {i}", chunk)
     return launches
+
+
+# MSCServeEngine's CUDA graphs per bucket: a head, a gate chunk and a tail
+# for each of the three modes
+GRAPHS_PER_BUCKET = 9
+# static serving at the low end of paper Fig. 6: two buckets, B = 4
+SERVE_SIZES, SERVE_REQUESTS, SERVE_B = (200, 400), 8, 4
+
+
+def _timed_s(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_static(torch, checks):
+    """msc_serve at the reference's defaults, then the engine with kernels
+    at m = 200 and 400 held to the eager runner and to msc_sequential.
+    Returns {label: launch counts} of the engine's warm run."""
+    import numpy as np
+
+    from repro_torch.core import (MSCConfig, PlantedSpec, make_planted_tensor,
+                                  msc_sequential)
+    from repro_torch.core.parallel import build_msc_batched
+    from repro_torch.launch import msc_serve
+    from repro_torch.serving import MSCServeEngine
+
+    log("static serving: msc_serve at the reference's defaults")
+    with NoHostReadsInExtraction(torch):
+        res = msc_serve.run(msc_serve.parse_args(["--device", DEVICE]))
+    eng, cold, warm = res["engine"], res["stats_cold"], res["stats_warm"]
+    want = GRAPHS_PER_BUCKET * len(res["buckets"])
+    ok = (len(res["buckets"]) == 3 and cold.compiles == eng.graphs == want
+          and warm.compiles == 0)
+    log(f"  {'ok  ' if ok else 'FAIL'} CUDA graphs captured: {cold.compiles} "
+        f"cold (want {want}: {GRAPHS_PER_BUCKET} x {len(res['buckets'])} "
+        f"buckets), {warm.compiles} warm; warm {res['warm'] * 1e3:.1f} ms, "
+        f"looped B=1 {res['loop_warm'] * 1e3:.1f} ms")
+    if not ok:
+        checks.failures.append(f"msc_serve: {cold.compiles} graphs captured "
+                               f"cold, {warm.compiles} warm, want {want}, 0")
+    eng.close()
+    del res, eng
+
+    label = (f"static serving kernels fp32 m={'/'.join(map(str, SERVE_SIZES))}"
+             f" B={SERVE_B}")
+    log(f"{label}: {SERVE_REQUESTS} planted requests (gamma = m)")
+    cfg = MSCConfig(epsilon=0.5 / (max(SERVE_SIZES)
+                                   - max(SERVE_SIZES) // 10) ** 2,
+                    use_kernels=True)
+    tensors = [make_planted_tensor(
+        torch.Generator(device=DEVICE).manual_seed(SEED + i),
+        PlantedSpec.paper(m, float(m)))
+        for i, m in enumerate(SERVE_SIZES * (SERVE_REQUESTS
+                                             // len(SERVE_SIZES)))]
+    groups = {m: [i for i, t in enumerate(tensors) if t.shape[0] == m]
+              for m in SERVE_SIZES}
+    runner = build_msc_batched(cfg, device=DEVICE)
+
+    def eager(ms=SERVE_SIZES):
+        """The eager runner on each bucket's microbatch, results to the
+        host, as the engine returns them."""
+        out = {}
+        for m in ms:
+            idx = groups[m]
+            batch = torch.stack([tensors[i] for i in idx])
+            dims = np.tile(np.int32([m, m, m]), (len(idx), 1))
+            res = runner(batch, dims)
+            out[m] = [(mr.mask.cpu(), mr.d.cpu(), mr.lambdas.cpu(),
+                       mr.power_iters_run.tolist()) for mr in res.modes]
+        return out
+
+    engine = MSCServeEngine(cfg, max_batch=SERVE_B, device=DEVICE)
+    loop = MSCServeEngine(cfg, max_batch=1, device=DEVICE)
+    with NoHostReadsInExtraction(torch):
+        engine.run(tensors)
+        loop.run(tensors)
+    mods = counters()
+    for mod in mods.values():
+        mod.launches = 0
+    got = engine.run(tensors)
+    counts = {n: mod.launches for n, mod in mods.items()}
+    for n in ("power_iter", "abs_rowsum"):
+        if counts[n] == 0:
+            checks.failures.append(f"{label}: {n} never launched")
+    want_e = eager()
+    same = True
+    for m, idx in groups.items():
+        for s_, i in enumerate(idx):
+            for j in range(3):
+                mask, d, lam, sweeps = want_e[m][j]
+                g = got[i][j]
+                same &= (torch.equal(g.mask, mask[s_])
+                         and torch.equal(g.d, d[s_])
+                         and torch.equal(g.lambdas, lam[s_])
+                         and g.power_iters_run == sweeps[s_])
+    log(f"  {'ok  ' if same else 'FAIL'} every request's masks, d, λ and "
+        "sweeps equal the eager runner's bit for bit")
+    if not same:
+        checks.failures.append(f"{label}: the graphed engine differs from "
+                               "the eager runner")
+    chunk = cfg.power_check_every
+    for i, t in enumerate(tensors):
+        one = msc_sequential(t, cfg, device=DEVICE)
+        hold(torch, checks, f"{label} req {i} (m={t.shape[0]})", got[i], one,
+             "msc_sequential", chunk)
+    # warm times per bucket, in turns: graphed, eager, looped, twice
+    for m, idx in groups.items():
+        reqs = [tensors[i] for i in idx]
+        t = {"graphed": [], "eager": [], "looped B=1": []}
+        for _ in range(2):
+            t["graphed"].append(_timed_s(torch, lambda: engine.run(reqs))[1])
+            t["eager"].append(_timed_s(torch, lambda: eager((m,)))[1])
+            t["looped B=1"].append(_timed_s(torch, lambda: loop.run(reqs))[1])
+        g = min(t["graphed"])
+        log(f"  warm m={m}, {len(idx)} requests in one dispatch: "
+            + ", ".join(f"{k} {' / '.join(f'{x * 1e3:.2f}' for x in v)} ms "
+                        f"({min(v) / g:.2f}x)" for k, v in t.items()))
+    static, pools = engine.memory_reckoning()
+    log(f"  {engine.graphs} graphs, static buffers {static} B, graph pools "
+        f"{pools} B; launches of one warm run {counts}")
+    loop.close()
+    engine.close()
+    return {label: counts}
 
 
 def _flash_work(torch, b, sq, skv, d, elt, kw):
@@ -904,15 +1102,77 @@ def drive_lm(torch, label, argv):
     return out, counts
 
 
-def teacher_forced(torch, model, params, batch, tokens):
+def teacher_forced(torch, model, params, batch, tokens,
+                   max_len=LM_PROMPT + LM_GEN):
     """Prefill and per-step logits of `model` fed `tokens` (B, n)."""
-    logits, cache = model.prefill(params, batch, max_len=LM_PROMPT + LM_GEN)
+    logits, cache = model.prefill(params, batch, max_len=max_len)
     out = [logits]
     for i in range(tokens.shape[1]):
         logits, cache = model.decode_step(params, tokens[:, i:i + 1], cache,
                                           LM_PROMPT + i)
         out.append(logits)
     return out
+
+
+def eager_decode(torch, model, params, batch, n, max_len):
+    """Greedy decode as the engine ran it before its step was captured: n
+    eager `decode_step` calls with an int cache_len.  Returns (tokens
+    (B, n), decode ms per token by CUDA events)."""
+    logits, cache = model.prefill(params, batch, max_len=max_len)
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    s = batch["tokens"].shape[1]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = []
+    for i in range(n):
+        outs.append(tok)
+        logits, cache = model.decode_step(params, tok, cache, s + i)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    end.record()
+    end.synchronize()
+    return torch.cat(outs, dim=1), start.elapsed_time(end) / n
+
+
+def graphed_decode(torch, checks, model, params, batch, cdt, tol):
+    """The engine's captured decode step against the eager loop on the
+    same model, weights and prompt: fp32 tokens identical, the last
+    step's logits within `tol` of the eager ones fed the same tokens, no
+    host sync in the replays; decode ms per token of both."""
+    from repro_torch.serving.engine import ServeEngine
+
+    max_len = LM_PROMPT + 2 * LM_GEN  # room for LM_GEN more replays
+    engine = ServeEngine(model, params, LM_B, max_len)
+    engine.generate(batch, LM_GEN)  # cold: one eager step, the capture
+    toks = engine.generate(batch, LM_GEN)  # warm: replays only
+    g_ms = engine.timings["decode_ms"] / LM_GEN
+    last = engine.logits.clone()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for _ in range(LM_GEN):
+            engine._decode()
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        synced = False
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode("default")
+        synced = str(e).splitlines()[0]
+    eager_decode(torch, model, params, batch, LM_GEN, max_len)  # warm-up
+    e_toks, e_ms = eager_decode(torch, model, params, batch, LM_GEN, max_len)
+    want = teacher_forced(torch, model, params, batch, toks, max_len)[-1]
+    rel = ((last - want).abs().max() / want.abs().max()).item()
+    same = torch.equal(toks, e_toks)
+    ok = (rel <= tol and not synced and engine.captures == 1
+          and (same or cdt != "float32"))
+    log(f"  {'ok  ' if ok else 'FAIL'} {cdt} decode from one CUDA graph per "
+        f"step: {g_ms:.3f} ms per token (eager loop {e_ms:.3f} ms, "
+        f"{e_ms / g_ms:.2f}x); tokens == eager loop's {same}; last logits "
+        f"rel diff {rel:.3e} (tol {tol:g}); host sync in {LM_GEN} replays: "
+        f"{synced or 'none'}")
+    if not ok:
+        checks.failures.append(f"graphed decode {cdt}: tokens same {same}, "
+                               f"logits rel {rel:.3e}, sync {synced}")
+    return {"graphed_ms_per_token": g_ms, "eager_ms_per_token": e_ms}
 
 
 def phase_lm(torch, checks, smi):
@@ -994,6 +1254,7 @@ def phase_lm(torch, checks, smi):
                         for w, r in zip(want_l, ref_l))
             log(f"       bf16 rounding alone: max |plain bf16 - plain fp32| "
                 f"/ max |logit| = {floor:.3e}")
+        graphed_decode(torch, checks, kern, params, batch, cdt, tol[cdt])
         if cdt == "float32":
             k_toks = ServeEngine(kern, params, LM_B,
                                  LM_PROMPT + LM_GEN).generate(batch, LM_GEN)
@@ -1029,6 +1290,7 @@ def main() -> int:
     rows = phase_kernels(torch, checks)
     launches, singles = phase_main_path(torch, checks)
     launches.update(phase_batched(torch, checks, singles))
+    launches.update(phase_static(torch, checks))
     rows.update(phase_flash(torch, checks))
     launches.update(phase_lm(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -27,8 +27,9 @@ def mode_slices(tensor: torch.Tensor, mode: int) -> torch.Tensor:
 
 def normalized_eigrows(slices: torch.Tensor, cfg: MSCConfig,
                        valid_mask: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Rows λ̃_i ṽ_i of V.  Returns (V (m, c), lambdas (m,), sweeps).
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rows λ̃_i ṽ_i of V.  Returns (V (m, c), lambdas (m,), sweeps as a
+    0-d int device tensor).
 
     Padded slices (valid_mask False) get zero rows and are left out of
     the fp32 λ_max normalization."""
@@ -40,7 +41,7 @@ def normalized_eigrows(slices: torch.Tensor, cfg: MSCConfig,
     v_rows = (lam / lam_max)[:, None] * vec
     if valid_mask is not None:
         v_rows = torch.where(valid_mask[:, None], v_rows, zero)
-    return v_rows, lam, int(p_iters)
+    return v_rows, lam, p_iters
 
 
 def similarity_matrix(v_rows: torch.Tensor,

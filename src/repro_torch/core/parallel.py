@@ -26,6 +26,11 @@ AUTO_TODO = ("the 'auto' relayout / epilogue choosers are not ported yet: "
 C_OF = (2, 2, 1)
 
 
+def batch_perm(mode: int) -> tuple:
+    """MODE_PERMS[mode] behind a leading request dim."""
+    return (0,) + tuple(a + 1 for a in MODE_PERMS[mode])
+
+
 def check_relayout(relayout: str, epilogue: str = "allgather") -> None:
     """Raise on a relayout (or epilogue) the one-device port cannot run."""
     if relayout == "auto" or epilogue == "auto":
@@ -73,9 +78,9 @@ def build_msc_batched(cfg: MSCConfig, device="cuda",
         dims = torch.as_tensor(dims, dtype=torch.int32).to(dev)
         modes = []
         for j in range(3):
-            perm = (0,) + tuple(a + 1 for a in MODE_PERMS[j])
             d, lam, iters, valid = sched.run_mode_batched(
-                b.permute(perm).contiguous(), dims[:, j], dims[:, C_OF[j]])
+                b.permute(batch_perm(j)).contiguous(), dims[:, j],
+                dims[:, C_OF[j]])
             modes.append(sched.finalize_mode_batched(d, lam, iters, valid))
         return MSCResult(modes=tuple(modes))
 

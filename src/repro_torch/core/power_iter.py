@@ -14,7 +14,9 @@ per request; a converged request's iterate freezes.
 
 The reference runs the gated loop inside one jit; here it is a host
 loop over gate chunks whose only device-to-host read is `_any_active`,
-once per chunk.
+once per chunk.  `plan_*` cut a solve at that read (`Eigensolve`): the
+eager solvers run the plan, and the static MSC engine replays it from
+CUDA graphs.
 
 Precision policy `bf16_fp32`: operands of T v and Tᵀ(T v) are rounded
 to bf16 and multiplied and summed in fp32; normalization, the gate and
@@ -25,6 +27,7 @@ rounds C and v to bf16, and λ = vᵀCv uses the fp32 C.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -130,15 +133,50 @@ def _any_active(state: SolveState, n_iters: int) -> bool:
     return bool(torch.any(~state.exhausted(n_iters)))
 
 
-def _gated_loop(chunk_fn, v: torch.Tensor, n_iters: int, k: int, tol: float):
-    """`step_chunk` driven until every request is converged or capped.
-
-    Returns (v, iters) with iters shaped like the request dims.
-    """
-    state = init_solve_state(v)
+def _gated_loop(step, state: SolveState, n_iters: int) -> SolveState:
+    """`step` driven until every request is converged or capped, with one
+    host read per chunk.  step(state) returns the next state; a captured
+    step (a CUDA graph replayed, `serving/msc_engine.py`) updates `state`
+    in place and returns it."""
     while _any_active(state, n_iters):
-        state = step_chunk(chunk_fn, state, k=k, n_iters=n_iters, tol=tol)
-    return state.v, state.iters
+        state = step(state)
+    return state
+
+
+@dataclasses.dataclass
+class Eigensolve:
+    """A top-eigenpair solve cut where the host reads.
+
+    `v0` starts it; `step(state)` advances it by one gate chunk when
+    `gated`, else runs the whole fixed trip count at once; `finish(state)`
+    gives λ.  The operands the step reads (the precision-policy copy, the
+    gram) are made once, when the solve is planned, and the closures keep
+    them.  `run()` is the eager solve; the static MSC engine captures the
+    plan, the step and the finish as CUDA graphs instead.
+    """
+
+    v0: torch.Tensor
+    step: Callable[[SolveState], SolveState]
+    finish: Callable[[SolveState], torch.Tensor]
+    n_iters: int
+    gated: bool
+
+    def run(self):
+        """Returns (lambdas (..., b), vectors (..., b, c), iters with the
+        request shape)."""
+        state = init_solve_state(self.v0)
+        state = (_gated_loop(self.step, state, self.n_iters) if self.gated
+                 else self.step(state))
+        return self.finish(state), state.v, state.iters
+
+
+def gated_solve(v0, chunk_fn, k: int, n_iters: int, tol: float,
+                finish) -> Eigensolve:
+    """The gated Eigensolve over chunk_fn(v) -> (v_new, lam, resid)."""
+    def step(state):
+        return step_chunk(chunk_fn, state, k=k, n_iters=n_iters, tol=tol)
+
+    return Eigensolve(v0, step, finish, n_iters, gated=True)
 
 
 def make_chunk_probe(matvec, k: int):
@@ -156,18 +194,23 @@ def make_chunk_probe(matvec, k: int):
     return chunk_fn
 
 
-def _run_adaptive(matvec, v: torch.Tensor, n_iters: int, tol: float,
-                  check_every: int):
-    """Fixed loop when tol <= 0, gated chunks otherwise.  Returns (v, iters).
+def _adaptive(matvec, v0: torch.Tensor, n_iters: int, tol: float,
+              check_every: int, finish) -> Eigensolve:
+    """Fixed loop when tol <= 0, gated chunks otherwise.
 
     With tol > 0 the cap rounds up to a multiple of check_every."""
     if tol <= 0.0:
-        for _ in range(n_iters):
-            v = _normalize(matvec(v))
-        return v, torch.full(v.shape[:-2], n_iters, dtype=torch.int32,
-                             device=v.device)
+        def step(state):
+            v = state.v
+            for _ in range(n_iters):
+                v = _normalize(matvec(v))
+            return dataclasses.replace(
+                state, v=v, iters=torch.full_like(state.iters, n_iters))
+
+        return Eigensolve(v0, step, finish, n_iters, gated=False)
     k = max(1, min(check_every, n_iters))
-    return _gated_loop(make_chunk_probe(matvec, k), v, n_iters, k, tol)
+    return gated_solve(v0, make_chunk_probe(matvec, k), k, n_iters, tol,
+                       finish)
 
 
 def matvec_matrix_free(slices: torch.Tensor, precision: str = "fp32"):
@@ -204,17 +247,40 @@ def build_chunk_fn(slices: torch.Tensor, cfg):
     return make_chunk_probe(matvec_matrix_free(slices, cfg.precision), k), k
 
 
+def plan_matrix_free(slices: torch.Tensor, n_iters: int = 60,
+                     tol: float = 0.0, check_every: int = 6,
+                     precision: str = "fp32", c_valid=None) -> Eigensolve:
+    """The einsum matrix-free solve of `power_iteration_matrix_free`."""
+    v0 = _init_vectors(slices.shape[:-2], slices.shape[-1], torch.float32,
+                       c_valid, device=slices.device)
+    return _adaptive(matvec_matrix_free(slices, precision), v0, n_iters, tol,
+                     check_every, lambda st: rayleigh_fp32(slices, st.v))
+
+
 def power_iteration_matrix_free(slices: torch.Tensor, n_iters: int = 60,
                                 tol: float = 0.0, check_every: int = 6,
                                 precision: str = "fp32", c_valid=None):
     """Top eigenpair of T_iᵀT_i for a batch of slices (b, r, c) or
     (B, b, r, c).  Returns (lambdas (..., b), vectors (..., b, c), iters
     with the request shape); λ = ‖T v‖² in fp32 whatever the precision."""
-    v = _init_vectors(slices.shape[:-2], slices.shape[-1], torch.float32,
-                      c_valid, device=slices.device)
-    v, iters = _run_adaptive(matvec_matrix_free(slices, precision), v,
-                             n_iters, tol, check_every)
-    return rayleigh_fp32(slices, v), v, iters
+    return plan_matrix_free(slices, n_iters, tol, check_every, precision,
+                            c_valid).run()
+
+
+def plan_gram(slices: torch.Tensor, n_iters: int = 60, tol: float = 0.0,
+              check_every: int = 6, precision: str = "fp32",
+              use_kernel: bool = False, c_valid=None) -> Eigensolve:
+    """The explicit-gram solve of `power_iteration_gram`: C is formed here,
+    once."""
+    s = slices.to(compute_dtype(precision))
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+
+        gram = kops.batched_gram(s.contiguous(), out_dtype=torch.float32)
+    else:
+        gram = s.float().transpose(-1, -2) @ s.float()
+    del s  # a bf16 operand copy is not needed while iterating
+    return plan_on_gram(gram, n_iters, tol, check_every, precision, c_valid)
 
 
 def power_iteration_gram(slices: torch.Tensor, n_iters: int = 60,
@@ -228,17 +294,27 @@ def power_iteration_gram(slices: torch.Tensor, n_iters: int = 60,
     plain fp32 product of the precision-policy operands).  Returns
     (lambdas (..., b), vectors (..., b, c), iters with the request shape).
     """
-    s = slices.to(compute_dtype(precision))
-    if use_kernel:
-        from repro_torch.kernels import ops as kops
+    return plan_gram(slices, n_iters, tol, check_every, precision,
+                     use_kernel, c_valid).run()
 
-        gram = kops.batched_gram(s.contiguous(), out_dtype=torch.float32)
-    else:
-        gram = s.float().transpose(-1, -2) @ s.float()
-    del s  # a bf16 operand copy is not needed while iterating
-    return power_iteration_on_gram(gram, n_iters=n_iters, tol=tol,
-                                   check_every=check_every,
-                                   precision=precision, c_valid=c_valid)
+
+def plan_on_gram(gram: torch.Tensor, n_iters: int = 60, tol: float = 0.0,
+                 check_every: int = 6, precision: str = "fp32",
+                 c_valid=None) -> Eigensolve:
+    """The solve of `power_iteration_on_gram` on given covariances."""
+    dt = compute_dtype(precision)
+    g = gram.to(dt).float()  # bf16-rounded copy; in fp32 gram itself
+
+    def matvec(v):
+        return (g @ v.to(dt).float().unsqueeze(-1)).squeeze(-1)
+
+    def finish(state):
+        cv = (gram.float() @ state.v.unsqueeze(-1)).squeeze(-1)
+        return torch.sum(state.v * cv, dim=-1)
+
+    v0 = _init_vectors(gram.shape[:-2], gram.shape[-1], torch.float32,
+                       c_valid, device=gram.device)
+    return _adaptive(matvec, v0, n_iters, tol, check_every, finish)
 
 
 def power_iteration_on_gram(gram: torch.Tensor, n_iters: int = 60,
@@ -249,30 +325,24 @@ def power_iteration_on_gram(gram: torch.Tensor, n_iters: int = 60,
     The matvec is a plain product on C with precision-policy operands
     (C and v rounded to bf16 under bf16_fp32) and fp32 sums; λ = vᵀCv
     on the fp32 C whatever the precision."""
-    dt = compute_dtype(precision)
-    g = gram.to(dt).float()  # bf16-rounded copy; in fp32 gram itself
-
-    def matvec(v):
-        return (g @ v.to(dt).float().unsqueeze(-1)).squeeze(-1)
-
-    v = _init_vectors(gram.shape[:-2], gram.shape[-1], torch.float32,
-                      c_valid, device=gram.device)
-    v, iters = _run_adaptive(matvec, v, n_iters, tol, check_every)
-    del g, matvec
-    cv = (gram.float() @ v.unsqueeze(-1)).squeeze(-1)
-    return torch.sum(v * cv, dim=-1), v, iters
+    return plan_on_gram(gram, n_iters, tol, check_every, precision,
+                        c_valid).run()
 
 
-def top_eigenpairs(slices: torch.Tensor, cfg, c_valid=None):
-    """Dispatch on MSCConfig: matrix_free / use_kernels select the path.
-    Returns (lambdas (..., b), vectors (..., b, c), iters per request)."""
+def plan_eigensolve(slices: torch.Tensor, cfg, c_valid=None) -> Eigensolve:
+    """Dispatch on MSCConfig: matrix_free / use_kernels select the path."""
     kw = dict(n_iters=cfg.power_iters, tol=cfg.power_tol,
               check_every=cfg.power_check_every, precision=cfg.precision,
               c_valid=c_valid)
     if not cfg.matrix_free:
-        return power_iteration_gram(slices, use_kernel=cfg.use_kernels, **kw)
+        return plan_gram(slices, use_kernel=cfg.use_kernels, **kw)
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
 
-        return kops.power_iterate_matrix_free(slices, **kw)
-    return power_iteration_matrix_free(slices, **kw)
+        return kops.plan_matrix_free(slices, **kw)
+    return plan_matrix_free(slices, **kw)
+
+
+def top_eigenpairs(slices: torch.Tensor, cfg, c_valid=None):
+    """Returns (lambdas (..., b), vectors (..., b, c), iters per request)."""
+    return plan_eigensolve(slices, cfg, c_valid).run()

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from .extraction import extract_cluster
-from .power_iter import compute_dtype, top_eigenpairs
+from .power_iter import compute_dtype, plan_eigensolve, top_eigenpairs
 from .types import ModeResult, MSCConfig
 
 EPILOGUES = ("allgather", "ring")
@@ -97,40 +97,47 @@ class ModeSchedule:
         return d, lam, iters, valid, m
 
     def finalize_mode(self, d, lam, iters, valid, m: int) -> ModeResult:
-        """Cluster extraction + trimming on the device."""
+        """Cluster extraction + trimming on the device; the counts stay
+        device tensors (no read back to the host)."""
         mask, n_it = extract_cluster(d, self.cfg.epsilon, valid,
                                      self.cfg.max_extraction_iters)
         return ModeResult(mask=mask[:m], d=d[:m], lambdas=lam[:m],
-                          n_iters=n_it, power_iters_run=int(iters.max()))
+                          n_iters=n_it, power_iters_run=torch.amax(iters))
 
-    def run_mode_batched(self, slices: torch.Tensor, m_req: torch.Tensor,
-                         c_req: torch.Tensor):
-        """One mode for a bucket of B requests.
+    def plan_mode_batched(self, slices: torch.Tensor, m_req: torch.Tensor,
+                          c_req: torch.Tensor):
+        """One mode's eigensolve for a bucket of B requests, planned (its
+        operands made) but not run.
 
         slices (B, M, R, C): bucket-padded slice-major unfoldings, request
         i's data in the leading (m_req[i], r, c_req[i]) corner and zeros
         beyond.  m_req / c_req (B,) int: true slice and column counts
         (rows need no bound: zero rows add nothing to any contraction).
-        Returns (d, lam, iters (B, 1), valid (B, M)) at the padded size.
+        Returns (Eigensolve, valid (B, M)).
         """
         m = slices.shape[1]
         valid = (torch.arange(m, device=slices.device)[None, :]
                  < m_req.to(slices.device)[:, None])
-        d, lam, iters = self.mode_local(
-            slices, valid, c_valid=c_req.to(slices.device)[:, None])
-        return d, lam, iters, valid
+        plan = plan_eigensolve(slices, self.cfg,
+                               c_valid=c_req.to(slices.device)[:, None])
+        return plan, valid
+
+    def run_mode_batched(self, slices: torch.Tensor, m_req: torch.Tensor,
+                         c_req: torch.Tensor):
+        """One mode for a bucket of B requests (see `plan_mode_batched`),
+        run eagerly.  Returns (d, lam, iters (B, 1), valid (B, M)) at the
+        padded size."""
+        plan, valid = self.plan_mode_batched(slices, m_req, c_req)
+        lam, vec, iters = plan.run()
+        d, lam = self._similarity_tail(lam, vec, valid)
+        return d, lam, iters[..., None], valid
 
     def finalize_mode_batched(self, d, lam, iters, valid) -> ModeResult:
-        """Extraction per request (a loop over the request dim).  Fields
-        keep the leading B dim at the padded size; `n_iters` and
-        `power_iters_run` are per-request lists, never maxed across
-        requests."""
-        masks, n_its = [], []
-        for dd, vv in zip(d, valid):
-            mask, n_it = extract_cluster(dd, self.cfg.epsilon, vv,
-                                         self.cfg.max_extraction_iters)
-            masks.append(mask)
-            n_its.append(n_it)
-        return ModeResult(mask=torch.stack(masks), d=d, lambdas=lam,
-                          n_iters=n_its,
-                          power_iters_run=torch.amax(iters, dim=-1).tolist())
+        """Extraction of every request in one batched call (padding masked
+        by `valid`).  Fields keep the leading B dim at the padded size;
+        `n_iters` and `power_iters_run` are (B,) int device tensors, one
+        count per request, never maxed across requests."""
+        mask, n_it = extract_cluster(d, self.cfg.epsilon, valid,
+                                     self.cfg.max_extraction_iters)
+        return ModeResult(mask=mask, d=d, lambdas=lam, n_iters=n_it,
+                          power_iters_run=torch.amax(iters, dim=-1))

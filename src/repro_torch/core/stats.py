@@ -49,10 +49,13 @@ def standardize_top_eig(lam, m2, m3):
 
 
 def theorem_threshold(l, m, epsilon):
-    """RHS of Theorem II.1: l·ε/2 + sqrt(log(m − l)), with m − l ≥ 2."""
+    """RHS of Theorem II.1: l·ε/2 + sqrt(log(m − l)), with m − l ≥ 2.
+
+    ε enters as a 0-d fp32 tensor on the host, which a device op reads as
+    a scalar: no copy to the device, so the trim can be captured."""
     l = _f32(l, like=l)
     gap = torch.clamp(_f32(m, like=l) - l, min=2.0)
-    return l * _f32(epsilon, like=l) / 2.0 + torch.sqrt(torch.log(gap))
+    return l * _f32(epsilon) / 2.0 + torch.sqrt(torch.log(gap))
 
 
 def epsilon_ok(epsilon, m, l):

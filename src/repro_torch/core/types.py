@@ -6,7 +6,7 @@ defaults, and result containers that hold torch tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -61,17 +61,19 @@ class ModeResult:
     """Result of clustering one tensor mode.
 
     mask: bool (m,) cluster membership; d: fp32 (m,) marginal sums;
-    lambdas: fp32 (m,) top eigenvalues; n_iters: int trimming
-    iterations; power_iters_run: int realized power-iteration sweeps.
-    A request-batched result (`build_msc_batched`) has a leading B dim
-    on the tensors and one int per request in lists for the counts.
+    lambdas: fp32 (m,) top eigenvalues; n_iters: trimming iterations;
+    power_iters_run: realized power-iteration sweeps.  The solvers leave
+    both counts on the device as 0-d int tensors, as the reference leaves
+    jax arrays; a request-batched result (`build_msc_batched`) has a
+    leading B dim on every field.  MSCServeEngine returns host results
+    with Python ints.
     """
 
     mask: torch.Tensor
     d: torch.Tensor
     lambdas: torch.Tensor
-    n_iters: int
-    power_iters_run: Optional[int] = None
+    n_iters: Union[int, torch.Tensor]
+    power_iters_run: Union[int, torch.Tensor, None] = None
 
     @property
     def indices(self) -> np.ndarray:

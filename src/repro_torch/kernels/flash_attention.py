@@ -11,8 +11,10 @@ fp32, and the output has the input dtype.  The kernel takes d = 32, 64,
 
 A CUDA tensor launches the kernel on the current stream (or raises); a
 CPU tensor runs the plain version in `ref.py`.  `launches` counts kernel
-launches and nothing else.  On the card each call is one launch of one of
-three routes, which the kernel picks by sq and dtype (`csrc/
+launches that reach the device and nothing else: a call made while a
+CUDA graph captures adds to `captured`, and each replay of the graph adds
+its captured launches (`serving/graphs.py`).  On the card each call is
+one launch of one of three routes, which the kernel picks by sq and dtype (`csrc/
 flash_attention.cu`): a small-sq kernel for sq <= `sq_small()` (both
 dtypes, the decode cross-attention), a tensor-core tile kernel for bf16
 above it, and the CUDA-core tile kernel for fp32 above it.  `route`
@@ -29,6 +31,7 @@ import torch
 from . import _build, ref
 
 launches = 0
+captured = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
@@ -75,7 +78,7 @@ def sq_small() -> int:
 
 
 def _launch(q, k, v, causal, scale, q_offset, window, softcap, route):
-    global launches
+    global launches, captured
     b, sq, d = q.shape
     skv = k.shape[1]
     if d not in HEAD_DIMS:
@@ -98,7 +101,10 @@ def _launch(q, k, v, causal, scale, q_offset, window, softcap, route):
         raise RuntimeError(
             f"flash_attention kernel refused (b={b}, sq={sq}, skv={skv}, "
             f"d={d}, {q.dtype}): {lib.msc_flash_attention_error(err).decode()}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1  # launched by each replay (serving/graphs.py)
+    else:
+        launches += 1
     return out
 
 

@@ -7,8 +7,11 @@ the input dtype).  Leading request dims are flattened by `ops.py`.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a
 CPU tensor runs the plain version in `ref.py`.  `launches` counts kernel
-launches and nothing else.  The kernel computes one triangle of each
-symmetric C and writes both: `tile_plan(c)` gives its CTAs per slice.
+launches that reach the device and nothing else: a call made while a
+CUDA graph captures adds to `captured`, and each replay of the graph adds
+its captured launches (`serving/graphs.py`).  The kernel computes one
+triangle of each symmetric C and writes both: `tile_plan(c)` gives its
+CTAs per slice.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from . import _build, ref
 
 launches = 0
+captured = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 128  # C tile edge (BM in csrc/gram.cu)
@@ -71,7 +75,7 @@ def _check(slices: torch.Tensor, out_dtype) -> None:
 
 
 def _launch(slices: torch.Tensor, out_dtype) -> torch.Tensor:
-    global launches
+    global launches, captured
     b, r, c = slices.shape
     dev = slices.device
     out = torch.empty((b, c, c), dtype=out_dtype, device=dev)
@@ -84,7 +88,10 @@ def _launch(slices: torch.Tensor, out_dtype) -> torch.Tensor:
         raise RuntimeError(
             f"gram kernel refused (b={b}, r={r}, c={c}, {slices.dtype} -> "
             f"{out_dtype}): {lib.msc_gram_error(err).decode()}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1  # launched by each replay (serving/graphs.py)
+    else:
+        launches += 1
     return out
 
 

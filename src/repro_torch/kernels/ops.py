@@ -7,6 +7,8 @@ is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import flash_attention as _fa
@@ -59,32 +61,51 @@ def build_chunk_fn(slices: torch.Tensor, k: int, *, precision: str = "fp32",
     return chunk_fn
 
 
-def power_iterate_matrix_free(slices: torch.Tensor, n_iters: int = 60,
-                              tol: float = 0.0, check_every: int = 6,
-                              precision: str = "fp32", c_valid=None, *,
-                              block_r: int = 256):
-    """Fused power iteration with the same start vectors, gate and `iters`
-    semantics as `core.power_iter.power_iteration_matrix_free`.
+def plan_matrix_free(slices: torch.Tensor, n_iters: int = 60,
+                     tol: float = 0.0, check_every: int = 6,
+                     precision: str = "fp32", c_valid=None, *,
+                     block_r: int = 256):
+    """The fused solve (`core.power_iter.Eigensolve`) with the same start
+    vectors, gate and `iters` semantics as
+    `core.power_iter.plan_matrix_free`.
 
     tol <= 0: one launch of n_iters sweeps plus the λ pass (λ re-measured
     in fp32 under bf16).  tol > 0: one launch per gate chunk of
-    check_every sweeps, driven by the shared `_gated_loop`.
-    Returns (lam (..., b), v (..., b, c), iters with the request shape).
+    check_every sweeps.
     """
-    from repro_torch.core.power_iter import (_gated_loop, _init_vectors,
-                                             compute_dtype, rayleigh_fp32)
+    from repro_torch.core.power_iter import (Eigensolve, _init_vectors,
+                                             compute_dtype, gated_solve,
+                                             rayleigh_fp32)
 
     v0 = _init_vectors(slices.shape[:-2], slices.shape[-1], torch.float32,
                        c_valid, device=slices.device)
     if tol <= 0.0:
         s = slices.to(compute_dtype(precision)).contiguous()
-        lam, v = _pi.power_iterate(s, v0, n_iters, block_r=block_r)
-        if precision != "fp32":
-            lam = rayleigh_fp32(slices, v)
-        return lam, v, torch.full(slices.shape[:-3], n_iters,
-                                  dtype=torch.int32, device=slices.device)
+
+        def step(state):
+            lam, v = _pi.power_iterate(s, state.v, n_iters, block_r=block_r)
+            return dataclasses.replace(
+                state, v=v, lam=lam,
+                iters=torch.full_like(state.iters, n_iters))
+
+        def finish(state):
+            if precision == "fp32":
+                return state.lam
+            return rayleigh_fp32(slices, state.v)
+
+        return Eigensolve(v0, step, finish, n_iters, gated=False)
     k = max(1, min(check_every, n_iters))
-    chunk_fn = build_chunk_fn(slices, k, precision=precision,
-                              block_r=block_r)
-    v, iters = _gated_loop(chunk_fn, v0, n_iters, k, tol)
-    return rayleigh_fp32(slices, v), v, iters
+    return gated_solve(v0, build_chunk_fn(slices, k, precision=precision,
+                                          block_r=block_r),
+                       k, n_iters, tol, lambda st: rayleigh_fp32(slices, st.v))
+
+
+def power_iterate_matrix_free(slices: torch.Tensor, n_iters: int = 60,
+                              tol: float = 0.0, check_every: int = 6,
+                              precision: str = "fp32", c_valid=None, *,
+                              block_r: int = 256):
+    """Fused power iteration (`plan_matrix_free`, run eagerly).
+    Returns (lam (..., b), v (..., b, c), iters with the request shape).
+    """
+    return plan_matrix_free(slices, n_iters, tol, check_every, precision,
+                            c_valid, block_r=block_r).run()

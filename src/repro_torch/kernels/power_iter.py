@@ -23,7 +23,10 @@ Slices (..., b, r, c) are fp32 or bf16 and contiguous; v is fp32
 (..., b, c).  Leading request dims flatten into the slice grid.  A CUDA
 tensor launches the kernel on the current stream (or raises); a CPU
 tensor runs the plain version in `ref.py`.  `launches` counts kernel
-launches and nothing else.  `route=` forces a route, for timing.
+launches that reach the device and nothing else: a call made while a
+CUDA graph captures adds to `captured`, and each replay of the graph adds
+its captured launches (`serving/graphs.py`).  `route=` forces a route,
+for timing.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from . import _build, ref
 
 launches = 0
+captured = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"general": 0, "direct": 1, "ring": 2}
@@ -118,7 +122,7 @@ def _launch(slices, v0, n_upd, *, lambda_pass, emit_gate, normalize=True,
             force=None):
     """(lam, v, resid, w) from the CUDA kernel; w is None unless
     normalize is False."""
-    global launches
+    global launches, captured
     lead = slices.shape[:-2]
     r, c = slices.shape[-2:]
     aligned = slices.data_ptr() % 16 == 0
@@ -152,7 +156,10 @@ def _launch(slices, v0, n_upd, *, lambda_pass, emit_gate, normalize=True,
             f"{lib.msc_power_iter_error(err).decode()}; "
             "v and w (2·c fp32) and one row of T must fit in 227 KB of "
             "shared memory")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1  # launched by each replay (serving/graphs.py)
+    else:
+        launches += 1
     return lam, v_out, resid, w
 
 

@@ -9,8 +9,10 @@ and the sums are fp32.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a
 CPU tensor runs the plain version in `ref.py`.  `launches` counts kernel
-launches and nothing else.  The kernel covers (i-tile, j-tile, request)
-with 64 x 64 tiles; `tile_plan` gives its grid and the scratch this
+launches that reach the device and nothing else: a call made while a
+CUDA graph captures adds to `captured`, and each replay of the graph adds
+its captured launches (`serving/graphs.py`).  The kernel covers (i-tile,
+j-tile, request) with 64 x 64 tiles; `tile_plan` gives its grid and the scratch this
 wrapper allocates for it (row partials per j-tile and one ticket per
 i-tile, see `csrc/ring.cu`).
 """
@@ -26,6 +28,7 @@ import torch
 from . import _build, ref
 
 launches = 0
+captured = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # rows of a and of b per CTA (BI = BJ in csrc/ring.cu)
@@ -87,7 +90,7 @@ def _check(a, b, acc) -> None:
 
 
 def _launch(a, b, acc):
-    global launches
+    global launches, captured
     bl, c = a.shape[-2:]
     bc = b.shape[-2]
     batch = a.shape[0] if a.dim() == 3 else 1
@@ -107,7 +110,10 @@ def _launch(a, b, acc):
         raise RuntimeError(
             f"abs_rowsum kernel refused (B={batch}, bl={bl}, bc={bc}, c={c}, "
             f"{a.dtype}): {lib.msc_abs_rowsum_error(err).decode()}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1  # launched by each replay (serving/graphs.py)
+    else:
+        launches += 1
     return out
 
 

@@ -6,8 +6,8 @@ eigensolver: matrix-free or the explicit gram with `--gram`) and reports
 recovery rate, similarity index (Eq. 6), cluster sizes, realized power
 sweeps and wall time, with the same output lines as the reference.
 `--batch B` serves B planted requests (seeds seed … seed+B−1) through
-MSCServeEngine in one dispatch and compares warm time with a loop of
-single-request dispatches.
+MSCServeEngine in one dispatch (CUDA graphs on the card) and compares
+warm time with a loop of single-request dispatches.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.msc_run --m 1000 --kernels
@@ -107,26 +107,34 @@ def _timed(dev, fn):
 
 def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev) -> dict:
     """--batch B: serve B independent planted requests in one dispatch
-    and report per-request quality, cold / warm / looped-warm times, the
-    engine's compile counts and, on a card, the device memory each run
-    left allocated.  Returns {"results", "recs", "sweeps", "cold",
-    "warm", "loop_warm", "stats_cold", "stats_warm", "kept_cold",
-    "kept_warm"}."""
+    and report per-request quality, cold / warm / looped-warm times and
+    the engine's compile counts; on a card also the device memory the
+    live engine holds beside its reckoning (static buffers + graph pools)
+    and what each engine leaves once closed.  Returns {"results", "recs",
+    "sweeps", "cold", "warm", "loop_warm", "stats_cold", "stats_warm",
+    "held", "reckoned", "left", "loop_left"}."""
     from repro_torch.serving import MSCServeEngine
+    from repro_torch.serving.graphs import capture_stream
 
     tensors = [make_planted_tensor(
         torch.Generator(device=dev).manual_seed(args.seed + i), spec)
         for i in range(args.batch)]
     true_masks = planted_masks(spec, device=dev)
     engine = MSCServeEngine(cfg, max_batch=args.batch, device=dev)
+    if dev.type == "cuda":
+        # the process's capture stream and its cuBLAS workspace, made once
+        # and shared by every engine, are not the engine's memory
+        capture_stream(dev)
     _reset_peak(dev)
-    held = _allocated(dev)
+    base = _allocated(dev)
     results, cold = _timed(dev, lambda: engine.run(tensors))
     stats_cold = engine.stats
-    kept_cold = _allocated(dev) - held
     _, warm = _timed(dev, lambda: engine.run(tensors))
     stats_warm = engine.stats.delta(stats_cold)
-    kept_warm = _allocated(dev) - held - kept_cold
+    held = _allocated(dev) - base
+    reckoned = engine.memory_reckoning()
+    engine.close()
+    left = _allocated(dev) - base
     peak = _peak_gib(dev)
     recs = [float(recovery_rate(true_masks, [r[j].mask for j in range(3)]))
             for r in results]
@@ -137,18 +145,23 @@ def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev) -> dict:
     loop = MSCServeEngine(cfg, max_batch=1, device=dev)
     loop.run(tensors)
     _, loop_warm = _timed(dev, lambda: loop.run(tensors))
+    loop.close()
+    loop_left = _allocated(dev) - base
     print(f"mean rec={np.mean(recs):.3f} B={args.batch} "
           f"cold={cold:.3f}s warm={warm:.3f}s "
           f"looped-warm={loop_warm:.3f}s speedup={loop_warm / warm:.2f}x "
           f"(compiles: {stats_cold.compiles} cold, "
           f"{stats_warm.compiles} warm){peak}")
     if dev.type == "cuda":
-        print(f"device memory left allocated: {kept_cold} B by the cold "
-              f"run, {kept_warm} B more by the warm run")
+        print(f"device memory held by the live engine: {held} B (reckoned: "
+              f"static buffers {reckoned[0]} B + graph pools {reckoned[1]} "
+              f"B); left once closed: {left} B (looped engine: "
+              f"{loop_left} B)")
     return {"results": results, "recs": recs, "sweeps": sweeps,
             "cold": cold, "warm": warm, "loop_warm": loop_warm,
             "stats_cold": stats_cold, "stats_warm": stats_warm,
-            "kept_cold": kept_cold, "kept_warm": kept_warm}
+            "held": held, "reckoned": reckoned, "left": left,
+            "loop_left": loop_left}
 
 
 def run(args: argparse.Namespace):
@@ -200,7 +213,7 @@ def run(args: argparse.Namespace):
         c_mats = msc_similarity_matrices(tensor, cfg, device=dev)
         sim = float(similarity_index(c_mats, pred))
         del tensor, c_mats
-        sweeps = [mr.power_iters_run for mr in result.modes]
+        sweeps = [int(mr.power_iters_run) for mr in result.modes]
         print(f"  run {r}: rec={rec:.3f} sim={sim:.3f} "
               f"sizes={[mr.size for mr in result.modes]} "
               f"t={t:.2f}s sweeps={sweeps}{peak}")

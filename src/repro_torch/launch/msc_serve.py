@@ -1,0 +1,211 @@
+"""Batched MSC serving CLI — counterpart of `repro/launch/msc_serve.py`'s
+static mode.
+
+Generates a stream of independent planted-tensor MSC requests with mixed
+shapes, serves it through `MSCServeEngine` (shape buckets, one set of
+CUDA graphs per bucket, fixed-size microbatches) twice, cold then warm,
+and reports the bucket and capture behaviour plus batched-versus-looped
+throughput, with the reference's output lines.  The reference's flags
+and defaults, plus `--device` (default `cuda`; `cpu` runs the same
+steps eagerly).  The continuous engine, the serving tiers, meshes and
+the roofline choosers are later items of ROADMAP.md queue 1; their
+flags raise `NotImplementedError` naming the item.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.msc_serve
+  PYTHONPATH=src python -m repro_torch.launch.msc_serve --device cpu \\
+      --sizes 14,19 --requests 6 --max-batch 2
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.core import (MSCConfig, PlantedSpec, make_planted_tensor,
+                              planted_masks, recovery_rate, resolve_device)
+from repro_torch.core.parallel import AUTO_TODO
+from repro_torch.core.schedule import MULTI_DEVICE_TODO
+from repro_torch.serving import MSCServeEngine
+
+CONTINUOUS_TODO = ("the continuous-batching engine is not ported yet: "
+                   "ROADMAP.md, queue 1 item 8")
+TIERS_TODO = ("the serving tiers (autotuner, SLO scheduler, checkpoints, "
+              "result cache, warm start) are not ported yet: ROADMAP.md, "
+              "queue 1 item 10")
+
+# flags of later items, with the value that leaves them off
+_LATER = (
+    ("continuous", False, CONTINUOUS_TODO), ("slots", None, CONTINUOUS_TODO),
+    ("chunks_per_step", "1", CONTINUOUS_TODO),
+    ("arrival_rate", 2.0, CONTINUOUS_TODO),
+    ("no_donate", False, CONTINUOUS_TODO),
+    ("autotune", False, TIERS_TODO), ("priority_mix", None, TIERS_TODO),
+    ("slo_chunks", None, TIERS_TODO), ("deadline_chunks", None, TIERS_TODO),
+    ("no_preempt", False, TIERS_TODO),
+    ("bucket_policy", "weighted", TIERS_TODO),
+    ("checkpoint_dir", None, TIERS_TODO), ("ckpt_every", 8, TIERS_TODO),
+    ("restore", None, TIERS_TODO), ("cache_dir", None, TIERS_TODO),
+    ("cache_max_bytes", 256 << 20, TIERS_TODO),
+    ("warm_start", False, TIERS_TODO),
+)
+
+
+def build_request_stream(sizes, n_requests: int, seed: int,
+                         slow_every: int = 0, gamma_slow: float = 2.0,
+                         device="cpu"):
+    """n_requests planted cubes cycling through `sizes` (mixed buckets),
+    request i from a generator seeded with seed + i on `device`; with
+    slow_every > 0, every slow_every-th request is a near-noise slow
+    converger (γ = gamma_slow; the others γ = max(m, 40))."""
+    specs, tensors = [], []
+    for i in range(n_requests):
+        m = sizes[i % len(sizes)]
+        gamma = gamma_slow if slow_every and i % slow_every == 0 \
+            else float(max(m, 40))
+        specs.append(PlantedSpec.paper(m, gamma=gamma))
+        gen = torch.Generator(device=device).manual_seed(seed + i)
+        tensors.append(make_planted_tensor(gen, specs[-1]))
+    return specs, tensors
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sizes", default="16,21,33",
+                    help="comma-separated cube sizes the stream cycles "
+                         "through (three values = a 3-bucket stream)")
+    ap.add_argument("--requests", type=int, default=9)
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="microbatch size B (one set of graphs per bucket)")
+    ap.add_argument("--bucket-quantum", type=int, default=8,
+                    help="request dims round up to multiples of this")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="mesh factorization; one device only takes '1'")
+    ap.add_argument("--epilogue", default="allgather",
+                    choices=("allgather", "ring", "auto"))
+    ap.add_argument("--precision", default="fp32",
+                    choices=("fp32", "bf16_fp32"))
+    ap.add_argument("--power-tol", type=float, default=1e-2)
+    ap.add_argument("--no-loop-compare", action="store_true",
+                    help="skip the B=1 looped-baseline timing")
+    ap.add_argument("--continuous", action="store_true")
+    ap.add_argument("--slots", type=int, default=None)
+    ap.add_argument("--chunks-per-step", default="1")
+    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--no-donate", action="store_true")
+    ap.add_argument("--arrival-rate", type=float, default=2.0)
+    ap.add_argument("--priority-mix", default=None)
+    ap.add_argument("--slo-chunks", type=int, default=None)
+    ap.add_argument("--deadline-chunks", type=int, default=None)
+    ap.add_argument("--no-preempt", action="store_true")
+    ap.add_argument("--bucket-policy", default="weighted",
+                    choices=("weighted", "all"))
+    ap.add_argument("--slow-every", type=int, default=0,
+                    help="every Nth request is a near-noise slow "
+                         "converger (0 = homogeneous stream)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=8)
+    ap.add_argument("--restore", default=None, metavar="DIR")
+    ap.add_argument("--cache-dir", default=None, metavar="DIR")
+    ap.add_argument("--cache-max-bytes", type=int, default=256 << 20)
+    ap.add_argument("--warm-start", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the kernels' plain "
+                         "versions")
+    return ap.parse_args(argv)
+
+
+def check_args(args: argparse.Namespace) -> None:
+    """Raise on a flag of a later item (ROADMAP.md queue 1)."""
+    if args.mesh_shape not in (None, "1"):
+        raise NotImplementedError(f"--mesh-shape {args.mesh_shape}: "
+                                  f"{MULTI_DEVICE_TODO}")
+    if args.epilogue == "auto":
+        raise NotImplementedError(f"--epilogue auto: {AUTO_TODO}")
+    for name, off, todo in _LATER:
+        if getattr(args, name) != off:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')}: {todo}")
+
+
+def run(args: argparse.Namespace) -> dict:
+    """Serve the stream cold, then warm (and with a B = 1 engine unless
+    --no-loop-compare), printing the reference's lines.  Returns
+    {"engine", "specs", "results", "recs", "sweeps", "buckets",
+    "stats_cold", "stats_warm", "cold", "warm", "loop_warm"}; the engine
+    stays open (its graphs and buffers) for the caller to read and
+    close."""
+    check_args(args)
+    dev = resolve_device(args.device)
+    sizes = [int(s) for s in args.sizes.split(",")]
+    cfg = MSCConfig(epsilon=3e-4, power_tol=args.power_tol,
+                    precision=args.precision, epilogue=args.epilogue)
+    print(f"MSC serve: {args.requests} requests over sizes {sizes}, "
+          f"mesh {{'slice': 1}}, B={args.max_batch}, "
+          f"epilogue={args.epilogue} precision={args.precision} "
+          f"device={dev}")
+    specs, tensors = build_request_stream(sizes, args.requests, args.seed,
+                                          slow_every=args.slow_every,
+                                          device=dev)
+    engine = MSCServeEngine(cfg, max_batch=args.max_batch,
+                            bucket_quantum=args.bucket_quantum, device=dev)
+    buckets = sorted({engine.bucket_of(t.shape) for t in tensors})
+    print(f"buckets: {buckets}")
+
+    t0 = time.perf_counter()
+    results = engine.run(tensors)  # cold: captures each bucket's graphs
+    cold_s = time.perf_counter() - t0
+    stats_cold = engine.stats
+    t0 = time.perf_counter()
+    engine.run(tensors)  # warm: replays only
+    warm_s = time.perf_counter() - t0
+    stats_warm = engine.stats.delta(stats_cold)
+
+    recs, sweeps = [], []
+    for i, (spec, res) in enumerate(zip(specs, results)):
+        recs.append(float(recovery_rate(planted_masks(spec),
+                                        [res[j].mask for j in range(3)])))
+        sweeps.append([res[j].power_iters_run for j in range(3)])
+        print(f"  req {i}: shape={spec.shape} rec={recs[-1]:.3f} "
+              f"sizes={[res[j].size for j in range(3)]} sweeps={sweeps[-1]}")
+
+    s = engine.stats
+    print(f"stats: {s.dispatches} dispatches, {s.compiles} compiles, "
+          f"{s.exec_cache_hits} exec cache hits, "
+          f"{s.filler_slots} filler slots")
+    print(f"cold {cold_s:.2f}s (incl. {s.compiles} compiles), "
+          f"warm {warm_s:.2f}s "
+          f"({args.requests / warm_s:.1f} req/s)")
+    if dev.type == "cuda":
+        static, pools = engine.memory_reckoning()
+        print(f"graphs: {engine.graphs} held for {len(buckets)} buckets "
+              f"({stats_cold.compiles} captured cold, "
+              f"{stats_warm.compiles} warm); static buffers {static} B, "
+              f"graph pools {pools} B")
+
+    loop_s = None
+    if not args.no_loop_compare:
+        loop = MSCServeEngine(cfg, max_batch=1,
+                              bucket_quantum=args.bucket_quantum, device=dev)
+        loop.run(tensors)  # capture its graphs
+        t0 = time.perf_counter()
+        loop.run(tensors)
+        loop_s = time.perf_counter() - t0
+        loop.close()
+        print(f"looped (B=1) warm {loop_s:.2f}s → batched speedup "
+              f"{loop_s / warm_s:.2f}x")
+    return {"engine": engine, "specs": specs, "results": results,
+            "recs": recs, "sweeps": sweeps, "buckets": buckets,
+            "stats_cold": stats_cold, "stats_warm": stats_warm,
+            "cold": cold_s, "warm": warm_s, "loop_warm": loop_s}
+
+
+def main(argv=None) -> int:
+    run(parse_args(argv))["engine"].close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

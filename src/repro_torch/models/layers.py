@@ -10,9 +10,9 @@ reference's three conditions (`attention` below):
   chunked — online softmax over KV chunks in plain PyTorch, GQA grouped
             so repeated KV is never materialized.
   pallas  — the hand-written CUDA kernel (`kernels/flash_attention.py`),
-            taken only without a KV cache and with an int position
-            offset: the encoder's self-attention and the cross-attention
-            of an encoder–decoder model; on the CPU the kernel's plain
+            taken only without a KV cache: the encoder's self-attention
+            (with an int position offset) and the cross-attention of an
+            encoder–decoder model; on the CPU the kernel's plain
             version.
 """
 from __future__ import annotations
@@ -186,7 +186,8 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
     kv_cache: optional (k, v) buffers (B, T, K, dh) — decode path: new kv
       written at positions [cache_len, cache_len+S), in place (the
       counterpart of the reference's donated buffers).  cache_len is a
-      Python int, so no device value is read.
+      Python int or a 0-d int tensor on x's device; either way no device
+      value is read, so a decode step can be captured as a CUDA graph.
     kv_source: cross-attention source (encoder output); no cache, no rope;
       the computed (k, v) is returned so prefill can cache it.
     static_kv: precomputed (k, v) to attend over read-only (cross-attn at
@@ -254,8 +255,9 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
             else:
                 kv_len = cache_len + s  # attend in-flight (prefill)
         else:
-            ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
-            cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
+            pos = cache_len + torch.arange(s, device=dev)
+            ck.index_copy_(1, pos, k.to(ck.dtype))
+            cv.index_copy_(1, pos, v.to(cv.dtype))
             k, v = ck, cv
             new_cache = (ck, cv)
             kv_len = cache_len + s
@@ -272,10 +274,14 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
     causal = causal and not is_cross
 
     impl = cfg.attn_impl
-    if impl == "pallas" and kv_cache is None and isinstance(pos_offset, int):
+    # the kernel takes its causal offset from the host: a self-attention
+    # with a device-tensor offset takes the chunked route; cross-attention
+    # reads no offset, so it keeps the kernel whatever pos_offset is
+    if impl == "pallas" and kv_cache is None and (
+            is_cross or isinstance(pos_offset, int)):
         out = _attn_pallas(qg, k, v, scale=scale, causal=causal,
                            window=window, softcap=softcap,
-                           q_offset=pos_offset)
+                           q_offset=0 if is_cross else pos_offset)
     elif impl == "full":
         out = _attn_full(qg, k, v, scale=scale, causal=causal, window=window,
                          softcap=softcap, qpos=qpos, kv_len=kv_len,

@@ -205,7 +205,8 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
     replaces the embeddings of the first P positions.  enc_frames:
     (B, T_enc, D) audio frame stub (whisper) — runs the encoder and
     cross-attends.  cache/cache_len: the serving path (cache_len a
-    Python int).  Returns (hidden (B,S,D), new_cache); the reference's
+    Python int, or a 0-d int tensor on the device for a step that reads
+    nothing back to the host).  Returns (hidden (B,S,D), new_cache); the reference's
     third output, the MoE aux loss, has no source in the port.
     """
     kinds, n_scan, n_rest = _pattern(cfg)
@@ -295,9 +296,11 @@ class Model:
         return logits_last(params, hidden, cfg), cache
 
     @torch.no_grad()
-    def decode_step(self, params, tokens, cache, cache_len: int):
+    def decode_step(self, params, tokens, cache, cache_len):
         """One token per sequence.  tokens: (B, 1) → (logits, cache),
-        the cache updated in place."""
+        the cache updated in place.  cache_len: the positions filled, a
+        Python int or a 0-d int tensor on the device (the same logits,
+        bit for bit; the tensor form captures as one CUDA graph)."""
         hidden, cache = forward(params, tokens, self.cfg, cache=cache,
                                 cache_len=cache_len)
         return logits_last(params, hidden, self.cfg), cache

@@ -8,6 +8,15 @@ buffers).  The next token is the `argmax` of the logits, taken on the
 device (ties go to the first maximal index, as `jnp.argmax` breaks
 them); nothing is read back to the host until the end.
 
+The decode step is one program, as the reference jits it: the engine
+owns the KV cache at (batch, max_len) (the prefill's cache is copied
+into it), the current token, the position filled (a 0-d device tensor)
+and a (batch, max_len) output, and on a card captures one step (the
+model's decode step, the argmax, the token written at its device
+position, both positions advanced) as a CUDA graph, replayed once per
+token and kept for later `generate` calls.  On the CPU the same step
+runs eagerly.  The prefill runs eagerly.
+
 The reference's mesh, parameter and cache shardings (`cache_specs`,
 `build_serve_steps`) are not ported: the port serves on one device
 (ROADMAP.md, queue 1 item 9).
@@ -20,6 +29,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import Model
+from repro_torch.serving.graphs import Step, warm_up
 
 
 class _Clock:
@@ -44,6 +54,15 @@ class _Clock:
         return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
 
 
+def _leaves(tree):
+    """The tensors of a cache tree, in its (deterministic) order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v)
+
+
 class ServeEngine:
     """Greedy batched generation on the device that holds `params`."""
 
@@ -54,13 +73,48 @@ class ServeEngine:
         self.max_len = max_len
         self.device = params["embed"].device
         self.timings: Dict[str, float] = {}
+        # the decode step's buffers, made by the first generate
+        self._cache = self._tok = self._pos = self._at = self._out = None
+        self._decode = None  # the decode Step (a CUDA graph on a card)
+        self.logits = None  # the last decode step's logits (B, vocab)
+
+    @property
+    def captures(self) -> int:
+        """Decode steps captured as CUDA graphs (0 or 1; 0 on the CPU)."""
+        return int(self._decode is not None and self._decode.captured)
+
+    def _step(self) -> None:
+        """One greedy decode step on the engine's buffers."""
+        self._out.index_copy_(1, self._at.view(1), self._tok)
+        logits, _ = self.model.decode_step(self.params, self._tok,
+                                           self._cache, self._pos)
+        self.logits = logits  # on a card, the captured step's output
+        self._tok.copy_(torch.argmax(logits, dim=-1)[:, None])
+        self._pos += 1
+        self._at += 1
+
+    def _load(self, cache, tok: torch.Tensor, s: int) -> None:
+        """The prefill's cache and first token into the step's buffers."""
+        if self._cache is None:  # the first prefill's buffers become them
+            self._cache, self._tok = cache, tok
+            self._pos = torch.tensor(s, dtype=torch.int64, device=self.device)
+            self._at = torch.zeros((), dtype=torch.int64, device=self.device)
+            self._out = torch.zeros((self.batch, self.max_len),
+                                    dtype=torch.int32, device=self.device)
+            return
+        for dst, src in zip(_leaves(self._cache), _leaves(cache)):
+            dst.copy_(src)
+        self._tok.copy_(tok)
+        self._pos.fill_(s)
+        self._at.zero_()
 
     def generate(self, batch: Dict[str, Any], n_tokens: int) -> torch.Tensor:
         """Greedy-decode n_tokens after the prompt.  Returns (B, n) int32
         ids on the device.  Waits for the device once, at the end, and
-        fills `timings` with `prefill_ms` (prompt and encoder, and the
-        first token's argmax) and `decode_ms` (all n_tokens decode
-        steps)."""
+        fills `timings` with `prefill_ms` (prompt and encoder, the first
+        token's argmax and the copy into the step's buffers) and
+        `decode_ms` (all n_tokens decode steps; on the first call on a
+        card, one eager step and the capture among them)."""
         prompt = batch["tokens"]
         b, s = prompt.shape
         if b != self.batch or s + n_tokens > self.max_len:
@@ -72,18 +126,21 @@ class ServeEngine:
         clock.mark()
         logits, cache = self.model.prefill(self.params, batch,
                                            max_len=self.max_len)
-        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        self._load(cache, torch.argmax(logits, dim=-1)[:, None].to(
+            torch.int32), s)
         clock.mark()
-        outs = []
-        cache_len = s
-        for _ in range(n_tokens):
-            outs.append(tok)
-            logits, cache = self.model.decode_step(self.params, tok, cache,
-                                                   cache_len)
-            cache_len += 1
-            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        left = n_tokens
+        if self._decode is None and left:
+            if self.device.type == "cuda":
+                # the first step, eagerly: a capture wants its kernels
+                # loaded and its library handles made
+                warm_up([self._step], self.device)
+                left -= 1
+            self._decode = Step(self._step, self.device)
+        for _ in range(left):
+            self._decode()
         clock.mark()
-        out = torch.cat(outs, dim=1)
+        out = self._out[:, :n_tokens].clone()
         if clock.cuda:
             torch.cuda.synchronize(self.device)
         self.timings = {"prefill_ms": clock.ms(0, 1),

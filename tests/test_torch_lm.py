@@ -338,6 +338,76 @@ def test_generate_tokens_equal_the_reference_in_fp32(jx, arch, impl):
     assert set(engine.timings) == {"prefill_ms", "decode_ms"}
 
 
+def _port_model(arch, dtype="float32", impl="chunked", **over):
+    """The port's reduced model with random weights and a prompt batch."""
+    from repro_torch.configs.inputs import make_batch
+
+    cfg = tconfigs.get_config(arch).reduced(compute_dtype=dtype,
+                                            attn_impl=impl, **over)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    return model, params, make_batch(cfg, 2, PROMPT, seed=1, kind="serve",
+                                     device="cpu")
+
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return type(tree)(_clone_tree(v) for v in tree)
+
+
+@pytest.mark.parametrize("arch,impl,dtype", [
+    ("qwen1.5-0.5b", "chunked", "float32"),
+    ("gemma2-27b", "chunked", "float32"),
+    ("whisper-tiny", "pallas", "float32"),
+    ("whisper-tiny", "pallas", "bfloat16")])
+def test_decode_step_takes_a_device_cache_len_bit_for_bit(arch, impl, dtype):
+    """cache_len as a 0-d tensor (the captured step's form) gives the
+    int form's logits and cache, bit for bit (gemma2: an 8-slot ring for
+    its local layers, so decode wraps it)."""
+    over = {"local_window": 8} if arch == "gemma2-27b" else {}
+    model, params, batch = _port_model(arch, dtype, impl, **over)
+    logits, cache = model.prefill(params, batch, max_len=PROMPT + GEN)
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    twin = _clone_tree(cache)
+    for i in range(GEN):
+        a, cache = model.decode_step(params, tok, cache, PROMPT + i)
+        b, twin = model.decode_step(params, tok, twin,
+                                    torch.tensor(PROMPT + i))
+        assert torch.equal(a, b), i
+        tok = torch.argmax(a, dim=-1)[:, None].to(torch.int32)
+    from repro_torch.serving.engine import _leaves
+    assert all(torch.equal(x, y)
+               for x, y in zip(_leaves(cache), _leaves(twin)))
+
+
+@pytest.mark.parametrize("arch,impl", [("whisper-tiny", "pallas"),
+                                       ("gemma2-27b", "chunked")])
+def test_engine_reuses_its_step_for_a_new_prompt(arch, impl):
+    """The decode step's buffers are reloaded per generate: a second
+    request to a warm engine (another prompt, a shorter one) answers as
+    a fresh engine and as an eager loop of decode_step do."""
+    over = {"local_window": 8} if arch == "gemma2-27b" else {}
+    model, params, batch = _port_model(arch, impl=impl, **over)
+    warm = ServeEngine(model, params, 2, PROMPT + GEN)
+    warm.generate(batch, GEN)
+    other = dict(batch, tokens=torch.flip(batch["tokens"], [1])[:, :PROMPT
+                                                                 - 3])
+    got = warm.generate(other, GEN)
+    assert torch.equal(got, ServeEngine(model, params, 2, PROMPT + GEN)
+                       .generate(other, GEN))
+    logits, cache = model.prefill(params, other, max_len=PROMPT + GEN)
+    toks = []
+    for i in range(GEN):
+        toks.append(torch.argmax(logits, dim=-1)[:, None].to(torch.int32))
+        logits, cache = model.decode_step(params, toks[-1], cache,
+                                          PROMPT - 3 + i)
+    assert torch.equal(got, torch.cat(toks, dim=1))
+    assert warm.captures == 0  # the CPU captures nothing
+
+
 def test_engine_rejects_a_batch_it_was_not_built_for(jx):
     m = _models(jx, "qwen1.5-0.5b", "float32", "chunked")
     engine = ServeEngine(m.tm, m.tp, 2, PROMPT + GEN)

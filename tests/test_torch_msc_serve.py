@@ -1,0 +1,204 @@
+"""The static `msc_serve` CLI and the engine's captured steps, on the CPU.
+
+On the CPU the engine runs its per-bucket steps (head, gate chunk, tail)
+eagerly: the code a card captures as CUDA graphs.  Held here:
+- the CLI prints the reference's lines, and every flag of a later
+  ROADMAP item raises naming that item;
+- on the reference's request stream (built by `repro.launch.msc_serve`
+  and carried across as numpy arrays), the port's engine answers as the
+  reference's engine does: masks and sweeps identical, d and λ within
+  3e-5 of the largest reference entry, the same counters;
+- the engine's steps give the bits of the eager runner
+  `build_msc_batched` on the same microbatch, and a warm bucket's second
+  batch of other requests answers as a fresh engine does.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.core import MSCConfig as JConfig  # noqa: E402
+from repro.core.parallel import make_msc_mesh  # noqa: E402
+from repro.launch import msc_serve as jserve  # noqa: E402
+from repro.serving import MSCServeEngine as JEngine  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core.parallel import build_msc_batched  # noqa: E402
+from repro_torch.launch import msc_serve  # noqa: E402
+from repro_torch.serving import MSCServeEngine  # noqa: E402
+
+SIZES, N_REQ, B, TOL = (9, 14, 19), 7, 2, 3e-5
+
+
+@functools.cache
+def _stream():
+    """The reference's stream (every 3rd request a slow converger)."""
+    specs, tensors = jserve.build_request_stream(SIZES, N_REQ, seed=0,
+                                                 slow_every=3)
+    out = []
+    for t in tensors:
+        x = np.array(t)
+        x.setflags(write=False)
+        out.append(x)
+    return tuple(out)
+
+
+def _jcfg(**kw):
+    return JConfig(epsilon=3e-4, **kw)
+
+
+@functools.cache
+def _reference(precision):
+    eng = JEngine(make_msc_mesh("flat"), _jcfg(precision=precision),
+                  max_batch=B)
+    return eng.run([jax.numpy.asarray(x) for x in _stream()]), eng.stats
+
+
+def _close(got, want):
+    want = np.asarray(want, np.float64)
+    err = (np.abs(np.asarray(got, np.float64) - want).max()
+           / max(np.abs(want).max(), 1e-30))
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16_fp32"])
+def test_engine_on_the_reference_stream(precision):
+    ref, ref_stats = _reference(precision)
+    cfg = bridge.config_from_fields(dataclasses.asdict(
+        _jcfg(precision=precision)))
+    eng = MSCServeEngine(cfg, max_batch=B, device="cpu")
+    out = eng.run(list(_stream()))
+    for i, (p, r) in enumerate(zip(out, ref)):
+        for j in range(3):
+            np.testing.assert_array_equal(p[j].mask.numpy(),
+                                          np.asarray(r[j].mask),
+                                          err_msg=f"req {i} mode {j}")
+            assert p[j].power_iters_run == int(r[j].power_iters_run)
+            assert p[j].n_iters == int(r[j].n_iters)
+            if precision == "fp32":
+                _close(p[j].d.numpy(), r[j].d)
+                _close(p[j].lambdas.numpy(), r[j].lambdas)
+    s = eng.stats
+    assert (s.requests, s.dispatches, s.compiles, s.filler_slots) == (
+        ref_stats.requests, ref_stats.dispatches, ref_stats.compiles,
+        ref_stats.filler_slots)
+    assert eng.graphs == 0  # the CPU captures nothing
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(), dict(use_kernels=True), dict(use_kernels=True, matrix_free=False),
+    dict(precision="bf16_fp32", epilogue="ring"), dict(power_tol=0.0)],
+    ids=["einsum", "kernels", "gram_kernels", "bf16_ring", "fixed_trip"])
+def test_engine_steps_give_the_eager_runners_bits(cfg_kw):
+    cfg = bridge.config_from_fields(dataclasses.asdict(_jcfg())).with_(
+        **cfg_kw)
+    xs = [x for x in _stream() if x.shape[0] in (9, 14)][:B]
+    eng = MSCServeEngine(cfg, max_batch=B, device="cpu")
+    bucket = eng.bucket_of(xs[0].shape)
+    assert all(eng.bucket_of(x.shape) == bucket for x in xs)
+    got = eng.run(list(xs))
+    batch = np.zeros((B,) + bucket, np.float32)
+    dims = np.ones((B, 3), np.int32)
+    for s, x in enumerate(xs):
+        batch[s, :x.shape[0], :x.shape[1], :x.shape[2]] = x
+        dims[s] = x.shape
+    want = build_msc_batched(cfg, device="cpu")(torch.from_numpy(batch),
+                                                dims)
+    for s, x in enumerate(xs):
+        for j in range(3):
+            m = x.shape[j]
+            w = want[j]
+            assert torch.equal(got[s][j].mask, w.mask[s, :m])
+            assert torch.equal(got[s][j].d, w.d[s, :m])
+            assert torch.equal(got[s][j].lambdas, w.lambdas[s, :m])
+            assert got[s][j].n_iters == int(w.n_iters[s])
+            assert got[s][j].power_iters_run == int(w.power_iters_run[s])
+
+
+def test_warm_bucket_serves_other_requests_as_a_fresh_engine():
+    """The static buffers are rewritten per dispatch: a warm bucket's
+    second microbatch (other requests, one slot of filler) answers as a
+    fresh engine answers it."""
+    cfg = bridge.config_from_fields(dataclasses.asdict(_jcfg())).with_(
+        use_kernels=True)
+    first = [x for x in _stream() if x.shape[0] == 14]
+    warm = MSCServeEngine(cfg, max_batch=B, device="cpu")
+    warm.run(first[:B])
+    second = [x[:13, :12, :11].copy() for x in first[1:2]]
+    got = warm.run(second)
+    want = MSCServeEngine(cfg, max_batch=B, device="cpu").run(second)
+    assert warm.stats.compiles == 1 and warm.stats.exec_cache_hits == 1
+    for j in range(3):
+        assert torch.equal(got[0][j].mask, want[0][j].mask)
+        assert torch.equal(got[0][j].d, want[0][j].d)
+        assert got[0][j].power_iters_run == want[0][j].power_iters_run
+    warm.close()
+    assert warm.memory_reckoning() == (0, 0) and warm.graphs == 0
+
+
+def test_cli_prints_the_reference_lines(capsys):
+    res = msc_serve.run(msc_serve.parse_args(
+        ["--device", "cpu", "--sizes", "9,14", "--requests", "5",
+         "--max-batch", "2", "--slow-every", "4"]))
+    out = capsys.readouterr().out
+    assert "MSC serve: 5 requests over sizes [9, 14]" in out
+    assert "buckets: [(16, 16, 16)]" in out
+    for i in range(5):
+        assert f"  req {i}: shape=" in out
+    assert "stats: 6 dispatches, 1 compiles, 5 exec cache hits, " \
+           "2 filler slots" in out
+    assert "cold " in out and "warm " in out and "req/s" in out
+    assert "looped (B=1) warm " in out and "batched speedup" in out
+    assert res["stats_cold"].compiles == 1 and res["stats_warm"].compiles == 0
+    # the non-slow requests recover the planted cluster
+    assert [r for i, r in enumerate(res["recs"]) if i % 4] == [1.0] * 3
+    res["engine"].close()
+
+
+def test_request_stream_follows_the_reference_rule():
+    specs, tensors = msc_serve.build_request_stream([9, 14], 5, seed=3,
+                                                    slow_every=2)
+    assert [s.shape[0] for s in specs] == [9, 14, 9, 14, 9]
+    assert [s.gamma for s in specs] == [2.0, 40.0, 2.0, 40.0, 2.0]
+    again = msc_serve.build_request_stream([9, 14], 5, seed=3,
+                                           slow_every=2)[1]
+    assert all(torch.equal(a, b) for a, b in zip(tensors, again))
+    jspecs, _ = jserve.build_request_stream([9, 14], 5, seed=3,
+                                            slow_every=2)
+    assert [(s.shape, s.cluster_sizes, s.gamma) for s in specs] == [
+        (s.shape, s.cluster_sizes, s.gamma) for s in jspecs]
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--mesh-shape", "4,2"], "item 9"),
+    (["--epilogue", "auto"], "item 11"),
+    (["--continuous"], "item 8"), (["--slots", "4"], "item 8"),
+    (["--chunks-per-step", "auto"], "item 8"),
+    (["--arrival-rate", "1.5"], "item 8"), (["--no-donate"], "item 8"),
+    (["--autotune"], "item 10"), (["--priority-mix", "0:1.0"], "item 10"),
+    (["--slo-chunks", "64"], "item 10"),
+    (["--deadline-chunks", "96"], "item 10"), (["--no-preempt"], "item 10"),
+    (["--bucket-policy", "all"], "item 10"),
+    (["--checkpoint-dir", "ckpt"], "item 10"),
+    (["--ckpt-every", "2"], "item 10"), (["--restore", "ckpt"], "item 10"),
+    (["--cache-dir", "cache"], "item 10"),
+    (["--cache-max-bytes", "1024"], "item 10"),
+    (["--warm-start"], "item 10"),
+])
+def test_later_item_flags_raise_naming_their_item(flag, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        msc_serve.main(["--device", "cpu", *flag])
+
+
+def test_cli_defaults_are_the_references_and_cuda():
+    args = msc_serve.parse_args([])
+    assert (args.sizes, args.requests, args.max_batch, args.bucket_quantum,
+            args.epilogue, args.precision, args.power_tol, args.device) == (
+        "16,21,33", 9, 4, 8, "allgather", "fp32", 1e-2, "cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            msc_serve.run(args)

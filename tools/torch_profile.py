@@ -14,15 +14,19 @@ device's busy share (device kernel time over that wall time; device
 events only, so an operator and the kernels it launches are not counted
 twice), the device time by stage (gram formation, power sweeps and λ,
 similarity epilogue, unfolding copies and the rest, and the idle time),
-and the operators with the most device time by input shape.  Needs a
-CUDA card; prints the card's name and power limit first.
+and the operators with the most device time by input shape.  A third,
+unprofiled solve counts the host reads (`torch.cuda.set_sync_debug_mode
+("warn")`): one per gate chunk, none in the extraction.  Needs a CUDA
+card; prints the card's name and power limit first.
 
 `--lm` profiles LM serving instead: whisper-tiny at its published size,
 batch 16, prompt 32, 16 generated tokens (`launch/serve.py`'s engine,
 random weights from seed 0), warmed up once, then one `generate` under
 the profiler, with the same report and LM stages (flash_attention,
-matmuls, elementwise and reductions, copies and casts).  `--attn-impl`
-picks the attention route (default `pallas`, the CUDA kernel).
+matmuls, elementwise and reductions, copies and casts).  The decode
+steps replay the engine's captured step (one CUDA graph per token).
+`--attn-impl` picks the attention route (default `pallas`, the CUDA
+kernel).
 """
 from __future__ import annotations
 
@@ -131,11 +135,29 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
     print(f"profiled solve (m={m}, {args.schedule}, {args.precision}, "
           f"{'gram' if args.gram else 'matrix-free'}): sweeps "
-          f"{[mr.power_iters_run for mr in result.modes]}, launches "
+          f"{[int(mr.power_iters_run) for mr in result.modes]}, launches "
           f"power_iter={kpi.launches} abs_rowsum={kring.launches} "
           f"batched_gram={kgram.launches}")
     report(prof, wall, STAGES)
+    print(f"host reads per solve: {host_reads(torch, lambda: solve(tensor))}"
+          " (device-to-host syncs, counted by torch.cuda.set_sync_debug_mode"
+          "; an unprofiled warm solve)")
     return 0
+
+
+def host_reads(torch, fn) -> int:
+    """Synchronizing CUDA operations (reads back to the host) in fn()."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in seen)
 
 
 def profile_lm(torch, attn_impl: str) -> int:
@@ -149,7 +171,7 @@ def profile_lm(torch, attn_impl: str) -> int:
                              "--prompt-len", "32", "--gen", "16",
                              "--attn-impl", attn_impl])
     engine, batch = serve.build(args)
-    engine.generate(batch, args.gen)  # warm-up: library load, cuBLAS
+    engine.generate(batch, args.gen)  # warm-up: library load, capture
     kfa.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -161,7 +183,9 @@ def profile_lm(torch, attn_impl: str) -> int:
     print(f"profiled generate (whisper-tiny, batch {args.batch}, prompt "
           f"{args.prompt_len}, {args.gen} tokens, {attn_impl}, "
           f"{engine.model.cfg.compute_dtype}): launches "
-          f"flash_attention={kfa.launches}")
+          f"flash_attention={kfa.launches}, decode graphs captured "
+          f"{engine.captures}, prefill {engine.timings['prefill_ms']:.3f} ms, "
+          f"decode {engine.timings['decode_ms'] / args.gen:.3f} ms per token")
     report(prof, wall, LM_STAGES)
     return 0
 
