@@ -58,6 +58,22 @@ line):
    masks equal msc_sequential's with sweeps one gate chunk apart at
    most; prints the warm times of the graphed engine, the eager runner
    and the looped B = 1 engine.
+5c. Continuous serving: `launch/msc_serve.py --continuous` at the
+   reference's defaults (9 requests over m = 16, 21, 33, 4 slots) must
+   capture 2 graphs per bucket (the chunk step and the refill) warming
+   up and none in the stream.  Then MSCContinuousEngine with kernels,
+   fp32, 8 slots, on the skewed mix of `benchmarks/msc_continuous.py`
+   (32 requests at m = 200, every 8th near-noise, gamma = 2, the rest
+   gamma = 300; that benchmark's gate): masks and sweeps identical across
+   three interleavings (arrival order, placement, refill batching) and to
+   the graphed static engine (B = 8, d within 3e-5), masks equal
+   msc_sequential's with sweeps one gate chunk apart at most on requests
+   0, 1 and 9; 2 graphs captured cold and none warm; no host sync in any
+   replay; `power_iter` launches = 3 x step replays and `abs_rowsum`
+   launches = 3 x refill replays in a warm run; the live engine within
+   its static buffers + graph pool and 0 B left once closed.  Prints the
+   warm walls of both engines in turns, their ratio, the occupancy,
+   refills, evictions and the sweep histogram.
 6. `flash_attention` against its plain version at the LM path's shapes
    (whisper-tiny at batch 16: the encoder's self-attention and the
    prefill and decode cross-attention over 1500 frames), at gemma2-27b's
@@ -882,6 +898,203 @@ def phase_static(torch, checks):
     return {label: counts}
 
 
+# continuous serving: the skewed mix of benchmarks/msc_continuous.py (every
+# 8th request near-noise, gamma = 2, the rest gamma = 300) at m = 200, the
+# low end of paper Fig. 6, under that benchmark's gate (tol 3e-3, a probe
+# every 8 sweeps, cap 240); 32 requests through 8 slots
+CONT_M, CONT_N, CONT_B, CONT_SLOW_EVERY = 200, 32, 8, 8
+CONT_GAMMA_SLOW, CONT_GAMMA_FAST = 2.0, 300.0
+# MSCContinuousEngine's CUDA graphs per bucket: the chunk step and the refill
+GRAPHS_PER_CONT_BUCKET = 2
+
+
+class NoSyncInReplays:
+    """While active, every replay of a captured step (`graphs.Step`) runs
+    under `torch.cuda.set_sync_debug_mode("error")`: a host sync inside
+    raises.  `calls` counts the replays."""
+
+    def __init__(self, torch):
+        from repro_torch.serving import graphs
+
+        self.torch, self.cls, self.calls = torch, graphs.Step, 0
+        self.orig = graphs.Step.__call__
+
+    def __enter__(self):
+        guard, orig = self, self.orig
+
+        def guarded(step):
+            guard.calls += 1
+            guard.torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(step)
+            finally:
+                guard.torch.cuda.set_sync_debug_mode("default")
+
+        self.cls.__call__ = guarded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
+
+
+def _same_requests(a, b, d_tol=None):
+    """Masks and sweeps identical per request and mode (and d within
+    d_tol of the largest entry, when given)."""
+    for x, y in zip(a, b):
+        for j in range(3):
+            if not (x[j].mask.cpu().equal(y[j].mask.cpu())
+                    and int(x[j].power_iters_run) == int(
+                        y[j].power_iters_run)):
+                return False
+            if d_tol is not None:
+                dx, dy = x[j].d.cpu().double(), y[j].d.cpu().double()
+                if (dx - dy).abs().max() > d_tol * dy.abs().max():
+                    return False
+    return True
+
+
+def phase_continuous(torch, checks, smi):
+    """msc_serve --continuous at the reference's defaults, then the
+    continuous engine on the skewed mix, held to itself across three
+    interleavings, to the graphed static engine and to msc_sequential.
+    Returns {label: launch counts} of the engine's warm run."""
+    from collections import Counter
+
+    import numpy as np
+
+    from repro_torch.core import (MSCConfig, PlantedSpec, make_planted_tensor,
+                                  msc_sequential)
+    from repro_torch.launch import msc_serve
+    from repro_torch.serving import MSCContinuousEngine, MSCServeEngine
+
+    log("continuous serving: msc_serve --continuous at the reference's "
+        "defaults")
+    with NoSyncInReplays(torch) as guard:
+        res = msc_serve.run(msc_serve.parse_args(["--device", DEVICE,
+                                                  "--continuous"]))
+    cont, nb = res["continuous"], len(res["buckets"])
+    want = GRAPHS_PER_CONT_BUCKET * nb
+    ok = (len(cont["results"]) == 9 and cont["engine"].graphs == want
+          and cont["stats_warmup"].compiles == want
+          and cont["stats_stream"].compiles == 0)
+    log(f"  {'ok  ' if ok else 'FAIL'} 9 results; CUDA graphs captured "
+        f"{cont['stats_warmup'].compiles} warming up (want {want}: "
+        f"{GRAPHS_PER_CONT_BUCKET} x {nb} buckets), "
+        f"{cont['stats_stream'].compiles} in the stream; {guard.calls} "
+        "replays with no host sync")
+    if not ok:
+        checks.failures.append("msc_serve --continuous: results or graph "
+                               "counts off")
+    cont["engine"].close()
+    res["engine"].close()
+    del res, cont
+
+    label = (f"continuous serving kernels fp32 m={CONT_M} B={CONT_B}")
+    log(f"{label}: {CONT_N} planted requests, every {CONT_SLOW_EVERY}th "
+        f"gamma={CONT_GAMMA_SLOW:g}, the rest gamma={CONT_GAMMA_FAST:g}")
+    cfg = MSCConfig(epsilon=3e-4, power_tol=3e-3, power_iters=240,
+                    power_check_every=8, use_kernels=True)
+    chunk = cfg.power_check_every
+    tensors = [make_planted_tensor(
+        torch.Generator(device=DEVICE).manual_seed(SEED + i),
+        PlantedSpec.paper(CONT_M, CONT_GAMMA_SLOW if i % CONT_SLOW_EVERY == 0
+                          else CONT_GAMMA_FAST)) for i in range(CONT_N)]
+    static = MSCServeEngine(cfg, max_batch=CONT_B, device=DEVICE)
+    res_s = static.run(tensors)  # cold: its captures
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = MSCContinuousEngine(cfg, slots=CONT_B, device=DEVICE)
+    with NoSyncInReplays(torch) as guard:
+        res_c = eng.run(tensors)  # cold: its captures
+        cold = eng.stats
+        ok = cold.compiles == eng.graphs == GRAPHS_PER_CONT_BUCKET
+        # three interleavings: arrival order x placement x refill batching
+        rng = np.random.RandomState(0)
+        for placement, rmf in (("stable", 1), ("compact", 2),
+                               ("compact", 4)):
+            order = rng.permutation(CONT_N)
+            eng.placement, eng.refill_min_free = placement, rmf
+            got = eng.run([tensors[i] for i in order])
+            same = _same_requests(got, [res_c[i] for i in order])
+            log(f"  {'ok  ' if same else 'FAIL'} interleaving "
+                f"({placement}, refill_min_free={rmf}): masks and sweeps "
+                "as the first run's")
+            if not same:
+                checks.failures.append(f"{label}: results depend on the "
+                                       f"interleaving ({placement}, {rmf})")
+        eng.placement, eng.refill_min_free = "compact", 1
+        mods = counters()
+        for mod in mods.values():
+            mod.launches = 0
+        before = eng.stats
+        res_w = eng.run(tensors)
+        warm = eng.stats.delta(before)
+        counts = {n: mod.launches for n, mod in mods.items()}
+    held = torch.cuda.memory_allocated() - base
+    # warm: the three interleavings and the last run capture nothing
+    warm_captures = eng.stats.compiles - cold.compiles
+    ok = ok and warm_captures == 0 and eng.graphs == GRAPHS_PER_CONT_BUCKET
+    log(f"  {'ok  ' if ok else 'FAIL'} CUDA graphs captured {cold.compiles} "
+        f"cold (want {GRAPHS_PER_CONT_BUCKET}), {warm_captures} in four warm "
+        f"runs; {guard.calls} replays with no host sync")
+    if not ok:
+        checks.failures.append(f"{label}: {cold.compiles} graphs captured "
+                               f"cold, {warm_captures} warm")
+    want_launch = {"power_iter": 3 * eng._plan.chunks_per_step
+                   * warm.chunk_steps, "abs_rowsum": 3 * warm.refills}
+    ok = all(counts[n] == w for n, w in want_launch.items()) and not (
+        counts["batched_gram"] or counts["flash_attention"])
+    log(f"  {'ok  ' if ok else 'FAIL'} launches of the warm run {counts}; "
+        f"want {want_launch} (3 x {warm.chunk_steps} step replays, 3 x "
+        f"{warm.refills} refill replays)")
+    if not ok:
+        checks.failures.append(f"{label}: launches {counts}, want "
+                               f"{want_launch}")
+    same = _same_requests(res_w, res_c) and _same_requests(res_c, res_s,
+                                                           d_tol=3e-5)
+    log(f"  {'ok  ' if same else 'FAIL'} every request's masks and sweeps "
+        "equal the graphed static engine's (B=8), d within 3e-5")
+    if not same:
+        checks.failures.append(f"{label}: differs from the static engine")
+    for i in (0, 1, CONT_SLOW_EVERY + 1):
+        hold(torch, checks, f"{label} req {i}", res_c[i],
+             msc_sequential(tensors[i], cfg, device=DEVICE),
+             "msc_sequential", chunk)
+
+    # warm walls in turns: continuous, static, static, continuous
+    t = {"continuous": [], "static": []}
+    for name in ("continuous", "static", "static", "continuous"):
+        e = eng if name == "continuous" else static
+        t[name].append(_timed_s(torch, lambda: e.run(tensors))[1])
+    c_s, s_s = min(t["continuous"]), min(t["static"])
+    sweeps = Counter(max(int(r[j].power_iters_run) for j in range(3))
+                     for r in res_c)
+    log(f"  warm {CONT_N} requests: continuous "
+        f"{' / '.join(f'{x * 1e3:.2f}' for x in t['continuous'])} ms, "
+        f"static B={CONT_B} {' / '.join(f'{x * 1e3:.2f}' for x in t['static'])}"
+        f" ms; static / continuous {s_s / c_s:.3f}x ({smi})")
+    log(f"  warm run: occupancy {warm.occupancy:.3f} "
+        f"({warm.busy_slot_chunks}/{warm.slot_chunks} slot-chunks), "
+        f"{warm.chunk_steps} chunk steps, {warm.refills} refills, "
+        f"{warm.evictions} evictions, queue wait p50 "
+        f"{eng.stats.queue_wait_p50_chunks:.1f} / p99 "
+        f"{eng.stats.queue_wait_p99_chunks:.1f} chunks; max-mode sweeps per "
+        f"request {dict(sorted(sweeps.items()))}")
+    static_b, pools = eng.memory_reckoning()
+    eng.close()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base
+    ok = held <= static_b + pools and left == 0
+    log(f"  {'ok  ' if ok else 'FAIL'} device memory held by the live "
+        f"engine {held} B, reckoned {static_b} B static + {pools} B graph "
+        f"pools; left once closed {left} B")
+    if not ok:
+        checks.failures.append(f"{label}: holds {held} B > {static_b} + "
+                               f"{pools} B, or {left} B left once closed")
+    static.close()
+    return {label: counts}
+
+
 def _flash_work(torch, b, sq, skv, d, elt, kw):
     """(bytes, flops) of one flash_attention call: q, k, v read once and o
     written once; 4·d flops per (query, key) pair the masks keep."""
@@ -1291,6 +1504,7 @@ def main() -> int:
     launches, singles = phase_main_path(torch, checks)
     launches.update(phase_batched(torch, checks, singles))
     launches.update(phase_static(torch, checks))
+    launches.update(phase_continuous(torch, checks, smi))
     rows.update(phase_flash(torch, checks))
     launches.update(phase_lm(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")

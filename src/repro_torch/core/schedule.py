@@ -13,22 +13,32 @@ the same body.  Every reduction stays per request (λ max, the gate, the
 epilogue's block-diagonal |V Vᵀ| row-sum), padded slices are masked by
 `valid`, and padded columns are kept at zero by masking the start
 vectors to each request's true column count.
+
+Chunk-resumable entry points (`init_mode_carry`, `chunk_local`,
+`finalize_local`, `repack_local`, `export_carry`, `import_carry`) are
+the continuous engine's per-mode body (`parallel.MSCChunkPlan`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .extraction import extract_cluster
-from .power_iter import compute_dtype, plan_eigensolve, top_eigenpairs
+from .power_iter import (SolveState, _init_vectors, build_chunk_fn,
+                         compute_dtype, plan_eigensolve, rayleigh_fp32,
+                         step_chunk, top_eigenpairs)
 from .types import ModeResult, MSCConfig
 
 EPILOGUES = ("allgather", "ring")
 
 MULTI_DEVICE_TODO = ("multi-device schedules are not ported yet: "
                      "ROADMAP.md, queue 1 item 9")
+TIERS_TODO = ("the serving tiers (autotuner, SLO scheduler, checkpoints, "
+              "result cache, warm start, fault injection) are not ported "
+              "yet: ROADMAP.md, queue 1 item 10")
 
 
 def _chunk_rowsum(v_local: torch.Tensor, chunk: torch.Tensor,
@@ -141,3 +151,122 @@ class ModeSchedule:
                                      self.cfg.max_extraction_iters)
         return ModeResult(mask=mask, d=d, lambdas=lam, n_iters=n_it,
                           power_iters_run=torch.amax(iters, dim=-1))
+
+    # ---- chunk-resumable entry points (the continuous engine) ----------
+    #
+    # The continuous engine keeps one SolveState per mode per slot table
+    # on the device between dispatches (B slots, m the bucket's slice
+    # count, c its column count):
+    #
+    #   v (B, m, c)  lam/resid (B, m)  iters/done (B,)
+    #
+    # The reference carries the per-request verdicts at (B, S), one
+    # identical column per slice shard; one device has one shard, so
+    # they are (B,) here, and no slice dim is padded (m_pad = m).
+
+    def init_mode_carry(self, B: int, m_pad: int, c: int, c_req, done,
+                        warm_v=None, use_warm=None, resume_lam=None,
+                        resume_resid=None, resume_iters=None,
+                        resume_done=None, use_resume=None) -> SolveState:
+        """Fresh carry for one mode of a B-slot table.
+
+        c_req: (B,) per-request column bounds masking the deterministic
+        start vectors (the bucket-padding contract); done: (B,) bool,
+        True seeds an inert slot (its iterate never advances).  Device
+        ops only, on `done`'s device: the refill program runs this.  The
+        reference's warm-start and resume inputs are not ported yet.
+        """
+        if any(x is not None for x in (warm_v, use_warm, resume_lam,
+                                       resume_resid, resume_iters,
+                                       resume_done, use_resume)):
+            raise NotImplementedError(f"warm-start and resume inputs: "
+                                      f"{TIERS_TODO}")
+        done = torch.as_tensor(done, dtype=torch.bool)
+        dev = done.device
+        v = _init_vectors((B, m_pad), c, torch.float32,
+                          c_valid=torch.as_tensor(c_req, device=dev)[:, None],
+                          device=dev)
+        z = dict(dtype=torch.float32, device=dev)
+        return SolveState(v=v, lam=torch.zeros((B, m_pad), **z),
+                          resid=torch.zeros((B, m_pad), **z),
+                          iters=torch.zeros(B, dtype=torch.int32, device=dev),
+                          done=done.clone())
+
+    def chunk_local(self, block: torch.Tensor, carry: SolveState,
+                    steps: int = 1) -> SolveState:
+        """`steps` gate chunks of one mode over a carry: the resumable
+        form of `mode_local`'s eigensolve.
+
+        block (B, m, r, c) is read in the precision policy's dtype (a
+        block already in that dtype is read as it is; another is cast
+        here).  Every slot advances steps × power_check_every sweeps; a
+        finished slot passes through frozen (`step_chunk`'s per-request
+        masking), so the iterate it is finalized from does not depend on
+        how many more chunks its table ran.  Padding slices are zero and
+        hold the gate open nowhere, so no validity mask is needed.
+        """
+        cfg = self.cfg
+        chunk_fn, k = build_chunk_fn(block, cfg)
+        for _ in range(steps):
+            carry = step_chunk(chunk_fn, carry, k=k, n_iters=cfg.power_iters,
+                               tol=cfg.power_tol)
+        return carry
+
+    def finalize_local(self, block: torch.Tensor, valid_local: torch.Tensor,
+                       v: torch.Tensor):
+        """The similarity tail from a carry's (frozen) iterates: the fp32
+        Rayleigh quotient on the block, the λ-max normalization and the
+        epilogue.  Returns (d, λ).  The continuous engine runs it when a
+        slot is evicted, not per chunk."""
+        return self._similarity_tail(rayleigh_fp32(block, v), v, valid_local)
+
+    @staticmethod
+    def repack_local(perm, take_new, block: torch.Tensor, carry: SolveState,
+                     new_block: torch.Tensor, new_carry: SolveState):
+        """Slot-table compaction and refill for one mode, in place:
+        block[s] ← new_block[s] where take_new[s], else the old
+        block[perm[s]], and likewise every carry leaf.  Each old row is
+        gathered into a scratch copy before any row is written, so any
+        permutation is safe.  Returns (block, carry), the updated inputs
+        (the port's counterpart of the reference's donated buffers)."""
+        def sel(old, new):
+            t = take_new.reshape((-1,) + (1,) * (old.dim() - 1))
+            torch.where(t, new, old.index_select(0, perm), out=old)
+
+        sel(block, new_block)
+        for f in dataclasses.fields(SolveState):
+            sel(getattr(carry, f.name), getattr(new_carry, f.name))
+        return block, carry
+
+    @staticmethod
+    def export_carry(carry: SolveState, m: int) -> SolveState:
+        """Host form (numpy) of one mode's carry, the slice dim trimmed to
+        the true bucket size m: v (B, m, c), lam and resid (B, m), iters
+        and done (B,).  Trimming is lossless: padded slices keep zero
+        iterates after their first chunk."""
+        def g(x):
+            return x.detach().cpu().numpy()
+
+        return SolveState(v=g(carry.v)[:, :m], lam=g(carry.lam)[:, :m],
+                          resid=g(carry.resid)[:, :m], iters=g(carry.iters),
+                          done=g(carry.done))
+
+    @staticmethod
+    def import_carry(host: SolveState, m_pad: int,
+                     device="cpu") -> SolveState:
+        """A device carry from `export_carry`'s host form, the slice dim
+        padded with zeros to m_pad."""
+        B, m = np.shape(host.lam)
+
+        def padm(a, dtype):
+            a = np.asarray(a, dtype)
+            out = np.zeros((B, m_pad) + a.shape[2:], dtype)
+            out[:, :m] = a
+            return torch.from_numpy(out).to(device)
+
+        return SolveState(
+            v=padm(host.v, np.float32), lam=padm(host.lam, np.float32),
+            resid=padm(host.resid, np.float32),
+            iters=torch.from_numpy(np.asarray(host.iters, np.int32)).to(
+                device),
+            done=torch.from_numpy(np.asarray(host.done, bool)).to(device))

@@ -4,7 +4,8 @@ T = γ · w ⊗ u ⊗ v + Z with unit-norm indicator factors on the planted
 index sets and Z_ijk ~ N(0, 1).  Noise comes from an explicit
 `torch.Generator`, so a tensor is reproducible from its seed but is not
 bit-equal to the reference's threefry draw: parity tests build their
-inputs with numpy or the reference and never with this module.
+inputs with numpy or the reference and never with this module.  The
+signal part and the chunk bounds are the reference's.
 """
 from __future__ import annotations
 
@@ -57,3 +58,30 @@ def make_planted_tensor(generator: torch.Generator, spec: PlantedSpec,
         spec.gamma * w[i0][:, None, None] * u[i1][None, :, None]
         * v[i2][None, None, :])
     return t.to(dtype)
+
+
+def make_planted_tensor_chunked(generator: torch.Generator, spec: PlantedSpec,
+                                n_chunks: int, index_sets=None):
+    """Generator of mode-1 slabs of the planted tensor, on the generator's
+    device.
+
+    The paper's remark that data is "distributed or produced on the
+    processes themselves": each chunk (a block of mode-1 slices) can be
+    produced by its owner without materializing T.  Yields
+    (start_index, slab) pairs, slab (hi − lo, m2, m3) fp32, with the
+    reference's bounds round(i·m1/n_chunks) (empty chunks skipped) and its
+    signal γ·w[lo:hi]⊗u⊗v.  The noise of chunk c is the generator's next
+    (hi − lo, m2, m3) normal draw, so the slabs equal the reference's in
+    their signal only.
+    """
+    device = generator.device
+    m1, m2, m3 = spec.shape
+    w, u, v = planted_factors(spec, index_sets, device)
+    bounds = [int(round(i * m1 / n_chunks)) for i in range(n_chunks + 1)]
+    for c in range(n_chunks):
+        lo, hi = bounds[c], bounds[c + 1]
+        if hi == lo:
+            continue
+        sig = spec.gamma * torch.einsum("i,j,k->ijk", w[lo:hi], u, v)
+        yield lo, sig + torch.randn((hi - lo, m2, m3), generator=generator,
+                                    dtype=torch.float32, device=device)

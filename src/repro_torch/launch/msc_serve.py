@@ -1,46 +1,43 @@
-"""Batched MSC serving CLI — counterpart of `repro/launch/msc_serve.py`'s
-static mode.
+"""Batched MSC serving CLI — counterpart of `repro/launch/msc_serve.py`.
 
 Generates a stream of independent planted-tensor MSC requests with mixed
 shapes, serves it through `MSCServeEngine` (shape buckets, one set of
 CUDA graphs per bucket, fixed-size microbatches) twice, cold then warm,
 and reports the bucket and capture behaviour plus batched-versus-looped
-throughput, with the reference's output lines.  The reference's flags
-and defaults, plus `--device` (default `cuda`; `cpu` runs the same
-steps eagerly).  The continuous engine, the serving tiers, meshes and
-the roofline choosers are later items of ROADMAP.md queue 1; their
-flags raise `NotImplementedError` naming the item.
+throughput, with the reference's output lines.  With `--continuous` the
+same stream is also driven through `MSCContinuousEngine` as a streaming
+arrival simulation (`simulate_continuous`: Poisson arrivals,
+`--arrival-rate` per scheduler tick), after every bucket is warmed off
+the clock, and the decode loop's occupancy, eviction and queue-wait
+counters are reported.  The reference's flags and defaults, plus
+`--device` (default `cuda`; `cpu` runs the same steps eagerly).  The
+serving tiers, meshes and the roofline choosers are later items of
+ROADMAP.md queue 1; their flags raise `NotImplementedError` naming the
+item.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.msc_serve
   PYTHONPATH=src python -m repro_torch.launch.msc_serve --device cpu \\
       --sizes 14,19 --requests 6 --max-batch 2
+  PYTHONPATH=src python -m repro_torch.launch.msc_serve --continuous \\
+      --arrival-rate 1.5 --slow-every 4 --slots 4
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core import (MSCConfig, PlantedSpec, make_planted_tensor,
                               planted_masks, recovery_rate, resolve_device)
 from repro_torch.core.parallel import AUTO_TODO
-from repro_torch.core.schedule import MULTI_DEVICE_TODO
-from repro_torch.serving import MSCServeEngine
-
-CONTINUOUS_TODO = ("the continuous-batching engine is not ported yet: "
-                   "ROADMAP.md, queue 1 item 8")
-TIERS_TODO = ("the serving tiers (autotuner, SLO scheduler, checkpoints, "
-              "result cache, warm start) are not ported yet: ROADMAP.md, "
-              "queue 1 item 10")
+from repro_torch.core.schedule import MULTI_DEVICE_TODO, TIERS_TODO
+from repro_torch.serving import MSCContinuousEngine, MSCServeEngine
 
 # flags of later items, with the value that leaves them off
 _LATER = (
-    ("continuous", False, CONTINUOUS_TODO), ("slots", None, CONTINUOUS_TODO),
-    ("chunks_per_step", "1", CONTINUOUS_TODO),
-    ("arrival_rate", 2.0, CONTINUOUS_TODO),
-    ("no_donate", False, CONTINUOUS_TODO),
     ("autotune", False, TIERS_TODO), ("priority_mix", None, TIERS_TODO),
     ("slo_chunks", None, TIERS_TODO), ("deadline_chunks", None, TIERS_TODO),
     ("no_preempt", False, TIERS_TODO),
@@ -70,6 +67,39 @@ def build_request_stream(sizes, n_requests: int, seed: int,
     return specs, tensors
 
 
+def simulate_continuous(engine: MSCContinuousEngine, tensors, *,
+                        arrival_rate: float, seed: int, priority_rates=None,
+                        deadline_chunks=None):
+    """Drive the decode loop under Poisson arrivals.
+
+    Inter-arrival gaps are Exponential(1/arrival_rate) in scheduler
+    ticks, drawn from `numpy.random.RandomState(seed)` as the reference
+    draws them; each tick submits everything that has arrived, then
+    advances the scheduler one tick.  Per-class rates and deadlines are
+    the SLO scheduler's (ROADMAP.md queue 1 item 10).  Returns (results
+    by input index, ticks, wall seconds, shed count; nothing is shed
+    without the SLO scheduler).
+    """
+    if priority_rates or deadline_chunks is not None:
+        raise NotImplementedError(f"priority classes and deadlines: "
+                                  f"{TIERS_TODO}")
+    rng = np.random.RandomState(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / max(arrival_rate, 1e-9),
+                                         len(tensors)))
+    results, rid_of = {}, {}
+    tick, nxt = 0, 0
+    t0 = time.perf_counter()
+    while nxt < len(tensors) or engine.has_work():
+        while nxt < len(tensors) and arrivals[nxt] <= tick:
+            rid_of[engine.submit(tensors[nxt])] = nxt
+            nxt += 1
+        if engine.has_work():
+            for rid, res in engine.step().items():
+                results[rid_of[rid]] = res
+        tick += 1
+    return results, tick, time.perf_counter() - t0, 0
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", default="16,21,33",
@@ -89,12 +119,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--power-tol", type=float, default=1e-2)
     ap.add_argument("--no-loop-compare", action="store_true",
                     help="skip the B=1 looped-baseline timing")
-    ap.add_argument("--continuous", action="store_true")
-    ap.add_argument("--slots", type=int, default=None)
-    ap.add_argument("--chunks-per-step", default="1")
+    ap.add_argument("--continuous", action="store_true",
+                    help="also stream the requests through the "
+                         "continuous-batching engine")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="continuous slot-table size (default: max-batch)")
+    ap.add_argument("--chunks-per-step", default="1",
+                    help="gate chunks per continuous step ('auto' is "
+                         "ROADMAP item 11)")
     ap.add_argument("--autotune", action="store_true")
-    ap.add_argument("--no-donate", action="store_true")
-    ap.add_argument("--arrival-rate", type=float, default=2.0)
+    ap.add_argument("--no-donate", action="store_true",
+                    help="refused: the port updates the slot state in "
+                         "place, so there is no donation to turn off")
+    ap.add_argument("--arrival-rate", type=float, default=2.0,
+                    help="mean Poisson arrivals per scheduler tick "
+                         "(continuous mode)")
     ap.add_argument("--priority-mix", default=None)
     ap.add_argument("--slo-chunks", type=int, default=None)
     ap.add_argument("--deadline-chunks", type=int, default=None)
@@ -124,6 +163,13 @@ def check_args(args: argparse.Namespace) -> None:
                                   f"{MULTI_DEVICE_TODO}")
     if args.epilogue == "auto":
         raise NotImplementedError(f"--epilogue auto: {AUTO_TODO}")
+    if args.chunks_per_step == "auto":
+        raise NotImplementedError(f"--chunks-per-step auto: {AUTO_TODO}")
+    if args.no_donate:
+        raise ValueError("--no-donate: the port's continuous engine updates "
+                         "its slot state in place (the counterpart of the "
+                         "reference's donated buffers), so there is no "
+                         "donation to turn off")
     for name, off, todo in _LATER:
         if getattr(args, name) != off:
             raise NotImplementedError(
@@ -132,11 +178,13 @@ def check_args(args: argparse.Namespace) -> None:
 
 def run(args: argparse.Namespace) -> dict:
     """Serve the stream cold, then warm (and with a B = 1 engine unless
-    --no-loop-compare), printing the reference's lines.  Returns
-    {"engine", "specs", "results", "recs", "sweeps", "buckets",
-    "stats_cold", "stats_warm", "cold", "warm", "loop_warm"}; the engine
-    stays open (its graphs and buffers) for the caller to read and
-    close."""
+    --no-loop-compare), then with --continuous through the continuous
+    engine, printing the reference's lines.  Returns {"engine", "specs",
+    "results", "recs", "sweeps", "buckets", "stats_cold", "stats_warm",
+    "cold", "warm", "loop_warm", "continuous"}; "continuous" is None or
+    {"engine", "results", "ticks", "stream_s", "stats_warmup",
+    "stats_stream"}.  The engines stay open (their graphs and buffers)
+    for the caller to read and close."""
     check_args(args)
     dev = resolve_device(args.device)
     sizes = [int(s) for s in args.sizes.split(",")]
@@ -196,14 +244,77 @@ def run(args: argparse.Namespace) -> dict:
         loop.close()
         print(f"looped (B=1) warm {loop_s:.2f}s → batched speedup "
               f"{loop_s / warm_s:.2f}x")
-    return {"engine": engine, "specs": specs, "results": results,
-            "recs": recs, "sweeps": sweeps, "buckets": buckets,
-            "stats_cold": stats_cold, "stats_warm": stats_warm,
-            "cold": cold_s, "warm": warm_s, "loop_warm": loop_s}
+    out = {"engine": engine, "specs": specs, "results": results,
+           "recs": recs, "sweeps": sweeps, "buckets": buckets,
+           "stats_cold": stats_cold, "stats_warm": stats_warm,
+           "cold": cold_s, "warm": warm_s, "loop_warm": loop_s,
+           "continuous": None}
+    if args.continuous:
+        out["continuous"] = run_continuous(args, cfg, tensors, dev)
+    return out
+
+
+def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
+                   dev: torch.device) -> dict:
+    """The stream through MSCContinuousEngine under Poisson arrivals,
+    every bucket warmed off the clock first, with the reference's lines."""
+    print(f"\ncontinuous decode loop: Poisson arrivals "
+          f"{args.arrival_rate}/tick, slow-every={args.slow_every}")
+    ceng = MSCContinuousEngine(cfg, slots=args.slots or args.max_batch,
+                               bucket_quantum=args.bucket_quantum,
+                               chunks_per_step=int(args.chunks_per_step),
+                               device=dev)
+    probes = {}  # warm every bucket's programs off the clock
+    for t in tensors:
+        probes.setdefault(ceng.bucket_of(t.shape), t)
+    ceng.run(list(probes.values()))
+    base = ceng.stats
+    results, ticks, stream_s, shed = simulate_continuous(
+        ceng, tensors, arrival_rate=args.arrival_rate, seed=args.seed)
+    cs = ceng.stats.delta(base)  # the stream only, not the warm-up
+    print(f"streamed {len(results)} results over {ticks} ticks in "
+          f"{stream_s:.2f}s ({len(results) / stream_s:.1f} req/s)")
+    print(f"  occupancy {cs.occupancy:.2f} "
+          f"({cs.busy_slot_chunks}/{cs.slot_chunks} slot-chunks), "
+          f"{cs.evictions} evictions, {cs.refills} refills, "
+          f"mean queue wait "
+          f"{cs.queue_wait_chunks / max(cs.requests, 1):.2f} chunks")
+    ss = ceng.stats  # cumulative; p50/p99 rolling
+    print(f"  scheduler: {ss.preemptions} preemptions, "
+          f"{ss.resumes} resumes, {ss.deadline_misses} deadline "
+          f"misses, {ss.slo_sheds} SLO-shed ({shed} dropped), "
+          f"{ss.idle_bucket_ticks} idle-bucket ticks, queue wait "
+          f"p50 {ss.queue_wait_p50_chunks:.1f} / "
+          f"p99 {ss.queue_wait_p99_chunks:.1f} chunks")
+    print(f"  fault tolerance: {ss.checkpoints_written} checkpoints, "
+          f"{ss.restores} restores, {ss.retries} retries, "
+          f"{ss.shed_requests} shed, "
+          f"{ss.fallback_requests} fallback-served, "
+          f"{ss.heartbeats_missed} heartbeats missed, "
+          f"{ss.host_losses} host losses, {ss.reinits} reinits, "
+          f"{ss.shard_files_written} shard files, "
+          f"{ss.cache_hits} cache hits / {ss.cache_misses} misses, "
+          f"{ss.warm_starts} warm starts "
+          f"({ss.warm_sweeps_saved} sweeps saved)")
+    if dev.type == "cuda":
+        static, pools = ceng.memory_reckoning()
+        print(f"  graphs: {ceng.graphs} held for {len(probes)} buckets "
+              f"({base.compiles} captured warming up, {cs.compiles} in "
+              f"the stream); static buffers {static} B, graph pools "
+              f"{pools} B")
+    for i in (0, len(tensors) - 1):
+        sw = [results[i][j].power_iters_run for j in range(3)]
+        print(f"  req {i}: sweeps={sw}")
+    return {"engine": ceng, "results": results, "ticks": ticks,
+            "stream_s": stream_s, "stats_warmup": base,
+            "stats_stream": cs}
 
 
 def main(argv=None) -> int:
-    run(parse_args(argv))["engine"].close()
+    out = run(parse_args(argv))
+    out["engine"].close()
+    if out["continuous"] is not None:
+        out["continuous"]["engine"].close()
     return 0
 
 

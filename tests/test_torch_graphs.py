@@ -7,6 +7,10 @@
   (`torch.cuda.set_sync_debug_mode("error")`).
 - After N replays a kernel's launch count has grown by N times the
   launches its capture recorded.
+- MSCContinuousEngine captures 2 graphs per bucket cold and none warm,
+  makes no host sync in a replay, launches `power_iter` 3 times per step
+  replay and `abs_rowsum` 3 times per refill replay, and gives the bits
+  of the same engine with its programs called eagerly on the card.
 """
 import contextlib
 
@@ -20,7 +24,9 @@ from repro_torch.core.parallel import build_msc_batched  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import power_iter as kpi  # noqa: E402
 from repro_torch.kernels import ring as kring  # noqa: E402
-from repro_torch.serving import MSCServeEngine, ServeEngine  # noqa: E402
+from repro_torch.serving import (MSCContinuousEngine,  # noqa: E402
+                                 MSCServeEngine, ServeEngine)
+from repro_torch.serving import graphs  # noqa: E402
 
 
 @pytest.fixture
@@ -164,3 +170,82 @@ def test_replays_count_their_captured_launches(cuda_device):
         chunk()
     assert kpi.launches - n2 == 4
     eng.close()
+
+
+@contextlib.contextmanager
+def no_sync_in_replays():
+    """Every replay of a captured step runs under no_host_sync()."""
+    call = graphs.Step.__call__
+
+    def guarded(self):
+        with no_host_sync():
+            return call(self)
+
+    graphs.Step.__call__ = guarded
+    try:
+        yield
+    finally:
+        graphs.Step.__call__ = call
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Steps made meanwhile call their functions instead of capturing."""
+    init = graphs.Step.__init__
+    graphs.Step.__init__ = lambda self, fn, device, pool=None: init(
+        self, fn, torch.device("cpu"))
+    try:
+        yield
+    finally:
+        graphs.Step.__init__ = init
+
+
+def _skewed(n):
+    """n planted requests over two buckets, every 4th near-noise."""
+    shapes = [(40, 40, 40), (37, 33, 40), (21, 24, 18), (24, 20, 23)]
+    out = []
+    for i in range(n):
+        (x,) = _requests([shapes[i % 4]], seed=i)
+        if i % 4 == 0:  # a slow converger: the signal scaled far down
+            x = 0.03 * x + np.random.default_rng(i).normal(
+                size=x.shape).astype(np.float32)
+        out.append(x)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg_kw", [
+    dict(use_kernels=True), dict(precision="bf16_fp32", use_kernels=True),
+    dict()], ids=["kernels", "bf16_kernels", "einsum"])
+def test_continuous_graphs_replay_the_eager_engines_bits(cuda_device,
+                                                         cfg_kw):
+    cfg = MSCConfig(epsilon=3e-4, **cfg_kw)
+    xs = [torch.from_numpy(x).to(cuda_device) for x in _skewed(10)]
+    eng = MSCContinuousEngine(cfg, slots=3, device=cuda_device)
+    n_buckets = len({eng.bucket_of(x.shape) for x in xs})
+    with no_sync_in_replays():
+        cold = eng.run(xs)
+    assert eng.stats.compiles == eng.graphs == 2 * n_buckets
+    before = eng.stats
+    kpi.launches = kring.launches = 0
+    eng.placement, eng.refill_min_free = "stable", 2
+    with no_sync_in_replays():
+        warm = eng.run(xs[::-1])[::-1]
+    delta = eng.stats.delta(before)
+    assert delta.compiles == 0 and delta.refills and delta.chunk_steps
+    if cfg.use_kernels:
+        assert kpi.launches == 3 * delta.chunk_steps
+        assert kring.launches == 3 * delta.refills
+    with eager_steps():
+        eager = MSCContinuousEngine(cfg, slots=3, device=cuda_device)
+        want = eager.run(xs)
+    assert eager.graphs == 0
+    for got in (cold, warm):
+        for g, w in zip(got, want):
+            for j in range(3):
+                assert torch.equal(g[j].mask, w[j].mask)
+                assert torch.equal(g[j].d, w[j].d)
+                assert torch.equal(g[j].lambdas, w[j].lambdas)
+                assert g[j].power_iters_run == w[j].power_iters_run
+    eng.close()
+    eager.close()

@@ -3,7 +3,8 @@
 On the CPU the engine runs its per-bucket steps (head, gate chunk, tail)
 eagerly: the code a card captures as CUDA graphs.  Held here:
 - the CLI prints the reference's lines, and every flag of a later
-  ROADMAP item raises naming that item;
+  ROADMAP item raises naming that item (the continuous mode's own lines
+  are held in `tests/test_torch_continuous.py`);
 - on the reference's request stream (built by `repro.launch.msc_serve`
   and carried across as numpy arrays), the port's engine answers as the
   reference's engine does: masks and sweeps identical, d and λ within
@@ -176,9 +177,11 @@ def test_request_stream_follows_the_reference_rule():
 @pytest.mark.parametrize("flag,item", [
     (["--mesh-shape", "4,2"], "item 9"),
     (["--epilogue", "auto"], "item 11"),
-    (["--continuous"], "item 8"), (["--slots", "4"], "item 8"),
-    (["--chunks-per-step", "auto"], "item 8"),
-    (["--arrival-rate", "1.5"], "item 8"), (["--no-donate"], "item 8"),
+    (["--chunks-per-step", "auto"], "item 11"),
+    (["--continuous", "--priority-mix", "0:1.0"], "item 10"),
+    (["--continuous", "--no-preempt"], "item 10"),
+    (["--continuous", "--bucket-policy", "all"], "item 10"),
+    (["--continuous", "--warm-start"], "item 10"),
     (["--autotune"], "item 10"), (["--priority-mix", "0:1.0"], "item 10"),
     (["--slo-chunks", "64"], "item 10"),
     (["--deadline-chunks", "96"], "item 10"), (["--no-preempt"], "item 10"),

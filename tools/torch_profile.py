@@ -4,6 +4,8 @@
     PYTHONPATH=src python tools/torch_profile.py [--m 1000] [--precision fp32]
         [--schedule flat|sequential] [--gram]
     PYTHONPATH=src python tools/torch_profile.py --lm [--attn-impl chunked]
+    PYTHONPATH=src python tools/torch_profile.py --continuous \
+        [--chunks-per-step 1]
 
 Builds the CLI's planted tensor (γ = m, seed 0, the CLI's default
 config with kernels; `--gram` for the explicit-gram eigensolver) on the
@@ -18,6 +20,16 @@ and the operators with the most device time by input shape.  A third,
 unprofiled solve counts the host reads (`torch.cuda.set_sync_debug_mode
 ("warn")`): one per gate chunk, none in the extraction.  Needs a CUDA
 card; prints the card's name and power limit first.
+
+`--continuous` profiles continuous MSC serving instead: the skewed mix
+of `chip_smoke.py` phase 5c (32 planted requests at m = 200, every 8th
+γ = 2, the rest γ = 300; tol 3e-3, a probe every 8 sweeps, cap 240;
+kernels, fp32) through MSCContinuousEngine (8 slots,
+`--chunks-per-step`) and through the static MSCServeEngine (B = 8), each
+warmed up, then one warm run of each under the profiler with the same
+report, the host reads of a warm run, and the device time of one replay
+of each of the continuous engine's two CUDA graphs (CUDA events over 20
+replays: the step, and the refill with inputs that move nothing).
 
 `--lm` profiles LM serving instead: whisper-tiny at its published size,
 batch 16, prompt 32, 16 generated tokens (`launch/serve.py`'s engine,
@@ -96,6 +108,11 @@ def main(argv=None) -> int:
     ap.add_argument("--attn-impl", default="pallas",
                     choices=("pallas", "chunked"),
                     help="attention route of --lm")
+    ap.add_argument("--continuous", action="store_true",
+                    help="profile continuous MSC serving against the "
+                         "static engine instead of one solve")
+    ap.add_argument("--chunks-per-step", type=int, default=1,
+                    help="gate chunks per continuous step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
@@ -107,6 +124,8 @@ def main(argv=None) -> int:
 
     if args.lm:
         return profile_lm(torch, args.attn_impl)
+    if args.continuous:
+        return profile_continuous(torch, args.chunks_per_step)
 
     from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import power_iter as kpi
@@ -158,6 +177,97 @@ def host_reads(torch, fn) -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchronizing" in str(w.message) for w in seen)
+
+
+# a continuous engine's kernels: the step's power_iter chunks; the
+# refill's finalize (the Rayleigh product, abs_rowsum, the extraction),
+# repack (index_select gathers, where selects, the operand copy) and the
+# fresh carries
+CONT_STAGES = (("power_", "step: sweeps (power_iter)"),
+               ("abs_rowsum", "refill: epilogue (abs_rowsum)"),
+               ("indexselect", "refill: repack gathers (index_select)"),
+               ("gemv", "refill: Rayleigh quotient (cuBLAS)"),
+               ("gemm", "refill: Rayleigh quotient (cuBLAS)"),
+               ("copy", "copies (staging writes, step carries)"),
+               ("elementwise", "elementwise (gate, selects, extraction)"),
+               ("reduce", "reductions (gate, extraction)"),
+               ("sort", "extraction sorts"))
+
+
+def _replay_ms(torch, step, reps: int = 20) -> float:
+    """Device milliseconds per replay of a captured step (CUDA events)."""
+    step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_continuous(torch, chunks_per_step: int) -> int:
+    """One warm run of the skewed mix through each engine under the
+    profiler, and one replay of each of the continuous engine's graphs."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import MSCConfig, PlantedSpec, make_planted_tensor
+    from repro_torch.kernels import power_iter as kpi
+    from repro_torch.kernels import ring as kring
+    from repro_torch.serving import MSCContinuousEngine, MSCServeEngine
+    from repro_torch.serving.msc_engine import _control
+
+    m, n, b, slow_every = 200, 32, 8, 8
+    cfg = MSCConfig(epsilon=3e-4, power_tol=3e-3, power_iters=240,
+                    power_check_every=8, use_kernels=True)
+    tensors = [make_planted_tensor(
+        torch.Generator(device="cuda").manual_seed(i),
+        PlantedSpec.paper(m, 2.0 if i % slow_every == 0 else 300.0))
+        for i in range(n)]
+    engines = {
+        f"continuous (slots {b}, {chunks_per_step} chunk(s) per step)":
+        MSCContinuousEngine(cfg, slots=b, chunks_per_step=chunks_per_step,
+                            device="cuda"),
+        f"static (B = {b})": MSCServeEngine(cfg, max_batch=b,
+                                            device="cuda")}
+    for name, eng in engines.items():
+        eng.run(tensors)  # warm-up: kernel build, captures
+        eng.run(tensors)
+        kpi.launches = kring.launches = 0
+        before = eng.stats
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            eng.run(tensors)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        s = eng.stats.delta(before)
+        print(f"profiled warm run, {name}: {n} requests at m={m}, "
+              f"{s.dispatches} dispatches ({s.chunk_steps} chunk steps, "
+              f"{s.refills} refills), occupancy {s.occupancy:.3f}, launches "
+              f"power_iter={kpi.launches} abs_rowsum={kring.launches}")
+        report(prof, wall, CONT_STAGES)
+        print(f"host reads per warm run: "
+              f"{host_reads(torch, lambda: eng.run(tensors))}")
+    cont = next(iter(engines.values()))
+    (tb,) = cont._tables.values()
+    st = tb.state
+    step_ms = _replay_ms(torch, st.programs[0])
+    fill = np.ones((b, 3), np.int32)
+    st.ctl.copy_(torch.from_numpy(_control(  # perm = identity, nothing new
+        np.arange(b), np.zeros(b), np.ones(b), fill, fill)))
+    refill_ms = _replay_ms(torch, st.programs[1])
+    static_b, pools = cont.memory_reckoning()
+    print(f"one replay: step {step_ms:.4f} ms, refill {refill_ms:.4f} ms "
+          f"(device, CUDA events over 20 replays); slot table {static_b} B "
+          f"static + {pools} B graph pool")
+    for eng in engines.values():
+        eng.close()
+    return 0
 
 
 def profile_lm(torch, attn_impl: str) -> int:
