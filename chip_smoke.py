@@ -101,6 +101,20 @@ line):
    logits within the same tolerances, no host sync in the replays; the
    decode ms per token of both.  Prints prefill ms, decode ms per
    token, tokens/s and the peak device memory.
+8. The parallel schedules on a mesh: one NCCL process group of one rank
+   (a FileStore in a temporary directory; NCCL takes one rank per card),
+   phase 4's tensor (m = 1000, γ = 1000, seed 0, the CLI's ε, kernels
+   on) through `build_msc_parallel(..., mesh=...)` five ways: flat (1,)
+   gspmd allgather fp32, (1,) collective ring fp32, (1, 1)
+   collective_stream allgather fp32 (the inner dim: one `power_matvec`
+   per sweep and an all_reduce), (1, 1) `--gram` fp32 and (1,)
+   bf16_fp32.  The (1,) runs must give phase 4's one-device masks,
+   sweeps, d and λ bit for bit; the (1, 1) runs its masks, sweeps equal
+   or one gate chunk apart and d within 3e-5.  Every kernel of a run
+   launched (counts set to 0 just before the warm run and read just
+   after), no host read in an extraction, and 0 B left once the process
+   group and the tensors are freed.  Prints each warm solve time beside
+   phase 4's, the peak memory and the NCCL version.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -657,7 +671,7 @@ def main_cfg():
 
 def phase_main_path(torch, checks):
     """Both eigensolvers at m = 1000 through the CLI.  Returns
-    ({label: counts}, {label: MSCResult})."""
+    ({label: counts}, {label: MSCResult}, {label: solve ms})."""
     base = ["--m", str(M), "--gamma", str(GAMMA), "--seed", str(SEED),
             "--device", DEVICE]
     recovery = ["--gamma", str(GAMMA_RECOVERY)]
@@ -680,12 +694,13 @@ def phase_main_path(torch, checks):
              "(recovery)", ["--kernels", *recovery, *flag],
              solve + ("abs_rowsum",)),
         ]
-    results, launches = {}, {}
+    results, launches, solve_ms = {}, {}, {}
     for label, extra, want in runs:
         out, counts = drive(torch, label, base + extra)
         rec = out[0]
         launches[label] = counts
         results[label] = rec["result"]
+        solve_ms[label] = rec["t"] * 1e3
         before = (f"; with the host-driven trim: {HOST_TRIM_WALL_MS[label]} "
                   "ms" if label in HOST_TRIM_WALL_MS else "")
         log(f"  solve t={rec['t'] * 1e3:.1f} ms{before} (the rest of the wall "
@@ -718,7 +733,7 @@ def phase_main_path(torch, checks):
                  "gram oracle", chunk)
         hold(torch, checks, label, results[label], mf_oracle,
              "matrix-free oracle", chunk)
-    return launches, results
+    return launches, results, solve_ms
 
 
 def phase_batched(torch, checks, singles):
@@ -1480,6 +1495,134 @@ def phase_lm(torch, checks, smi):
     return launches
 
 
+# phase 8: the parallel schedules over a mesh of one rank under NCCL (one
+# card: NCCL takes one rank per device).  (label, mesh shape, relayout,
+# config changes, the phase-4 one-device run it is held to, whether bit
+# for bit, the kernels it must launch)
+MESH_RUNS = (
+    ("mesh (1,) gspmd allgather fp32", (1,), "gspmd", {},
+     "flat+kernels fp32", True, ("power_iter", "abs_rowsum")),
+    ("mesh (1,) collective ring fp32", (1,), "collective",
+     {"epilogue": "ring"}, "flat+kernels fp32", True,
+     ("power_iter", "abs_rowsum")),
+    ("mesh (1, 1) collective_stream allgather fp32", (1, 1),
+     "collective_stream", {}, "flat+kernels fp32", False,
+     ("power_iter", "abs_rowsum")),
+    ("mesh (1, 1) gspmd gram fp32", (1, 1), "gspmd", {"matrix_free": False},
+     "flat+kernels gram fp32", False, ("batched_gram", "abs_rowsum")),
+    ("mesh (1,) gspmd bf16_fp32", (1,), "gspmd",
+     {"precision": "bf16_fp32"}, "flat+kernels bf16_fp32", True,
+     ("power_iter", "abs_rowsum")),
+)
+MESH_D_TOL = 3e-5  # d of the inner-dim runs, relative to max d
+
+
+def phase_mesh(torch, checks, singles, solve_ms, smi):
+    """The paper's size (phase 4's tensor) through `build_msc_parallel`
+    over DeviceMeshes of one NCCL rank: each run held to phase 4's
+    one-device run of its config, its kernels launched, no host read in
+    an extraction, 0 B left once the group and the tensors are freed.
+    The process group is torn down whether the phase passes or fails."""
+    import gc
+    import tempfile
+
+    from repro_torch.core import PlantedSpec, make_planted_tensor
+    from repro_torch.launch.mesh import join, leave, make_msc_mesh
+
+    log(f"mesh path: one NCCL rank, m = {M}; card: {smi}")
+    chunk = main_cfg().power_check_every
+    launches = {}
+    gc.collect()  # what the earlier phases left to the collector
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        try:
+            dev = join("cuda", rank=0, world_size=1,
+                       store_file=os.path.join(tmp, "store"))
+            log(f"  NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+                f"rank 0 of 1 on {dev}")
+            tensor = make_planted_tensor(
+                torch.Generator(device=dev).manual_seed(SEED),
+                PlantedSpec.paper(M, GAMMA))
+            for label, shape, relayout, change, single, exact, want in \
+                    MESH_RUNS:
+                launches[label] = _mesh_run(
+                    torch, checks, label, make_msc_mesh("flat", shape),
+                    relayout, main_cfg().with_(use_kernels=True, **change),
+                    tensor, singles[single], single, solve_ms[single], exact,
+                    want, chunk)
+            del tensor
+        finally:
+            leave()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    log(f"  device memory left once the process group and the tensors are "
+        f"freed: {left} B")
+    if left:
+        checks.failures.append(f"mesh path: {left} B left allocated")
+    return launches
+
+
+def _mesh_run(torch, checks, label, mesh, relayout, cfg, tensor, one,
+              one_label, one_ms, exact, want, chunk):
+    """One mesh config: a cold run, then a warm one with the launch counts
+    set to 0 just before it and read just after, timed between two warm
+    one-device solves of the same config.  Returns the counts."""
+    from repro_torch.core import build_msc_parallel
+
+    log(f"mesh path: {label}")
+    run = build_msc_parallel(cfg, "flat", mesh=mesh, relayout=relayout)
+    single = build_msc_parallel(cfg, "flat", device=tensor.device)
+    run(tensor)
+    _, t_one = _timed_s(torch, lambda: single(tensor))
+    mods = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    with NoHostReadsInExtraction(torch) as guard:
+        res, t = _timed_s(torch, lambda: run(tensor))
+    counts = {n: mod.launches for n, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, t_one2 = _timed_s(torch, lambda: single(tensor))
+    log(f"  warm solve {t * 1e3:.1f} ms; one device in turns "
+        f"{t_one * 1e3:.1f} / {t_one2 * 1e3:.1f} ms (phase 4, "
+        f"{one_label}: {one_ms:.1f} ms); peak {peak:.2f} GiB, launches "
+        f"{counts}, {guard.calls} extractions with no host read")
+    if guard.calls != 3:
+        checks.failures.append(f"{label}: {guard.calls} extractions, not 3")
+    for n in KERNELS:
+        if n in want and counts[n] == 0:
+            checks.failures.append(f"{label}: {n} never launched")
+        if n not in want and counts[n]:
+            checks.failures.append(f"{label}: {n} ran off its path")
+    if exact:
+        for j in range(3):
+            same = (torch.equal(res[j].mask, one[j].mask)
+                    and torch.equal(res[j].d, one[j].d)
+                    and torch.equal(res[j].lambdas, one[j].lambdas)
+                    and int(res[j].power_iters_run)
+                    == int(one[j].power_iters_run))
+            log(f"  {'ok  ' if same else 'FAIL'} mode {j}: masks, d, λ and "
+                f"sweeps ({int(res[j].power_iters_run)}) bit-identical to "
+                f"the one-device run: {same}")
+            if not same:
+                checks.failures.append(f"{label} mode {j}: not the "
+                                       "one-device run's bits")
+    else:
+        hold(torch, checks, label, res, one, "one-device run", chunk)
+        for j in range(3):
+            rel = ((res[j].d - one[j].d).abs().max()
+                   / one[j].d.abs().max()).item()
+            if not rel <= MESH_D_TOL:
+                checks.failures.append(f"{label} mode {j}: d rel diff "
+                                       f"{rel:.3e} > {MESH_D_TOL:g}")
+    del res
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1501,12 +1644,13 @@ def main() -> int:
     smi = phase_card(torch)
     phase_build()
     rows = phase_kernels(torch, checks)
-    launches, singles = phase_main_path(torch, checks)
+    launches, singles, solve_ms = phase_main_path(torch, checks)
     launches.update(phase_batched(torch, checks, singles))
     launches.update(phase_static(torch, checks))
     launches.update(phase_continuous(torch, checks, smi))
     rows.update(phase_flash(torch, checks))
     launches.update(phase_lm(torch, checks, smi))
+    launches.update(phase_mesh(torch, checks, singles, solve_ms, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

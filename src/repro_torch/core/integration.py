@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 import torch
 
 from .msc import msc_sequential
-from .schedule import MULTI_DEVICE_TODO
+from .parallel import build_msc_parallel
 from .types import MSCConfig, MSCResult
 
 
@@ -46,15 +46,15 @@ def collect_activation_tensor(layer_acts: Sequence, max_tokens: int = 512,
 def cluster_activations(layer_acts: Sequence,
                         cfg: Optional[MSCConfig] = None, mesh=None,
                         device="cuda", **collect_kw) -> MSCResult:
-    """Tricluster an activation tensor with the sequential MSC on
-    `device`.  A mesh (the reference's parallel flat schedule over it) is
-    not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(f"cluster_activations on a mesh: "
-                                  f"{MULTI_DEVICE_TODO}")
+    """Tricluster an activation tensor: mesh=None → the sequential MSC on
+    `device`; a DeviceMesh (`launch/mesh.py`) → the parallel flat
+    schedule over it, on the rank's device (every rank calls this with the
+    same activations)."""
     cfg = cfg or MSCConfig(epsilon=1e-6)
-    return msc_sequential(collect_activation_tensor(layer_acts, **collect_kw),
-                          cfg, device=device)
+    tensor = collect_activation_tensor(layer_acts, **collect_kw)
+    if mesh is None:
+        return msc_sequential(tensor, cfg, device=device)
+    return build_msc_parallel(cfg, "flat", mesh=mesh)(tensor)
 
 
 def routing_tensor(router_probs: Sequence, n_bins: int = 32) -> torch.Tensor:

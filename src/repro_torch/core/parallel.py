@@ -1,25 +1,47 @@
 """Parallel MSC builders — counterpart of `repro/core/parallel.py`.
 
-Only the flat schedule on one device is ported, for one tensor
-(`build_msc_parallel_flat`), for a bucket of B requests
-(`build_msc_batched`) and as the continuous engine's chunk-resumable
-programs (`MSCChunkPlan`): the three modes run one after another through
-`ModeSchedule`.  On one device every relayout of the reference
-("gspmd", "collective", "collective_stream") is the same local
-transpose.  The grouped schedule and meshes of more than one device are
-ROADMAP queue 1 item 9; the "auto" relayout and epilogue choosers are
-queue 1 item 11.
+Every schedule is a layout declaration over `core/schedule.py:
+ModeSchedule`, which owns the padding, the masks, the per-rank Alg. 2
+body and the epilogue.  With `mesh=None` each `build_*` function runs on
+one device: the three modes one after another, every relayout the same
+local transpose.  With a DeviceMesh (`launch/mesh.py`) every rank of the mesh
+calls the built function on the same tensor and gets the same result:
+
+* **flat**: the three modes one after another, each over every slice
+  rank.  The relayout says how the tensor moves between the mode
+  layouts:
+  - "gspmd": each rank cuts its blocks of the three unfoldings from the
+    tensor it was given (the counterpart of the reference's global
+    transpose);
+  - "collective": each rank keeps its mode-1 block only and the other
+    two layouts come by all_to_all (the reference's
+    `_build_flat_collective`): on an inner dim one all_to_all over it
+    first, then one over the slice dim per mode;
+  - "collective_stream": the same, each all_to_all as p−1 send/receive
+    steps, bit-identical to "collective".
+* **grouped** (paper Fig. 3): mesh ("mode"=3, "slice"[, "inner"]); each
+  mode group solves its own unfolding, its collectives within the
+  group (the MPI group communicator); cube tensors only.
+
+Collectives (paper → here): MPI_Allgatherv(V) → all_gather_into_tensor
+over the slice group, or the ring of send/receive steps;
+MPI_Allreduce(λ, MAX) → all_reduce MAX; the inner-dim partial sums →
+all_reduce SUM; MPI_Gatherv(d) → an all_gather of d and λ, the
+extraction then on every rank.  The "auto" relayout and epilogue
+choosers are ROADMAP.md queue 1 item 11.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
-from .msc import MODE_PERMS, mode_slices
+from .msc import MODE_PERMS
 from .power_iter import SolveState
-from .schedule import MULTI_DEVICE_TODO, ModeSchedule
+from .schedule import (ModeSchedule, _exchange, gather_shards, pad_to,
+                       take_block)
 from .types import MSCConfig, MSCResult, resolve_device
 
 RELAYOUTS = ("gspmd", "collective", "collective_stream")
@@ -37,7 +59,7 @@ def batch_perm(mode: int) -> tuple:
 
 
 def check_relayout(relayout: str, epilogue: str = "allgather") -> None:
-    """Raise on a relayout (or epilogue) the one-device port cannot run."""
+    """Raise on a relayout (or epilogue) the port cannot run."""
     if relayout == "auto" or epilogue == "auto":
         raise NotImplementedError(AUTO_TODO)
     if relayout not in RELAYOUTS:
@@ -45,49 +67,246 @@ def check_relayout(relayout: str, epilogue: str = "allgather") -> None:
                          f"expected one of {RELAYOUTS}")
 
 
-def build_msc_parallel_flat(cfg: MSCConfig, device="cuda",
-                            relayout: str = "gspmd"):
-    """tensor → MSCResult on one device, flat schedule."""
+def _mesh_device(mesh, device):
+    """The device a built function runs on: the rank's on a mesh."""
+    if mesh is None:
+        return resolve_device(device if device is not None else "cuda")
+    from repro_torch.launch.mesh import mesh_device
+
+    return mesh_device(mesh)
+
+
+def _flat_schedule(cfg: MSCConfig, mesh) -> ModeSchedule:
+    """The flat schedule's roles: "inner" shards rows when the mesh has
+    it, the other dim shards slices (`sharding/specs.py:msc_axes`)."""
+    if mesh is None:
+        return ModeSchedule(cfg)
+    from repro_torch.sharding.specs import msc_axes
+
+    slice_axes, inner_axes = msc_axes(mesh)
+    return ModeSchedule(cfg, mesh, slice_axes, inner_axes)
+
+
+# ------------------------------------------------------ relayout collectives
+
+def _stream_all_to_all(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """all_to_all_single(out, x) as p−1 send/receive steps: at step k
+    this rank sends its part (i+k) mod p to rank (i+k) mod p and receives
+    rank (i−k) mod p's part i.  Pure data movement, so `out` holds the
+    blocking collective's bits."""
+    import torch.distributed as dist
+
+    p, i = dist.get_world_size(group), dist.get_rank(group)
+    out[i].copy_(x[i])
+    for k in range(1, p):
+        to, frm = (i + k) % p, (i - k) % p
+        for w in _exchange(x[to], dist.get_global_rank(group, to), out[frm],
+                           dist.get_global_rank(group, frm), group):
+            w.wait()
+
+
+def _a2a(x: torch.Tensor, group, split: int, concat: int,
+         stream: bool) -> torch.Tensor:
+    """The reference's tiled `lax.all_to_all(x, split_axis=split,
+    concat_axis=concat)` over a group of p ranks: x's split dim cut in p
+    parts, part j sent to rank j, and the parts received from ranks 0…p−1
+    joined along the concat dim.  all_to_all_single splits dim 0 only, so
+    the split dim is made leading and contiguous first."""
+    import torch.distributed as dist
+
+    p = dist.get_world_size(group)
+    xs = x.movedim(split, 0)
+    xs = xs.reshape((p, xs.shape[0] // p) + tuple(xs.shape[1:])).contiguous()
+    out = torch.empty_like(xs)
+    if stream:
+        _stream_all_to_all(out, xs, group)
+    else:
+        dist.all_to_all_single(out, xs, group=group)
+    del xs
+    # out (p, part, *rest): rest is x's dims without the split one; put the
+    # source rank beside the concat dim and merge them, rank-major
+    c = concat - (concat > split)
+    y = out.movedim(0, 1 + c)
+    shape = tuple(y.shape)
+    y = y.reshape(shape[:1 + c] + (shape[1 + c] * shape[2 + c],)
+                  + shape[3 + c:])
+    return y.movedim(0, split)
+
+
+def collective_pads(sched: ModeSchedule, shape) -> tuple:
+    """Padded (m1, m2, m3) of the collective relayout: m1 is cut p ways and
+    then q ways, m2 q ways and then p ways, m3 p ways."""
+    p, q = sched.slice_shards, sched.inner_shards
+    m1, m2, m3 = shape
+    return (pad_to(m1, p * q), pad_to(m2, p * q // math.gcd(p, q)),
+            pad_to(m3, p))
+
+
+def _collective_blocks(sched: ModeSchedule, t: torch.Tensor, stream: bool):
+    """This rank's slice-major block of each mode in turn, by the
+    reference's all_to_all relayout (`_build_flat_collective`).
+
+    t (…, m1, m2, m3): the tensor, under any leading request dims.  The
+    rank keeps its block of the padded mode-1 layout, (m1'/p, m2'/q, m3');
+    on an inner dim one all_to_all over it (split m1, concat m2) frees the
+    row-sharded dim; then one all_to_all over the slice dim per mode gives
+    mode 2 (m2'/p, m1'/q, m3') and mode 3 (m3'/p, m1'/q, m2').  Each
+    all_to_all moves the rank's share of the tensor once.
+    """
+    lead = t.dim() - 3
+    p, q = sched.slice_shards, sched.inner_shards
+    m1p, m2p, m3p = collective_pads(sched, t.shape[lead:])
+    b1, r1 = m1p // p, m2p // q
+    blk = take_block(t, ((sched.slice_index * b1, b1),
+                         (sched.inner_index * r1, r1), (0, m3p)))
+    yield blk
+    if sched.inner_group is not None:  # step A: free the inner-sharded dim
+        blk = _a2a(blk, sched.inner_group, lead, lead + 1, stream)
+    keep = tuple(range(lead))
+    b2 = _a2a(blk, sched.slice_group, lead + 1, lead, stream)
+    yield b2.permute(keep + (lead + 1, lead, lead + 2)).contiguous()
+    del b2
+    b3 = _a2a(blk, sched.slice_group, lead + 2, lead, stream)
+    del blk
+    yield b3.permute(keep + (lead + 2, lead, lead + 1)).contiguous()
+
+
+# ------------------------------------------------------ the build functions
+
+def build_msc_parallel_flat(cfg: MSCConfig, mesh=None,
+                            relayout: str = "gspmd", device=None):
+    """tensor → MSCResult, flat schedule: on one device (mesh=None, on
+    `device`, default "cuda"), or over a DeviceMesh (every rank calls it
+    on the same tensor and gets the same result)."""
     check_relayout(relayout)
-    dev = resolve_device(device)
-    sched = ModeSchedule(cfg)
+    dev = _mesh_device(mesh, device)
+    sched = _flat_schedule(cfg, mesh)
+    if mesh is not None and relayout != "gspmd":
+        return _build_flat_collective(sched, dev,
+                                      stream=relayout == "collective_stream")
 
     def run(tensor) -> MSCResult:
         t = torch.as_tensor(tensor).to(dev)
         modes = []
         for j in range(3):
-            d, lam, iters, valid, m = sched.run_mode(mode_slices(t, j))
+            d, lam, iters, valid, m = sched.run_mode(t.permute(MODE_PERMS[j]))
             modes.append(sched.finalize_mode(d, lam, iters, valid, m))
         return MSCResult(modes=tuple(modes))
 
     return run
 
 
-def build_msc_batched(cfg: MSCConfig, device="cuda",
-                      relayout: str = "gspmd"):
+def _collective_modes(sched: ModeSchedule, t: torch.Tensor, dev, stream: bool,
+                      sizes, finalize) -> MSCResult:
+    """The three modes of `t` (…, m1, m2, m3) with the all_to_all relayout
+    (see `_collective_blocks`).  sizes(j) gives mode j's true slice count
+    m and column count c_valid: ints, or per request (B,) and (B, 1)
+    tensors under a request dim; finalize(d, lam, iters, valid, m) makes
+    the mode's result.  Zero rows drop out of every covariance; zero
+    columns are kept at zero by masking the start vectors to the true
+    column count (`c_valid`), which keeps the iterates' bits."""
+    pads = collective_pads(sched, t.shape[t.dim() - 3:])
+    modes = []
+    for j, block in enumerate(_collective_blocks(sched, t, stream)):
+        m, c_valid = sizes(j)
+        d, lam, iters = sched.mode_local(
+            block, sched.slice_mask(pads[j], m, dev), c_valid=c_valid)
+        del block
+        whole = torch.arange(pads[j], device=dev)
+        valid = (whole < m if isinstance(m, int)
+                 else whole[None, :] < m[:, None])
+        modes.append(finalize(d, lam, iters, valid, m))
+    return MSCResult(modes=tuple(modes))
+
+
+def _build_flat_collective(sched: ModeSchedule, dev, stream: bool):
+    """The flat schedule with the all_to_all relayout."""
+    def run(tensor) -> MSCResult:
+        t = torch.as_tensor(tensor).to(dev)
+        shape = tuple(t.shape)
+        return _collective_modes(
+            sched, t, dev, stream, lambda j: (shape[j], shape[C_OF[j]]),
+            sched.finalize_mode)
+
+    return run
+
+
+def build_msc_parallel_grouped(cfg: MSCConfig, mesh, device=None):
+    """tensor → MSCResult, the paper's 3-group schedule (Fig. 3).
+
+    The mesh is ("mode"=3, "slice"[, "inner"]): the ranks of mode group j
+    solve unfolding j, each its (slice, inner) block, with every
+    collective of the solve inside the group (the MPI group
+    communicator; the ring circulates within it).  Then d, λ and the
+    sweeps are gathered over the slice dim and across the three groups,
+    so every rank extracts all three modes.  Cube tensors only.
+    """
+    if mesh is None:
+        raise ValueError("the grouped schedule runs on a mesh of 3·s·q "
+                         "ranks (launch/mesh.py:make_msc_mesh('grouped'))")
+    names = tuple(mesh.mesh_dim_names or ())
+    if "mode" not in names or mesh.size(names.index("mode")) != 3:
+        raise ValueError(f"grouped schedule needs mode=3, got mesh "
+                         f"{dict(zip(names, mesh.shape))}")
+    sched = ModeSchedule(cfg, mesh, slice_axes=("slice",),
+                         inner_axes=("inner",) if "inner" in names else (),
+                         group_axes=("mode",))
+    dev = _mesh_device(mesh, device)
+    g = mesh.get_local_rank("mode")
+    modes_group = mesh.get_group("mode")
+
+    def run(tensor) -> MSCResult:
+        t = torch.as_tensor(tensor).to(dev)
+        m1, m2, m3 = t.shape
+        if not (m1 == m2 == m3):
+            raise ValueError("grouped schedule requires a cube tensor")
+        d, lam, iters, valid, m = sched.run_mode(t.permute(MODE_PERMS[g]))
+        d, lam, iters = sched.gather(d, lam, iters)
+        # every group's whole mode to every rank, in mode order
+        d3, lam3, it3 = gather_shards(
+            d, lam, torch.amax(iters, dim=-1, keepdim=True), modes_group)
+        n = d.shape[-1]
+        return MSCResult(modes=tuple(
+            sched.extract_mode(d3[j * n:(j + 1) * n], lam3[j * n:(j + 1) * n],
+                               it3[j:j + 1], valid, m) for j in range(3)))
+
+    return run
+
+
+def build_msc_batched(cfg: MSCConfig, mesh=None, relayout: str = "gspmd",
+                      device=None):
     """(batch (B, M1, M2, M3), dims (B, 3)) → MSCResult with a leading B.
 
-    The request-batched flat schedule on one device: B independent MSC
-    solves, bucket-padded to one shape with true sizes in `dims`, run
-    through one set of batched contractions per mode.  Each request
-    gates on its own (per-request `power_iters_run`); every field of the
-    ModeResults carries the leading B dim at the padded size, and
-    callers slice `[i, :dims[i, j]]` per request (MSCServeEngine does).
+    The request-batched flat schedule: B independent MSC solves,
+    bucket-padded to one shape with true sizes in `dims`, run through one
+    set of batched contractions per mode, on one device or over a mesh
+    (the relayouts of `build_msc_parallel_flat`, every dim shifted under
+    the request dim).  Each request gates on its own (per-request
+    `power_iters_run`); every field of the ModeResults carries the leading
+    B dim at the padded size, and callers slice `[i, :dims[i, j]]` per
+    request (MSCServeEngine does).
     """
     check_relayout(relayout, cfg.epilogue)
-    dev = resolve_device(device)
-    sched = ModeSchedule(cfg)
+    dev = _mesh_device(mesh, device)
+    sched = _flat_schedule(cfg, mesh)
+    stream = relayout == "collective_stream"
 
     def run(batch, dims) -> MSCResult:
         b = torch.as_tensor(batch).to(dev)
         dims = torch.as_tensor(dims, dtype=torch.int32).to(dev)
         modes = []
-        for j in range(3):
-            d, lam, iters, valid = sched.run_mode_batched(
-                b.permute(batch_perm(j)).contiguous(), dims[:, j],
-                dims[:, C_OF[j]])
-            modes.append(sched.finalize_mode_batched(d, lam, iters, valid))
-        return MSCResult(modes=tuple(modes))
+        if mesh is None or relayout == "gspmd":
+            for j in range(3):
+                d, lam, iters, valid = sched.run_mode_batched(
+                    b.permute(batch_perm(j)), dims[:, j], dims[:, C_OF[j]])
+                modes.append(sched.finalize_mode_batched(d, lam, iters,
+                                                         valid))
+            return MSCResult(modes=tuple(modes))
+        return _collective_modes(
+            sched, b, dev, stream,
+            lambda j: (dims[:, j], dims[:, C_OF[j]][:, None]),
+            lambda d, lam, iters, valid, m: sched.finalize_mode_batched(
+                d, lam, iters, valid))
 
     return run
 
@@ -121,7 +340,13 @@ class MSCChunkPlan:
     Matrix-free only, as in the reference.
     """
 
-    def __init__(self, cfg: MSCConfig, chunks_per_step=1, device="cuda"):
+    def __init__(self, cfg: MSCConfig, chunks_per_step=1, device="cuda",
+                 mesh=None):
+        if mesh is not None:
+            from repro_torch.sharding.specs import MESH_REST_TODO
+
+            raise NotImplementedError(f"MSCChunkPlan on a mesh: "
+                                      f"{MESH_REST_TODO}")
         if not cfg.matrix_free:
             raise ValueError("the continuous engine requires "
                              "matrix_free=True (see power_iter."
@@ -271,11 +496,12 @@ class MSCChunkPlan:
         return refill
 
 
-def build_msc_parallel(cfg: MSCConfig, schedule: str = "flat", device="cuda",
-                       **kw):
+def build_msc_parallel(cfg: MSCConfig, schedule: str = "flat", mesh=None,
+                       device=None, **kw):
+    """The parallel entry point: schedule "flat" (one device or a mesh,
+    `relayout=` in kw) or "grouped" (a mesh of 3·s·q ranks)."""
     if schedule == "flat":
-        return build_msc_parallel_flat(cfg, device=device, **kw)
+        return build_msc_parallel_flat(cfg, mesh=mesh, device=device, **kw)
     if schedule == "grouped":
-        raise NotImplementedError(
-            f"schedule 'grouped': {MULTI_DEVICE_TODO}")
+        return build_msc_parallel_grouped(cfg, mesh, device=device, **kw)
     raise ValueError(f"unknown schedule {schedule!r}")

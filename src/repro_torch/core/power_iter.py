@@ -18,6 +18,12 @@ once per chunk.  `plan_*` cut a solve at that read (`Eigensolve`): the
 eager solvers run the plan, and the static MSC engine replays it from
 CUDA graphs.
 
+On a mesh (one process per device, `core/schedule.py`) the solvers take
+two `torch.distributed` groups: the slice group, over which the gate's
+maxima are all-reduced (MAX) before the chunk's host read, so every rank
+leaves the loop on the same sweep; and the inner group, over which the
+partial contractions of a row-sharded slice are all-reduced (SUM).
+
 Precision policy `bf16_fp32`: operands of T v and Tᵀ(T v) are rounded
 to bf16 and multiplied and summed in fp32; normalization, the gate and
 the final Rayleigh quotient stay fp32.  On the gram path the formation
@@ -56,9 +62,13 @@ def _init_vectors(batch, dim: int, dtype=torch.float32, c_valid=None,
     v0 = torch.ones(dim, dtype=dtype, device=device) + 0.01 * torch.sin(
         1.37 * k + 0.3)
     if c_valid is not None:
-        cv = torch.as_tensor(c_valid, device=device)
-        v0 = torch.where(torch.arange(dim, device=device) < cv[..., None],
-                         v0, torch.zeros((), dtype=dtype, device=device))
+        idx = torch.arange(dim, device=device)
+        # an int bound compares on the device as it is (a tensor made
+        # from it would be a copy from the host)
+        keep = idx < c_valid if isinstance(c_valid, int) else (
+            idx < torch.as_tensor(c_valid, device=device)[..., None])
+        v0 = torch.where(keep, v0,
+                         torch.zeros((), dtype=dtype, device=device))
     v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
     return v0.expand(*shape, dim).contiguous()
 
@@ -67,15 +77,34 @@ def _normalize(v: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps)
 
 
-def convergence_gate(lam: torch.Tensor, resid: torch.Tensor,
-                     tol: float) -> torch.Tensor:
+def _psum_inner(x: torch.Tensor, inner_group=None) -> torch.Tensor:
+    """all_reduce(SUM) of a partial contraction over the inner (row-shard)
+    group, in place; the identity without one."""
+    if inner_group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=inner_group)
+    return x
+
+
+def convergence_gate(lam: torch.Tensor, resid: torch.Tensor, tol: float,
+                     slice_group=None) -> torch.Tensor:
     """True once every slice's λ-weighted residual is below tol.
 
     lam, resid: (..., b).  Maxima reduce over the slice dim only, so each
-    leading request gets its own verdict.
+    leading request gets its own verdict.  With a slice group both maxima
+    are all-reduced (MAX) over it, so every rank reaches the same verdict
+    (the lockstep exit: a rank that left the loop alone would leave its
+    peers waiting in the next collective).
     """
     weighted = torch.amax(resid / torch.clamp(lam, min=1.0) * lam, dim=-1)
     lam_max = torch.amax(lam, dim=-1)
+    if slice_group is not None:
+        import torch.distributed as dist
+
+        both = torch.stack([weighted, lam_max])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=slice_group)
+        weighted, lam_max = both[0], both[1]
     return weighted <= tol * torch.clamp(lam_max, min=1e-30)
 
 
@@ -110,16 +139,17 @@ def init_solve_state(v0: torch.Tensor) -> SolveState:
 
 
 def step_chunk(chunk_fn, state: SolveState, *, k: int, n_iters: int,
-               tol: float) -> SolveState:
+               tol: float, slice_group=None) -> SolveState:
     """One gate chunk: advance every unfinished request by k sweeps.
 
     chunk_fn(v) -> (v_new, lam, resid).  The chunk always computes on the
     whole batch; `active` only masks the state update, so a finished
-    request passes through untouched.
+    request passes through untouched.  slice_group: see
+    `convergence_gate`.
     """
     active = ~state.done & (state.iters < n_iters)
     v_new, lam, resid = chunk_fn(state.v)
-    fired = convergence_gate(lam, resid, tol)
+    fired = convergence_gate(lam, resid, tol, slice_group)
     return SolveState(
         v=torch.where(active[..., None, None], v_new, state.v),
         lam=torch.where(active[..., None], lam, state.lam),
@@ -171,10 +201,11 @@ class Eigensolve:
 
 
 def gated_solve(v0, chunk_fn, k: int, n_iters: int, tol: float,
-                finish) -> Eigensolve:
+                finish, slice_group=None) -> Eigensolve:
     """The gated Eigensolve over chunk_fn(v) -> (v_new, lam, resid)."""
     def step(state):
-        return step_chunk(chunk_fn, state, k=k, n_iters=n_iters, tol=tol)
+        return step_chunk(chunk_fn, state, k=k, n_iters=n_iters, tol=tol,
+                          slice_group=slice_group)
 
     return Eigensolve(v0, step, finish, n_iters, gated=True)
 
@@ -195,7 +226,7 @@ def make_chunk_probe(matvec, k: int):
 
 
 def _adaptive(matvec, v0: torch.Tensor, n_iters: int, tol: float,
-              check_every: int, finish) -> Eigensolve:
+              check_every: int, finish, slice_group=None) -> Eigensolve:
     """Fixed loop when tol <= 0, gated chunks otherwise.
 
     With tol > 0 the cap rounds up to a multiple of check_every."""
@@ -210,31 +241,57 @@ def _adaptive(matvec, v0: torch.Tensor, n_iters: int, tol: float,
         return Eigensolve(v0, step, finish, n_iters, gated=False)
     k = max(1, min(check_every, n_iters))
     return gated_solve(v0, make_chunk_probe(matvec, k), k, n_iters, tol,
-                       finish)
+                       finish, slice_group)
 
 
-def matvec_matrix_free(slices: torch.Tensor, precision: str = "fp32"):
+def matvec_matrix_free(slices: torch.Tensor, precision: str = "fp32",
+                       inner_group=None, overlap: bool = False):
     """matvec(v) = Tᵀ round(T round(v)) with precision-policy operands and
-    fp32 products and sums (the operand copy is made once, not per call)."""
+    fp32 products and sums (the operand copy is made once, not per call),
+    the partials all-reduced over `inner_group`.
+
+    overlap=True splits the slices in two halves: half A's all_reduce is
+    in flight (async) while half B computes.  The reduction is elementwise
+    and the halves join in order, so the result has the fused form's bits
+    (for two inner ranks; more may sum in another order).  It needs an
+    inner group and two local slices, and is the fused form otherwise.
+    """
     dt = compute_dtype(precision)
     s = slices.to(dt).float()
+    b = slices.shape[-3]
+    split = bool(overlap) and inner_group is not None and b >= 2
+
+    def local(sh, vh):
+        tv = (sh @ vh.to(dt).float().unsqueeze(-1)).squeeze(-1)
+        return (tv.to(dt).float().unsqueeze(-2) @ sh).squeeze(-2)
 
     def matvec(v):
-        tv = (s @ v.to(dt).float().unsqueeze(-1)).squeeze(-1)
-        return (tv.to(dt).float().unsqueeze(-2) @ s).squeeze(-2)
+        if not split:
+            return _psum_inner(local(s, v), inner_group)
+        import torch.distributed as dist
+
+        h = b // 2
+        wa = local(s[..., :h, :, :], v[..., :h, :])
+        work = dist.all_reduce(wa, op=dist.ReduceOp.SUM, group=inner_group,
+                               async_op=True)
+        wb = _psum_inner(local(s[..., h:, :, :], v[..., h:, :]), inner_group)
+        work.wait()
+        return torch.cat([wa, wb], dim=-2)
 
     return matvec
 
 
-def rayleigh_fp32(slices: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """λ = ‖T v‖² per slice, always fp32."""
+def rayleigh_fp32(slices: torch.Tensor, v: torch.Tensor,
+                  inner_group=None) -> torch.Tensor:
+    """λ = ‖T v‖² per slice, always fp32 (summed over `inner_group`)."""
     tv = (slices.float() @ v.unsqueeze(-1)).squeeze(-1)
-    return torch.sum(tv * tv, dim=-1)
+    return _psum_inner(torch.sum(tv * tv, dim=-1), inner_group)
 
 
-def build_chunk_fn(slices: torch.Tensor, cfg):
+def build_chunk_fn(slices: torch.Tensor, cfg, inner_group=None):
     """(chunk_fn, k): the gate-chunk body `step_chunk` advances, chosen by
-    cfg.use_kernels (fused CUDA chunk) or the einsum probe."""
+    cfg.use_kernels (the CUDA kernel: one fused launch per chunk, or one
+    `power_matvec` per sweep with an inner group) or the einsum probe."""
     if not cfg.matrix_free:
         raise ValueError("chunk-resumable solves require matrix_free=True "
                          "(the explicit gram has no persistent-operand "
@@ -243,35 +300,44 @@ def build_chunk_fn(slices: torch.Tensor, cfg):
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
 
-        return kops.build_chunk_fn(slices, k, precision=cfg.precision), k
-    return make_chunk_probe(matvec_matrix_free(slices, cfg.precision), k), k
+        return kops.build_chunk_fn(slices, k, precision=cfg.precision,
+                                   inner_group=inner_group), k
+    return make_chunk_probe(matvec_matrix_free(
+        slices, cfg.precision, inner_group, overlap=cfg.inner_overlap), k), k
 
 
 def plan_matrix_free(slices: torch.Tensor, n_iters: int = 60,
                      tol: float = 0.0, check_every: int = 6,
-                     precision: str = "fp32", c_valid=None) -> Eigensolve:
+                     precision: str = "fp32", c_valid=None,
+                     slice_group=None, inner_group=None,
+                     overlap: bool = False) -> Eigensolve:
     """The einsum matrix-free solve of `power_iteration_matrix_free`."""
     v0 = _init_vectors(slices.shape[:-2], slices.shape[-1], torch.float32,
                        c_valid, device=slices.device)
-    return _adaptive(matvec_matrix_free(slices, precision), v0, n_iters, tol,
-                     check_every, lambda st: rayleigh_fp32(slices, st.v))
+    return _adaptive(
+        matvec_matrix_free(slices, precision, inner_group, overlap), v0,
+        n_iters, tol, check_every,
+        lambda st: rayleigh_fp32(slices, st.v, inner_group), slice_group)
 
 
 def power_iteration_matrix_free(slices: torch.Tensor, n_iters: int = 60,
                                 tol: float = 0.0, check_every: int = 6,
-                                precision: str = "fp32", c_valid=None):
+                                precision: str = "fp32", c_valid=None,
+                                slice_group=None, inner_group=None):
     """Top eigenpair of T_iᵀT_i for a batch of slices (b, r, c) or
     (B, b, r, c).  Returns (lambdas (..., b), vectors (..., b, c), iters
     with the request shape); λ = ‖T v‖² in fp32 whatever the precision."""
     return plan_matrix_free(slices, n_iters, tol, check_every, precision,
-                            c_valid).run()
+                            c_valid, slice_group, inner_group).run()
 
 
 def plan_gram(slices: torch.Tensor, n_iters: int = 60, tol: float = 0.0,
               check_every: int = 6, precision: str = "fp32",
-              use_kernel: bool = False, c_valid=None) -> Eigensolve:
+              use_kernel: bool = False, c_valid=None, slice_group=None,
+              inner_group=None) -> Eigensolve:
     """The explicit-gram solve of `power_iteration_gram`: C is formed here,
-    once."""
+    once (a partial C over this rank's rows, all-reduced over
+    `inner_group`)."""
     s = slices.to(compute_dtype(precision))
     if use_kernel:
         from repro_torch.kernels import ops as kops
@@ -280,13 +346,14 @@ def plan_gram(slices: torch.Tensor, n_iters: int = 60, tol: float = 0.0,
     else:
         gram = s.float().transpose(-1, -2) @ s.float()
     del s  # a bf16 operand copy is not needed while iterating
-    return plan_on_gram(gram, n_iters, tol, check_every, precision, c_valid)
+    return plan_on_gram(_psum_inner(gram, inner_group), n_iters, tol,
+                        check_every, precision, c_valid, slice_group)
 
 
 def power_iteration_gram(slices: torch.Tensor, n_iters: int = 60,
                          tol: float = 0.0, check_every: int = 6,
                          precision: str = "fp32", use_kernel: bool = False,
-                         c_valid=None):
+                         c_valid=None, slice_group=None, inner_group=None):
     """Paper-faithful path: form C_i = T_iᵀT_i explicitly, then iterate.
 
     slices (b, r, c) or request-batched (B, b, r, c).  C is summed and
@@ -295,12 +362,12 @@ def power_iteration_gram(slices: torch.Tensor, n_iters: int = 60,
     (lambdas (..., b), vectors (..., b, c), iters with the request shape).
     """
     return plan_gram(slices, n_iters, tol, check_every, precision,
-                     use_kernel, c_valid).run()
+                     use_kernel, c_valid, slice_group, inner_group).run()
 
 
 def plan_on_gram(gram: torch.Tensor, n_iters: int = 60, tol: float = 0.0,
                  check_every: int = 6, precision: str = "fp32",
-                 c_valid=None) -> Eigensolve:
+                 c_valid=None, slice_group=None) -> Eigensolve:
     """The solve of `power_iteration_on_gram` on given covariances."""
     dt = compute_dtype(precision)
     g = gram.to(dt).float()  # bf16-rounded copy; in fp32 gram itself
@@ -314,35 +381,43 @@ def plan_on_gram(gram: torch.Tensor, n_iters: int = 60, tol: float = 0.0,
 
     v0 = _init_vectors(gram.shape[:-2], gram.shape[-1], torch.float32,
                        c_valid, device=gram.device)
-    return _adaptive(matvec, v0, n_iters, tol, check_every, finish)
+    return _adaptive(matvec, v0, n_iters, tol, check_every, finish,
+                     slice_group)
 
 
 def power_iteration_on_gram(gram: torch.Tensor, n_iters: int = 60,
                             tol: float = 0.0, check_every: int = 6,
-                            precision: str = "fp32", c_valid=None):
+                            precision: str = "fp32", c_valid=None,
+                            slice_group=None):
     """Power iteration given covariance matrices (..., b, c, c).
 
     The matvec is a plain product on C with precision-policy operands
     (C and v rounded to bf16 under bf16_fp32) and fp32 sums; λ = vᵀCv
     on the fp32 C whatever the precision."""
     return plan_on_gram(gram, n_iters, tol, check_every, precision,
-                        c_valid).run()
+                        c_valid, slice_group).run()
 
 
-def plan_eigensolve(slices: torch.Tensor, cfg, c_valid=None) -> Eigensolve:
-    """Dispatch on MSCConfig: matrix_free / use_kernels select the path."""
+def plan_eigensolve(slices: torch.Tensor, cfg, c_valid=None,
+                    slice_group=None, inner_group=None) -> Eigensolve:
+    """Dispatch on MSCConfig: matrix_free / use_kernels select the path.
+    On a mesh, slice_group gates in lockstep and inner_group sums the
+    partial contractions of row-sharded slices."""
     kw = dict(n_iters=cfg.power_iters, tol=cfg.power_tol,
               check_every=cfg.power_check_every, precision=cfg.precision,
-              c_valid=c_valid)
+              c_valid=c_valid, slice_group=slice_group,
+              inner_group=inner_group)
     if not cfg.matrix_free:
         return plan_gram(slices, use_kernel=cfg.use_kernels, **kw)
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
 
         return kops.plan_matrix_free(slices, **kw)
-    return plan_matrix_free(slices, **kw)
+    return plan_matrix_free(slices, overlap=cfg.inner_overlap, **kw)
 
 
-def top_eigenpairs(slices: torch.Tensor, cfg, c_valid=None):
+def top_eigenpairs(slices: torch.Tensor, cfg, c_valid=None,
+                   slice_group=None, inner_group=None):
     """Returns (lambdas (..., b), vectors (..., b, c), iters per request)."""
-    return plan_eigensolve(slices, cfg, c_valid).run()
+    return plan_eigensolve(slices, cfg, c_valid, slice_group,
+                           inner_group).run()

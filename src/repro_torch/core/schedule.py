@@ -1,11 +1,27 @@
-"""ModeSchedule on one device — counterpart of `repro/core/schedule.py`.
+"""ModeSchedule — counterpart of `repro/core/schedule.py`.
 
 The reference's schedules run the per-device Alg. 2 body (eigensolve →
-λ max → normalize → similarity epilogue) under `shard_map`.  This port
-covers the one-device case: the slice dim needs no padding, the λ max
-and the convergence gate need no collective, and both epilogues reduce
-to one `_chunk_rowsum(V, V)` over the whole V, as the reference does
-at one shard.  More than one device is ROADMAP queue 1 item 9.
+λ max → normalize → similarity epilogue) under `shard_map` over a mesh.
+Here that body runs in every rank of a `torch.distributed` DeviceMesh
+(`launch/mesh.py`), each rank on its own block; `mesh=None` is one
+device, where no dim is padded and no collective runs.
+
+Mesh roles (dims of the DeviceMesh, from `sharding/specs.py:msc_axes`):
+
+  slice — shards the slice index m (the paper's group communicator):
+      the λ max (all_reduce MAX), the lockstep convergence gate
+      (all_reduce MAX before the chunk's host read) and the epilogue
+      (all_gather, or the ring of p−1 send/receive steps) run over it.
+  inner — shards the rows r within each slice: every contraction over r
+      is a local partial and an all_reduce (SUM) over it; v, λ and d are
+      the same on every inner rank.
+  group — the grouped schedule's "mode" dim: one unfolding per group and
+      no collective across groups until the results are gathered.
+
+Padding: the slice dim pads to a multiple of the slice shards and r to a
+multiple of the inner shards; zero rows add nothing to any contraction,
+so only the slice mask (`valid`) is read.  Each rank's block is what the
+reference's `block_spec` / `batched_block_spec` give its device.
 
 Request batching: `run_mode_batched` / `finalize_mode_batched` run B
 independent requests, bucket-padded to one (B, M, R, C) shape, through
@@ -16,7 +32,8 @@ vectors to each request's true column count.
 
 Chunk-resumable entry points (`init_mode_carry`, `chunk_local`,
 `finalize_local`, `repack_local`, `export_carry`, `import_carry`) are
-the continuous engine's per-mode body (`parallel.MSCChunkPlan`).
+the continuous engine's per-mode body (`parallel.MSCChunkPlan`), on one
+device: on a mesh they are ROADMAP.md queue 1 item 9 (rest).
 """
 from __future__ import annotations
 
@@ -29,17 +46,85 @@ import torch
 from .extraction import extract_cluster
 from .power_iter import (SolveState, _init_vectors, build_chunk_fn,
                          compute_dtype, plan_eigensolve, rayleigh_fp32,
-                         step_chunk, top_eigenpairs)
+                         step_chunk)
 from .types import ModeResult, MSCConfig
 
 EPILOGUES = ("allgather", "ring")
 
-MULTI_DEVICE_TODO = ("multi-device schedules are not ported yet: "
-                     "ROADMAP.md, queue 1 item 9")
 TIERS_TODO = ("the serving tiers (autotuner, SLO scheduler, checkpoints, "
               "result cache, warm start, fault injection) are not ported "
               "yet: ROADMAP.md, queue 1 item 10")
 
+
+def pad_to(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult
+
+
+def take_block(x: torch.Tensor, spans) -> torch.Tensor:
+    """x[..., a0:a0+n0, a1:a1+n1, ...] over the trailing len(spans) dims,
+    spans = ((a0, n0), (a1, n1), ...), zero-filled where a span runs past
+    x's extent.  Contiguous; x may be a strided view (a permuted tensor),
+    so a rank copies its block and nothing more."""
+    k = len(spans)
+    src = x[(Ellipsis,) + tuple(slice(a, a + n) for a, n in spans)]
+    shape = tuple(x.shape[:x.dim() - k]) + tuple(n for _, n in spans)
+    if tuple(src.shape) == shape:
+        return src.contiguous()
+    out = x.new_zeros(shape)
+    out[(Ellipsis,) + tuple(slice(0, e) for e in src.shape[x.dim() - k:])] \
+        = src
+    return out
+
+
+# ------------------------------------------------------------- collectives
+
+def gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+    """(n, *x.shape): x from each of the group's n ranks, in group-rank
+    order (one all_gather_into_tensor)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    # all_gather_single where this torch has it (its new name), else the
+    # same call under its old one
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, x, group=group)
+    return out.reshape((n,) + tuple(x.shape))
+
+
+def _all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(..., b, c) → (..., n·b, c): the rows of every rank of the group in
+    rank order.  all_gather_into_tensor gathers along dim 0, so under a
+    leading request dim the row dim moves to the front and back."""
+    g = gather_stack(x.movedim(-2, 0), group)  # (n, b, ..., c)
+    g = g.reshape((-1,) + tuple(g.shape[2:]))  # (n·b, ..., c)
+    return g.movedim(0, -2).contiguous()
+
+
+def _ring_peers(group):
+    """(the group's size, the global ranks of the next and of the previous
+    rank around it)."""
+    import torch.distributed as dist
+
+    p, i = dist.get_world_size(group), dist.get_rank(group)
+    return (p, dist.get_global_rank(group, (i + 1) % p),
+            dist.get_global_rank(group, (i - 1) % p))
+
+
+def _exchange(send: torch.Tensor, to: int, recv: torch.Tensor, frm: int,
+              group):
+    """Post one send and one receive (global peer ranks); returns the
+    works to wait on."""
+    import torch.distributed as dist
+
+    return dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, to, group),
+        dist.P2POp(dist.irecv, recv, frm, group)])
+
+
+# ------------------------------------------------------------------ epilogue
 
 def _chunk_rowsum(v_local: torch.Tensor, chunk: torch.Tensor,
                   acc: Optional[torch.Tensor], cfg: MSCConfig
@@ -57,36 +142,183 @@ def _chunk_rowsum(v_local: torch.Tensor, chunk: torch.Tensor,
     return d if acc is None else acc + d
 
 
+def _ring_rowsum(v_local: torch.Tensor, cfg: MSCConfig, group
+                 ) -> torch.Tensor:
+    """Ring similarity epilogue: p−1 steps, each sending the chunk of V
+    this rank holds to rank i+1 of the group and receiving rank i−1's.
+
+    Rank i folds its own chunk first, then the chunks of i−1, i−2, … as
+    they arrive: the summation order of `kernels/ref.py:ring_rowsum(
+    chunks, start=i)`.  Step k+1's send and receive are posted before
+    step k's row sum, so the transfer overlaps the kernel; the full V is
+    never held (one chunk in flight and one landing).
+    """
+    p, nxt, prv = _ring_peers(group)
+    pending = None
+    if p > 1:
+        buf = torch.empty_like(v_local)
+        pending = (buf, _exchange(v_local, nxt, buf, prv, group))
+    d = _chunk_rowsum(v_local, v_local, None, cfg)
+    for k in range(1, p):
+        chunk, works = pending
+        for w in works:
+            w.wait()
+        if k < p - 1:
+            buf = torch.empty_like(chunk)
+            pending = (buf, _exchange(chunk, nxt, buf, prv, group))
+        d = _chunk_rowsum(v_local, chunk, d, cfg)
+    return d
+
+
 def epilogue_rowsum(v_local: torch.Tensor, *, cfg: MSCConfig,
-                    shards: int = 1) -> torch.Tensor:
-    """d = row sums of |V Vᵀ| from the rows of V, operands cast to the
-    precision policy's dtype.  One shard only."""
+                    group=None) -> torch.Tensor:
+    """d_local = row-block sums of |V Vᵀ| from this rank's rows of V.
+
+    v_local: (rows, c), or (B, rows, c) for B batched requests (every
+    product stays per request).  The paper's MPI_Allgatherv(M) and full
+    |V Vᵀ| row sum, under cfg.epilogue: "allgather" gathers V over the
+    slice group (O(m·c) held), "ring" streams its chunks (O(m·c/p)).
+    Operands are cast to the precision policy's dtype before the
+    collective, so bf16_fp32 also halves the bytes sent.  Without a group
+    (one device) both are one row sum over the whole V.
+    """
     if cfg.epilogue not in EPILOGUES:
         raise ValueError(
             f"unknown epilogue {cfg.epilogue!r}; expected {EPILOGUES}")
-    if shards != 1:
-        raise NotImplementedError(MULTI_DEVICE_TODO)
     vl = v_local.to(compute_dtype(cfg.precision)).contiguous()
-    # allgather: the gathered V is this device's V; ring: no neighbours
-    return _chunk_rowsum(vl, vl, None, cfg)
+    if group is None:
+        return _chunk_rowsum(vl, vl, None, cfg)
+    if cfg.epilogue == "ring":
+        return _ring_rowsum(vl, cfg, group)
+    return _chunk_rowsum(vl, _all_gather_rows(vl, group), None, cfg)
+
+
+def gather_shards(d: torch.Tensor, lam: torch.Tensor, iters: torch.Tensor,
+                  group):
+    """The slice-sharded d and λ (..., b) and the sweep counts (..., 1) of
+    every rank of the group, joined: d and λ (..., n·b) in rank order,
+    iters (..., n).  One all_gather of fp32 (the counts are exact in
+    fp32); a device collective, no host read."""
+    b = d.shape[-1]
+    packed = torch.cat([d, lam, iters.to(d.dtype)], dim=-1)
+    g = gather_stack(packed, group)  # (n, ..., 2b + 1)
+
+    def rows(x):
+        return x.movedim(0, -2).reshape(tuple(x.shape[1:-1]) + (-1,))
+
+    return (rows(g[..., :b]), rows(g[..., b:2 * b]),
+            g[..., 2 * b].movedim(0, -1).to(torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
 class ModeSchedule:
-    """The flat schedule's per-mode body on one device."""
+    """One mode-layout declaration: which mesh dims shard what (see the
+    module docstring).  ModeSchedule(cfg) is one device."""
 
     cfg: MSCConfig
+    mesh: object = None
+    slice_axes: tuple = ()
+    inner_axes: tuple = ()
+    group_axes: tuple = ()
 
-    def pad_slices(self, slices: torch.Tensor):
-        """(m, r, c) → (slices, valid (m,), m); one shard pads nothing."""
-        m = slices.shape[0]
-        valid = torch.ones(m, dtype=torch.bool, device=slices.device)
-        return slices, valid, m
+    def __post_init__(self):
+        if self.mesh is None:
+            if self.slice_axes or self.inner_axes or self.group_axes:
+                raise ValueError("mesh roles need a mesh")
+            return
+        names = tuple(self.mesh.mesh_dim_names or ())
+        roles = self.group_axes + self.slice_axes + self.inner_axes
+        missing = [a for a in roles if a not in names]
+        if missing:
+            raise ValueError(f"dims {missing} not in mesh {names}")
+        if len(set(roles)) != len(roles):
+            raise ValueError(f"overlapping dim roles: {roles}")
+        if not self.slice_axes:
+            raise ValueError("ModeSchedule needs a slice dim")
+        if len(self.slice_axes) > 1 or len(self.inner_axes) > 1:
+            from repro_torch.sharding.specs import MESH_REST_TODO
 
+            raise NotImplementedError(
+                f"slice dims {self.slice_axes}, inner dims "
+                f"{self.inner_axes}: one of each at most; "
+                f"{MESH_REST_TODO}")
+
+    # ---- static mesh facts -------------------------------------------
+    def _size(self, axes) -> int:
+        return self.mesh.size(self.mesh.mesh_dim_names.index(axes[0])) \
+            if axes else 1
+
+    def _group(self, axes):
+        return self.mesh.get_group(axes[0]) if axes else None
+
+    def _index(self, axes) -> int:
+        return self.mesh.get_local_rank(axes[0]) if axes else 0
+
+    @property
+    def slice_shards(self) -> int:
+        return self._size(self.slice_axes)
+
+    @property
+    def inner_shards(self) -> int:
+        return self._size(self.inner_axes)
+
+    @property
+    def slice_group(self):
+        """The slice dim's process group (None on one device)."""
+        return self._group(self.slice_axes)
+
+    @property
+    def inner_group(self):
+        """The inner dim's process group (None without an inner dim)."""
+        return self._group(self.inner_axes)
+
+    @property
+    def slice_index(self) -> int:
+        return self._index(self.slice_axes)
+
+    @property
+    def inner_index(self) -> int:
+        return self._index(self.inner_axes)
+
+    # ---- padding / masking -------------------------------------------
+    def pad_amounts(self, m: int, r: int):
+        """(m_pad, r_pad): slice dim to even slice shards, row dim to even
+        inner shards (zero rows drop out of every contraction)."""
+        return pad_to(m, self.slice_shards), pad_to(r, self.inner_shards)
+
+    def slice_mask(self, m_pad: int, m, device) -> torch.Tensor:
+        """The mask of this rank's m_pad/p slices: True below m, an int,
+        or below each request's m, a (B,) tensor, under a request dim."""
+        b = m_pad // self.slice_shards
+        idx = torch.arange(self.slice_index * b, (self.slice_index + 1) * b,
+                           device=device)
+        if isinstance(m, int):
+            return idx < m
+        return idx[None, :] < m.to(device)[:, None]
+
+    def local_block(self, slices: torch.Tensor, m_req=None):
+        """This rank's block of a slice-major unfolding (..., m, r, c),
+        which may be a strided view: (..., m'/p, r'/q, c), contiguous and
+        zero-padded, and its slice mask (`slice_mask`, below m_req (B,)
+        under a leading request dim)."""
+        m, r = slices.shape[-3:-1]
+        m_pad, r_pad = self.pad_amounts(m, r)
+        b, rq = m_pad // self.slice_shards, r_pad // self.inner_shards
+        block = take_block(slices, ((self.slice_index * b, b),
+                                    (self.inner_index * rq, rq),
+                                    (0, slices.shape[-1])))
+        return block, self.slice_mask(m_pad, m if m_req is None else m_req,
+                                      slices.device)
+
+    # ---- the per-rank body (paper Alg. 2, minus extraction) ----------
     def mode_local(self, block: torch.Tensor, valid_local: torch.Tensor,
                    c_valid=None):
-        """Eigensolve + similarity tail.  Returns (d, λ, iters (1,))."""
-        lam, vec, iters = top_eigenpairs(block, self.cfg, c_valid=c_valid)
+        """Eigensolve + similarity tail on this rank's block (b, r_local,
+        c) or (B, b, r_local, c).  Returns (d_local, λ_local, iters (1,) or
+        (B, 1)), the sweeps equal on every slice rank (lockstep gate)."""
+        lam, vec, iters = plan_eigensolve(
+            block, self.cfg, c_valid=c_valid, slice_group=self.slice_group,
+            inner_group=self.inner_group).run()
         d, lam = self._similarity_tail(lam, vec, valid_local)
         return d, lam, iters[..., None]
 
@@ -94,59 +326,89 @@ class ModeSchedule:
         """λ-max normalize + epilogue; padding slices zeroed in d and λ."""
         zero = torch.zeros((), dtype=torch.float32, device=lam.device)
         lam = torch.where(valid_local, lam, zero)
-        lam_max = torch.amax(lam, dim=-1)  # the one-device λ MAX reduce
+        lam_max = torch.amax(lam, dim=-1)
+        group = self.slice_group
+        if group is not None:
+            import torch.distributed as dist
+
+            # MPI_Allreduce(λ, MAX) over the group, fp32 whatever the
+            # precision
+            dist.all_reduce(lam_max, op=dist.ReduceOp.MAX, group=group)
         scale = lam / torch.clamp(lam_max, min=1e-30)[..., None]
         v_local = torch.where(valid_local[..., None], scale[..., None] * vec,
                               zero)
-        d = epilogue_rowsum(v_local, cfg=self.cfg)
+        d = epilogue_rowsum(v_local, cfg=self.cfg, group=group)
         return torch.where(valid_local, d, zero), lam
 
     def run_mode(self, slices: torch.Tensor):
-        padded, valid, m = self.pad_slices(slices)
-        d, lam, iters = self.mode_local(padded, valid)
-        return d, lam, iters, valid, m
+        """One mode of the flat schedule from its slice-major unfolding
+        (m, r, c) (a view is enough: each rank copies its block).
+        Returns (d_local, λ_local, iters, valid (m',), m)."""
+        block, valid_local = self.local_block(slices)
+        d, lam, iters = self.mode_local(block, valid_local)
+        m = slices.shape[-3]
+        m_pad, _ = self.pad_amounts(m, slices.shape[-2])
+        return d, lam, iters, torch.arange(m_pad, device=d.device) < m, m
 
-    def finalize_mode(self, d, lam, iters, valid, m: int) -> ModeResult:
-        """Cluster extraction + trimming on the device; the counts stay
-        device tensors (no read back to the host)."""
+    def gather(self, d, lam, iters):
+        """d, λ and the sweep counts of the whole slice dim on every rank
+        (`gather_shards`); unchanged on one device."""
+        if self.slice_group is None:
+            return d, lam, iters
+        return gather_shards(d, lam, iters, self.slice_group)
+
+    def extract_mode(self, d, lam, iters, valid, m: int) -> ModeResult:
+        """Cluster extraction + trimming of a whole mode on the device (the
+        counts stay device tensors: no read back to the host)."""
         mask, n_it = extract_cluster(d, self.cfg.epsilon, valid,
                                      self.cfg.max_extraction_iters)
         return ModeResult(mask=mask[:m], d=d[:m], lambdas=lam[:m],
                           n_iters=n_it, power_iters_run=torch.amax(iters))
+
+    def finalize_mode(self, d, lam, iters, valid, m: int) -> ModeResult:
+        """d and λ gathered to every rank, then the extraction on each
+        (the paper's Gatherv to a root, run everywhere instead): every
+        rank holds the same result."""
+        return self.extract_mode(*self.gather(d, lam, iters), valid, m)
 
     def plan_mode_batched(self, slices: torch.Tensor, m_req: torch.Tensor,
                           c_req: torch.Tensor):
         """One mode's eigensolve for a bucket of B requests, planned (its
         operands made) but not run.
 
-        slices (B, M, R, C): bucket-padded slice-major unfoldings, request
-        i's data in the leading (m_req[i], r, c_req[i]) corner and zeros
-        beyond.  m_req / c_req (B,) int: true slice and column counts
-        (rows need no bound: zero rows add nothing to any contraction).
-        Returns (Eigensolve, valid (B, M)).
+        slices (B, M, R, C): bucket-padded slice-major unfoldings (a view
+        is enough), request i's data in the leading (m_req[i], r, c_req[i])
+        corner and zeros beyond.  m_req / c_req (B,) int: true slice and
+        column counts (rows need no bound: zero rows add nothing to any
+        contraction).  Returns (Eigensolve, valid_local (B, M'/p)).
         """
-        m = slices.shape[1]
-        valid = (torch.arange(m, device=slices.device)[None, :]
-                 < m_req.to(slices.device)[:, None])
-        plan = plan_eigensolve(slices, self.cfg,
-                               c_valid=c_req.to(slices.device)[:, None])
+        block, valid = self.local_block(slices, m_req)
+        plan = plan_eigensolve(block, self.cfg,
+                               c_valid=c_req.to(block.device)[:, None],
+                               slice_group=self.slice_group,
+                               inner_group=self.inner_group)
         return plan, valid
 
     def run_mode_batched(self, slices: torch.Tensor, m_req: torch.Tensor,
                          c_req: torch.Tensor):
         """One mode for a bucket of B requests (see `plan_mode_batched`),
-        run eagerly.  Returns (d, lam, iters (B, 1), valid (B, M)) at the
-        padded size."""
-        plan, valid = self.plan_mode_batched(slices, m_req, c_req)
+        run eagerly.  Returns (d_local, λ_local, iters (B, 1), valid (B,
+        M')), valid at the padded size."""
+        plan, valid_local = self.plan_mode_batched(slices, m_req, c_req)
         lam, vec, iters = plan.run()
-        d, lam = self._similarity_tail(lam, vec, valid)
+        d, lam = self._similarity_tail(lam, vec, valid_local)
+        m_pad, _ = self.pad_amounts(*slices.shape[-3:-1])
+        valid = (torch.arange(m_pad, device=d.device)[None, :]
+                 < m_req.to(d.device)[:, None])
         return d, lam, iters[..., None], valid
 
     def finalize_mode_batched(self, d, lam, iters, valid) -> ModeResult:
         """Extraction of every request in one batched call (padding masked
-        by `valid`).  Fields keep the leading B dim at the padded size;
-        `n_iters` and `power_iters_run` are (B,) int device tensors, one
-        count per request, never maxed across requests."""
+        by `valid`), after the slice gather.  Fields keep the leading B dim
+        at the padded size; `n_iters` and `power_iters_run` are (B,) int
+        device tensors, one count per request, never maxed across
+        requests."""
+        d, lam, iters = self.gather(d, lam, iters)
         mask, n_it = extract_cluster(d, self.cfg.epsilon, valid,
                                      self.cfg.max_extraction_iters)
         return ModeResult(mask=mask, d=d, lambdas=lam, n_iters=n_it,
@@ -162,7 +424,14 @@ class ModeSchedule:
     #
     # The reference carries the per-request verdicts at (B, S), one
     # identical column per slice shard; one device has one shard, so
-    # they are (B,) here, and no slice dim is padded (m_pad = m).
+    # they are (B,) here, and no slice dim is padded (m_pad = m).  On a
+    # mesh they are ROADMAP.md queue 1 item 9 (rest).
+
+    def _one_device(self, what: str) -> None:
+        if self.mesh is not None:
+            from repro_torch.sharding.specs import MESH_REST_TODO
+
+            raise NotImplementedError(f"{what} on a mesh: {MESH_REST_TODO}")
 
     def init_mode_carry(self, B: int, m_pad: int, c: int, c_req, done,
                         warm_v=None, use_warm=None, resume_lam=None,
@@ -205,6 +474,7 @@ class ModeSchedule:
         how many more chunks its table ran.  Padding slices are zero and
         hold the gate open nowhere, so no validity mask is needed.
         """
+        self._one_device("chunk_local")
         cfg = self.cfg
         chunk_fn, k = build_chunk_fn(block, cfg)
         for _ in range(steps):
@@ -218,6 +488,7 @@ class ModeSchedule:
         Rayleigh quotient on the block, the λ-max normalization and the
         epilogue.  Returns (d, λ).  The continuous engine runs it when a
         slot is evicted, not per chunk."""
+        self._one_device("finalize_local")
         return self._similarity_tail(rayleigh_fp32(block, v), v, valid_local)
 
     @staticmethod

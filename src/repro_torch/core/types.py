@@ -25,7 +25,8 @@ class MSCConfig:
     precision: "fp32" or "bf16_fp32" (bf16 operands, fp32 accumulation).
     matrix_free: iterate v ← Tᵀ(T v) without forming TᵀT; False forms
       the explicit gram C_i = T_iᵀT_i first (paper Alg. 1).
-    epilogue: "allgather" or "ring"; on one device both are a single
+    epilogue: "allgather" (gather V over the slice ranks) or "ring"
+      (p−1 send/receive steps); on one device both are a single
       |V Vᵀ| row-sum.
     max_extraction_iters: cap on the trimming loop (0 → m).
     use_kernels: route the eigensolve (power iteration or gram
@@ -34,8 +35,10 @@ class MSCConfig:
     block_r / block_i / block_j: tile hints of the reference's Pallas
       kernels.  Numerics-neutral; the CUDA kernels size their tiles
       from shared memory and ignore them.
-    inner_overlap: reference knob for inner-sharded meshes; no effect on
-      one device.
+    inner_overlap: on a mesh with an inner dim, the einsum matrix-free
+      sweeps split the slices in two halves and overlap one half's
+      all_reduce with the other's products (the same bits); no effect
+      on one device.
     """
 
     epsilon: float = 1e-6

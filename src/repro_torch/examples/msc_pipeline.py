@@ -4,8 +4,8 @@ Chunked data production (the paper's "data produced on the processes
 themselves": mode-1 slabs, no tensor materialized by one producer) →
 MSC (flat schedule, one device) → quality metrics → a JSON report,
 printed and, with `--out`, written to a file.  The reference runs the
-schedule on a mesh of every local device; meshes are ROADMAP.md queue 1
-item 9.
+schedule on a mesh of every local device; the port's meshes are one
+process per device (`launch/msc_run.py --nproc N`).
 
   PYTHONPATH=src python -m repro_torch.examples.msc_pipeline          # m=96
   PYTHONPATH=src python -m repro_torch.examples.msc_pipeline --m 200

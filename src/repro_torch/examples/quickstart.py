@@ -3,8 +3,8 @@
 Generates the paper's synthetic model T = γ·w⊗u⊗v + Z (§IV), runs the
 sequential MSC (paper Alg. 1) and the flat schedule (Alg. 2) and checks
 that both find the planted tricluster.  The flat schedule runs on one
-device; the reference spreads it over a mesh of every local device,
-which is ROADMAP.md queue 1 item 9.
+device here; over a mesh it runs one process per device
+(`launch/msc_run.py --nproc N`, `launch/mesh.py`).
 
   PYTHONPATH=src python -m repro_torch.examples.quickstart
   PYTHONPATH=src python -m repro_torch.examples.quickstart --device cpu

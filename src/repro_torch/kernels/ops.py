@@ -46,14 +46,31 @@ def abs_rowsum(a: torch.Tensor, b: torch.Tensor, acc=None, *,
     return _ring.abs_rowsum(a, b, acc, block_i=block_i, block_j=block_j)
 
 
+def _summed_matvec(s: torch.Tensor, inner_group, block_r: int):
+    """matvec(v) = one `power_matvec` launch on this rank's rows of the
+    slices, all-reduced over the inner group."""
+    from repro_torch.core.power_iter import _psum_inner
+
+    def matvec(v):
+        return _psum_inner(_pi.power_matvec(s, v, block_r=block_r),
+                           inner_group)
+
+    return matvec
+
+
 def build_chunk_fn(slices: torch.Tensor, k: int, *, precision: str = "fp32",
-                   block_r: int = 256):
+                   inner_group=None, block_r: int = 256):
     """chunk_fn(v) -> (v_new, lam, resid): k fused sweeps and the gate
     probe in one kernel launch — the kernel form of
-    `core.power_iter.make_chunk_probe`."""
-    from repro_torch.core.power_iter import compute_dtype
+    `core.power_iter.make_chunk_probe`.  With an inner group (slices
+    sharded by rows) no sweep can be fused: each needs the all_reduce of
+    the partial w = Tᵀ(T v) before it normalizes, so the chunk drops to
+    one `power_matvec` launch per sweep plus the all_reduce."""
+    from repro_torch.core.power_iter import compute_dtype, make_chunk_probe
 
     s = slices.to(compute_dtype(precision)).contiguous()
+    if inner_group is not None:
+        return make_chunk_probe(_summed_matvec(s, inner_group, block_r), k)
 
     def chunk_fn(v):
         return _pi.power_iterate_chunk(s, v, k, block_r=block_r)
@@ -63,7 +80,8 @@ def build_chunk_fn(slices: torch.Tensor, k: int, *, precision: str = "fp32",
 
 def plan_matrix_free(slices: torch.Tensor, n_iters: int = 60,
                      tol: float = 0.0, check_every: int = 6,
-                     precision: str = "fp32", c_valid=None, *,
+                     precision: str = "fp32", c_valid=None,
+                     slice_group=None, inner_group=None, *,
                      block_r: int = 256):
     """The fused solve (`core.power_iter.Eigensolve`) with the same start
     vectors, gate and `iters` semantics as
@@ -71,14 +89,22 @@ def plan_matrix_free(slices: torch.Tensor, n_iters: int = 60,
 
     tol <= 0: one launch of n_iters sweeps plus the λ pass (λ re-measured
     in fp32 under bf16).  tol > 0: one launch per gate chunk of
-    check_every sweeps.
+    check_every sweeps, the gate all-reduced over `slice_group`.  With an
+    `inner_group`, one `power_matvec` launch and one all_reduce per sweep
+    (see `build_chunk_fn`), and λ = ‖T v‖² summed over the group.
     """
-    from repro_torch.core.power_iter import (Eigensolve, _init_vectors,
-                                             compute_dtype, gated_solve,
-                                             rayleigh_fp32)
+    from repro_torch.core.power_iter import (Eigensolve, _adaptive,
+                                             _init_vectors, compute_dtype,
+                                             gated_solve, rayleigh_fp32)
 
     v0 = _init_vectors(slices.shape[:-2], slices.shape[-1], torch.float32,
                        c_valid, device=slices.device)
+    if inner_group is not None:
+        s = slices.to(compute_dtype(precision)).contiguous()
+        return _adaptive(_summed_matvec(s, inner_group, block_r), v0,
+                         n_iters, tol, check_every,
+                         lambda st: rayleigh_fp32(slices, st.v, inner_group),
+                         slice_group)
     if tol <= 0.0:
         s = slices.to(compute_dtype(precision)).contiguous()
 
@@ -97,15 +123,18 @@ def plan_matrix_free(slices: torch.Tensor, n_iters: int = 60,
     k = max(1, min(check_every, n_iters))
     return gated_solve(v0, build_chunk_fn(slices, k, precision=precision,
                                           block_r=block_r),
-                       k, n_iters, tol, lambda st: rayleigh_fp32(slices, st.v))
+                       k, n_iters, tol, lambda st: rayleigh_fp32(slices, st.v),
+                       slice_group)
 
 
 def power_iterate_matrix_free(slices: torch.Tensor, n_iters: int = 60,
                               tol: float = 0.0, check_every: int = 6,
-                              precision: str = "fp32", c_valid=None, *,
+                              precision: str = "fp32", c_valid=None,
+                              slice_group=None, inner_group=None, *,
                               block_r: int = 256):
     """Fused power iteration (`plan_matrix_free`, run eagerly).
     Returns (lam (..., b), v (..., b, c), iters with the request shape).
     """
     return plan_matrix_free(slices, n_iters, tol, check_every, precision,
-                            c_valid, block_r=block_r).run()
+                            c_valid, slice_group, inner_group,
+                            block_r=block_r).run()

@@ -88,6 +88,25 @@ def abs_rowsum(a: torch.Tensor, b: torch.Tensor,
     return d if acc is None else acc.float() + d
 
 
+def similarity_rowsum(v_local: torch.Tensor,
+                      v_full: torch.Tensor) -> torch.Tensor:
+    """d_local = Σ_j |V_local V_fullᵀ|_{:,j}: v_local (bl, c) this rank's
+    rows of V, v_full (m, c) the gathered V.  Returns (bl,) fp32."""
+    return abs_rowsum(v_local, v_full)
+
+
+def ring_rowsum(v_chunks, start: int = 0) -> torch.Tensor:
+    """Ring-schedule row sums of rank `start`: its own chunk first, then
+    the chunks of start−1, start−2, … as they arrive around the ring (the
+    summation order of `core/schedule.py:_ring_rowsum`).  v_chunks: the p
+    (m/p, c) chunks of V in rank order."""
+    p = len(v_chunks)
+    d = abs_rowsum(v_chunks[start], v_chunks[start])
+    for step in range(1, p):
+        d = abs_rowsum(v_chunks[start], v_chunks[(start - step) % p], d)
+    return d
+
+
 def batched_gram(slices: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """C_i = T_iᵀ T_i: (..., r, c) → (..., c, c).
 

@@ -1,7 +1,7 @@
 """MSC command line on torch — counterpart of `repro/launch/msc_run.py`.
 
 Generates the paper's planted rank-1 tensor (§IV) on the device, runs
-MSC (the sequential entry point or the one-device flat schedule, either
+MSC (the sequential entry point, or the flat or grouped schedule; either
 eigensolver: matrix-free or the explicit gram with `--gram`) and reports
 recovery rate, similarity index (Eq. 6), cluster sizes, realized power
 sweeps and wall time, with the same output lines as the reference.
@@ -9,16 +9,28 @@ sweeps and wall time, with the same output lines as the reference.
 MSCServeEngine in one dispatch (CUDA graphs on the card) and compares
 warm time with a loop of single-request dispatches.
 
+A mesh is one process per device (`launch/mesh.py`): `--nproc N` spawns
+N ranks (gloo on the CPU, NCCL on N cards), and under `torchrun` every
+process it starts is a rank.  `--mesh-shape` factors the ranks as the
+reference does (flat: p or p,q; grouped: s, s,q or 3,s,q); rank 0
+prints.  Without either the flat schedule runs on one device.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.msc_run --m 1000 --kernels
   PYTHONPATH=src python -m repro_torch.launch.msc_run --m 1000 --kernels \\
       --gram --batch 2
   PYTHONPATH=src python -m repro_torch.launch.msc_run --m 24 --device cpu \\
-      --schedule sequential --gram
+      --nproc 4 --mesh-shape 2,2 --epilogue ring
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.msc_run \\
+      -- --m 1000 --kernels --mesh-shape 2,2
+
+(torchrun reads the flags before `--` as its own; this CLI's `--m` would
+be an ambiguous abbreviation of torchrun's.)
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -29,7 +41,10 @@ from repro_torch.core import (MSCConfig, PlantedSpec, build_msc_parallel,
                               msc_similarity_matrices, planted_masks,
                               recovery_rate, resolve_device,
                               similarity_index)
-from repro_torch.core.schedule import MULTI_DEVICE_TODO
+from repro_torch.launch.mesh import (join, launched_by_torchrun, leave,
+                                     make_msc_mesh, mesh_dims,
+                                     msc_mesh_shape, parse_shape, spawn)
+from repro_torch.sharding.specs import MESH_REST_TODO
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -42,15 +57,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--schedule", default="flat",
                     choices=("sequential", "flat", "grouped"))
     ap.add_argument("--mesh-shape", default=None,
-                    help="mesh factorization; one device only takes '1'")
+                    help="mesh factorization of the ranks, e.g. '2,2' = "
+                         "(slice=2, inner=2): the inner dim shards the "
+                         "within-slice rows; grouped takes 'slice,inner' "
+                         "per mode group")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="spawn this many ranks, one per device (gloo on "
+                         "the CPU, NCCL on the cards); torchrun's "
+                         "processes join without it")
     ap.add_argument("--relayout", default="gspmd",
-                    choices=("gspmd", "collective"),
-                    help="flat-schedule mode relayout (one local transpose "
-                         "on one device)")
+                    choices=("gspmd", "collective", "collective_stream"),
+                    help="flat-schedule mode relayout over the mesh (one "
+                         "local transpose on one device)")
     ap.add_argument("--epilogue", default="allgather",
                     choices=("allgather", "ring"),
-                    help="similarity epilogue (one |V Vᵀ| row-sum on one "
-                         "device)")
+                    help="similarity epilogue over the slice ranks: "
+                         "all_gather of V or the ring of send/receive "
+                         "steps (one |V Vᵀ| row sum on one device)")
     ap.add_argument("--power-iters", type=int, default=60,
                     help="power-iteration sweep cap")
     ap.add_argument("--power-tol", type=float, default=1e-2,
@@ -164,14 +187,55 @@ def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev) -> dict:
             "loop_left": loop_left}
 
 
+def _world(args) -> int:
+    """Ranks of this run: --nproc, torchrun's, or 1."""
+    if args.nproc:
+        return args.nproc
+    return int(os.environ["WORLD_SIZE"]) if launched_by_torchrun() else 1
+
+
 def run(args: argparse.Namespace):
     """Run the CLI's work and print its lines.  Returns one record per
     repeat, {"result": MSCResult, "rec", "sim", "t"}, or with --batch the
-    dict of `_run_batched`."""
-    if args.mesh_shape not in (None, "1"):
-        raise NotImplementedError(f"--mesh-shape {args.mesh_shape}: "
-                                  f"{MULTI_DEVICE_TODO}")
-    dev = resolve_device(args.device)
+    dict of `_run_batched`.  With --nproc the ranks run in new processes
+    and this returns None once all have ended."""
+    world = _world(args)
+    on_mesh = args.nproc > 0 or launched_by_torchrun()
+    if args.batch and on_mesh:
+        raise NotImplementedError(f"--batch on a mesh: {MESH_REST_TODO}")
+    if args.schedule != "sequential":  # the reference's checks
+        msc_mesh_shape(args.schedule, world, parse_shape(args.mesh_shape))
+    if args.nproc and not launched_by_torchrun():
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="msc_run_") as tmp:
+            spawn(_rank_run, args.nproc, os.path.join(tmp, "store"), args,
+                  device_type=torch.device(args.device).type)
+        return None
+    if on_mesh:
+        dev = join(torch.device(args.device).type)
+        try:
+            return _run(args, dev, world)
+        finally:
+            leave()
+    return _run(args, resolve_device(args.device), 1)
+
+
+def _rank_run(dev, args):
+    """One rank of `--nproc`: the run on the mesh of every rank."""
+    import torch.distributed as dist
+
+    _run(args, dev, dist.get_world_size())
+
+
+def _run(args, dev, world: int):
+    """The run on `dev`: on a mesh of `world` ranks when the process group
+    is up (rank 0 prints), else on one device."""
+    import torch.distributed as dist
+
+    on_mesh = dist.is_available() and dist.is_initialized()
+    say = print if not on_mesh or dist.get_rank() == 0 else (
+        lambda *a, **k: None)
     m = args.m
     gamma = args.gamma if args.gamma is not None else float(m)
     l = max(1, m // 10)
@@ -183,19 +247,26 @@ def run(args: argparse.Namespace):
                     matrix_free=not args.gram, epilogue=args.epilogue,
                     max_extraction_iters=m, use_kernels=args.kernels)
 
-    print(f"MSC m={m}^3 gamma={gamma} eps={eps:.2e} l={l} "
-          f"schedule={args.schedule} matrix_free={not args.gram} "
-          f"power_tol={args.power_tol} precision={args.precision} "
-          f"epilogue={args.epilogue} devices=1 device={dev}")
+    say(f"MSC m={m}^3 gamma={gamma} eps={eps:.2e} l={l} "
+        f"schedule={args.schedule} matrix_free={not args.gram} "
+        f"power_tol={args.power_tol} precision={args.precision} "
+        f"epilogue={args.epilogue} devices={world} device={dev}")
 
     if args.schedule == "sequential":
         if args.batch:
             raise SystemExit("--batch needs a parallel schedule (the "
                              "serving engine runs the flat schedule)")
         run_fn = lambda t: msc_sequential(t, cfg, device=dev)  # noqa: E731
+    elif on_mesh:
+        mesh = make_msc_mesh(args.schedule, parse_shape(args.mesh_shape),
+                             dev.type)
+        say(f"mesh: {mesh_dims(mesh)}")
+        kw = {"relayout": args.relayout} if args.schedule == "flat" else {}
+        run_fn = build_msc_parallel(cfg, schedule=args.schedule, mesh=mesh,
+                                    **kw)
     else:
-        print("mesh: {'slice': 1}")
-        if args.batch and args.schedule == "flat":
+        say("mesh: {'slice': 1}")
+        if args.batch:
             return _run_batched(cfg, spec, args, dev)
         run_fn = build_msc_parallel(cfg, schedule=args.schedule, device=dev,
                                     relayout=args.relayout)
@@ -210,19 +281,22 @@ def run(args: argparse.Namespace):
         peak = _peak_gib(dev)
         pred = [mr.mask for mr in result.modes]
         rec = float(recovery_rate(true_masks, pred))
-        c_mats = msc_similarity_matrices(tensor, cfg, device=dev)
-        sim = float(similarity_index(c_mats, pred))
-        del tensor, c_mats
+        sim = float("nan")
+        if say is print:  # the metric is rank 0's alone
+            c_mats = msc_similarity_matrices(tensor, cfg, device=dev)
+            sim = float(similarity_index(c_mats, pred))
+            del c_mats
+        del tensor
         sweeps = [int(mr.power_iters_run) for mr in result.modes]
-        print(f"  run {r}: rec={rec:.3f} sim={sim:.3f} "
-              f"sizes={[mr.size for mr in result.modes]} "
-              f"t={t:.2f}s sweeps={sweeps}{peak}")
+        say(f"  run {r}: rec={rec:.3f} sim={sim:.3f} "
+            f"sizes={[mr.size for mr in result.modes]} "
+            f"t={t:.2f}s sweeps={sweeps}{peak}")
         records.append({"result": result, "rec": rec, "sim": sim, "t": t})
 
-    print(f"mean rec={np.mean([x['rec'] for x in records]):.3f} "
-          f"sim={np.mean([x['sim'] for x in records]):.3f} "
-          f"t={np.mean([x['t'] for x in records]):.2f}s "
-          f"(first run includes the kernel build)")
+    say(f"mean rec={np.mean([x['rec'] for x in records]):.3f} "
+        f"sim={np.mean([x['sim'] for x in records]):.3f} "
+        f"t={np.mean([x['t'] for x in records]):.2f}s "
+        f"(first run includes the kernel build)")
     return records
 
 

@@ -33,7 +33,8 @@ import torch
 from repro_torch.core import (MSCConfig, PlantedSpec, make_planted_tensor,
                               planted_masks, recovery_rate, resolve_device)
 from repro_torch.core.parallel import AUTO_TODO
-from repro_torch.core.schedule import MULTI_DEVICE_TODO, TIERS_TODO
+from repro_torch.core.schedule import TIERS_TODO
+from repro_torch.sharding.specs import MESH_REST_TODO
 from repro_torch.serving import MSCContinuousEngine, MSCServeEngine
 
 # flags of later items, with the value that leaves them off
@@ -160,7 +161,7 @@ def check_args(args: argparse.Namespace) -> None:
     """Raise on a flag of a later item (ROADMAP.md queue 1)."""
     if args.mesh_shape not in (None, "1"):
         raise NotImplementedError(f"--mesh-shape {args.mesh_shape}: "
-                                  f"{MULTI_DEVICE_TODO}")
+                                  f"{MESH_REST_TODO}")
     if args.epilogue == "auto":
         raise NotImplementedError(f"--epilogue auto: {AUTO_TODO}")
     if args.chunks_per_step == "auto":

@@ -29,7 +29,7 @@ from repro_torch.models import build_model
 from repro_torch.serving.engine import ServeEngine
 
 MESH_TODO = ("serving over a device mesh is not ported yet: ROADMAP.md, "
-             "queue 1 item 9 (the port serves on one device)")
+             "queue 1 item 9 (rest) (the port serves on one device)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -18,8 +18,8 @@ token and kept for later `generate` calls.  On the CPU the same step
 runs eagerly.  The prefill runs eagerly.
 
 The reference's mesh, parameter and cache shardings (`cache_specs`,
-`build_serve_steps`) are not ported: the port serves on one device
-(ROADMAP.md, queue 1 item 9).
+`build_serve_steps`, `serve_batch_axes`) are not ported: the port serves
+on one device (ROADMAP.md, queue 1 item 9 (rest)).
 """
 from __future__ import annotations
 

@@ -62,6 +62,7 @@ from repro_torch.core.schedule import TIERS_TODO, ModeSchedule
 from repro_torch.core.types import (ModeResult, MSCConfig, MSCResult,
                                     resolve_device)
 from repro_torch.serving.graphs import Step, warm_up
+from repro_torch.sharding.specs import MESH_REST_TODO
 
 # filler requests need >= 1 valid slice and column per mode: an all-zero
 # (1, 1, 1) request has zero residual (its gate fires at the first probe)
@@ -300,7 +301,10 @@ class MSCServeEngine:
 
     def __init__(self, cfg: MSCConfig, *, max_batch: int = 8,
                  bucket_quantum: int = 8, dtype=torch.float32,
-                 device="cuda", relayout: str = "gspmd"):
+                 device="cuda", relayout: str = "gspmd", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(f"MSCServeEngine on a mesh: "
+                                      f"{MESH_REST_TODO}")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         check_relayout(relayout, cfg.epilogue)
@@ -623,7 +627,10 @@ class MSCContinuousEngine:
                  preempt: bool = False, slo_chunks: Optional[int] = None,
                  bucket_policy: str = "weighted", checkpoint_dir=None,
                  result_cache=None, warm_start: bool = False,
-                 autotune: bool = False, fault_injector=None):
+                 autotune: bool = False, fault_injector=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(f"MSCContinuousEngine on a mesh: "
+                                      f"{MESH_REST_TODO}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if placement not in ("compact", "stable"):

@@ -132,7 +132,7 @@ def test_routing_tensor_is_the_references(n_bins):
     _close(got.numpy(), want)
 
 
-def test_cluster_activations_masks_are_the_references():
+def test_cluster_activations_masks_are_the_references(tmp_path):
     acts = _activations()
     got = cluster_activations(acts, MSCConfig(epsilon=1e-4), device="cpu")
     want = jcluster_activations([jnp.asarray(a) for a in acts],
@@ -140,8 +140,17 @@ def test_cluster_activations_masks_are_the_references():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.mask.numpy(), np.asarray(w.mask))
     assert got[0].mask[:3].all() and not got[0].mask[3:].any()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cluster_activations(acts, mesh=object(), device="cpu")
+    # over a mesh of one gloo rank: the flat schedule's masks, the same
+    from repro_torch.launch import mesh as tmesh
+
+    tmesh.join("cpu", rank=0, world_size=1, store_file=tmp_path / "store")
+    try:
+        on_mesh = cluster_activations(acts, MSCConfig(epsilon=1e-4),
+                                      mesh=tmesh.make_msc_mesh("flat"))
+    finally:
+        tmesh.leave()
+    for g, w in zip(on_mesh, got):
+        assert torch.equal(g.mask, w.mask)
 
 
 def test_cluster_experts_masks_are_the_references():

@@ -1,11 +1,16 @@
 """The port's CLI on the CPU, and the port's import boundary."""
 import ast
 import os
+import re
+import subprocess
+import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import msc_run  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,11 +38,79 @@ def test_cli_returns_results_per_repeat():
     assert all(len(r["result"].modes) == 3 for r in recs)
 
 
-@pytest.mark.parametrize("flag", [["--mesh-shape", "4,2"],
-                                  ["--schedule", "grouped"]])
-def test_cli_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flag,exc,match", [
+    # 8 ranks asked, 1 there: the reference's message
+    (["--mesh-shape", "4,2"], ValueError, "8 devices but 1 are available"),
+    # the serving engines on a mesh are item 9's rest
+    (["--batch", "2", "--mesh-shape", "2", "--nproc", "2"],
+     NotImplementedError, r"item 9 \(rest\)"),
+], ids=["mesh_shape_on_one_rank", "batch_on_a_mesh"])
+def test_cli_unported_options_raise(flag, exc, match):
+    with pytest.raises(exc, match=match):
         msc_run.main(["--m", "24", "--device", "cpu", *flag])
+
+
+_REF_CLI = r"""
+import jax, numpy as np
+from repro.core import PlantedSpec, make_planted_tensor
+from repro.launch import msc_run
+np.save({path!r}, np.asarray(make_planted_tensor(
+    jax.random.PRNGKey(0), PlantedSpec.paper(24, 24.0))))
+msc_run.main({argv!r})
+"""
+
+
+def _run_line(out: str):
+    """(rec, sizes, sweeps) of the CLI's `run 0:` line."""
+    line = next(x for x in out.splitlines() if "run 0:" in x)
+    m = re.search(r"rec=(\S+) .*sizes=(\[[^]]*\]).*sweeps=(\[[^]]*\])",
+                  line)
+    return m.groups()
+
+
+def _cli_rank(device, argv, path, out_path):
+    """One rank of the CLI's run on the mesh of every rank, its input the
+    reference's planted tensor (in place of the port's of the same seed);
+    what the rank prints goes to out_path.{rank}."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    msc_run.make_planted_tensor = lambda gen, spec: torch.from_numpy(
+        np.load(path)).to(gen.device)
+    with open(f"{out_path}.{dist.get_rank()}", "w") as f, \
+            contextlib.redirect_stdout(f):
+        msc_run._run(msc_run.parse_args(argv), device,
+                     dist.get_world_size())
+
+
+@pytest.mark.parametrize("argv,n,port_only", [
+    (["--mesh-shape", "2,2", "--epilogue", "ring"], 4, []),
+    (["--schedule", "grouped"], 3, ["--kernels"]),
+], ids=["flat_2x2_ring", "grouped_3_kernels"])
+def test_cli_on_a_mesh_prints_the_references_lines(argv, n, port_only,
+                                                   subproc, tmp_path):
+    """`--nproc n` gloo ranks print the rec= and sizes= of the reference
+    CLI on n forced devices, each on its own planted tensor of seed 0;
+    the same ranks' run on the reference's tensor prints its sweeps= too.
+    The reference runs its einsum path (its kernels fail inside
+    shard_map on this jax; ROADMAP.md queue 3)."""
+    path = str(tmp_path / "t.npy")
+    ref = subproc(_REF_CLI.format(path=path, argv=["--m", "24", *argv]), n)
+    assert _run_line(ref)[0] == "1.000"
+    argv = ["--m", "24", "--device", "cpu", *argv, *port_only]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    port = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.msc_run", "--nproc",
+         str(n), *argv],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert port.returncode == 0, port.stderr
+    assert f"devices={n}" in port.stdout and "mesh: {" in port.stdout
+    assert _run_line(port.stdout)[:2] == _run_line(ref)[:2]
+    out = tmp_path / "out"
+    tmesh.spawn(_cli_rank, n, tmp_path / "store", argv, path, str(out),
+                device_type="cpu", join_timeout=150)
+    assert _run_line((tmp_path / "out.0").read_text()) == _run_line(ref)
 
 
 @pytest.mark.parametrize("argv", [

@@ -152,10 +152,12 @@ def test_mode_slices_are_contiguous_unfoldings():
 
 def test_unported_schedules_raise():
     cfg = _port_cfg(_jcfg(24))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the grouped schedule needs a mesh of 3·s·q ranks
+    # (tests/test_torch_parallel.py runs it over gloo ranks)
+    with pytest.raises(ValueError, match="mesh"):
         build_msc_parallel(cfg, schedule="grouped", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        epilogue_rowsum(torch.zeros(4, 3), cfg=cfg, shards=2)
+        build_msc_parallel(cfg, device="cpu", relayout="auto")
     with pytest.raises(ValueError, match="epilogue"):
         epilogue_rowsum(torch.zeros(4, 3), cfg=cfg.with_(epilogue="tree"))
     with pytest.raises(ValueError, match="relayout"):

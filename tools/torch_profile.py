@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python tools/torch_profile.py [--m 1000] [--precision fp32]
         [--schedule flat|sequential] [--gram]
+        [--mesh-shape 1|1,1 [--relayout gspmd] [--epilogue allgather]]
     PYTHONPATH=src python tools/torch_profile.py --lm [--attn-impl chunked]
     PYTHONPATH=src python tools/torch_profile.py --continuous \
         [--chunks-per-step 1]
@@ -16,7 +17,10 @@ device's busy share (device kernel time over that wall time; device
 events only, so an operator and the kernels it launches are not counted
 twice), the device time by stage (gram formation, power sweeps and λ,
 similarity epilogue, unfolding copies and the rest, and the idle time),
-and the operators with the most device time by input shape.  A third,
+and the operators with the most device time by input shape.  With
+`--mesh-shape` the flat schedule runs over a DeviceMesh of one NCCL rank
+(a FileStore in a temporary directory; `--relayout`, `--epilogue`), the
+path of `chip_smoke.py` phase 8, and its collectives form a stage.  A third,
 unprofiled solve counts the host reads (`torch.cuda.set_sync_debug_mode
 ("warn")`): one per gate chunk, none in the extraction.  Needs a CUDA
 card; prints the card's name and power limit first.
@@ -64,7 +68,8 @@ def _dev_us(e, self_only=False):
 # every kernel of csrc/gram.cu starts with gram_, every kernel of
 # csrc/power_iter.cu (power_kernel, the general route, and
 # power_stream_kernel, the streaming one) with power_
-STAGES = (("gram_", "formation (batched_gram)"),
+STAGES = (("nccl", "collectives (NCCL)"),
+          ("gram_", "formation (batched_gram)"),
           ("power_", "sweeps (power_iter)"),
           ("gemv", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
           ("gemm", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
@@ -95,7 +100,6 @@ def _stage(name: str, stages=STAGES) -> str:
 
 def main(argv=None) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--m", type=int, default=1000)
@@ -113,6 +117,13 @@ def main(argv=None) -> int:
                          "static engine instead of one solve")
     ap.add_argument("--chunks-per-step", type=int, default=1,
                     help="gate chunks per continuous step")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="the flat schedule over a mesh of one NCCL rank "
+                         "of this shape ('1' or '1,1')")
+    ap.add_argument("--relayout", default="gspmd",
+                    choices=("gspmd", "collective", "collective_stream"))
+    ap.add_argument("--epilogue", default="allgather",
+                    choices=("allgather", "ring"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
@@ -127,22 +138,61 @@ def main(argv=None) -> int:
     if args.continuous:
         return profile_continuous(torch, args.chunks_per_step)
 
-    from repro_torch.kernels import gram as kgram
-    from repro_torch.kernels import power_iter as kpi
-    from repro_torch.kernels import ring as kring
     from repro_torch.core import (MSCConfig, PlantedSpec, build_msc_parallel,
                                   make_planted_tensor, msc_sequential)
 
     m, l = args.m, max(1, args.m // 10)
     cfg = MSCConfig(epsilon=0.5 / (m - l) ** 2, precision=args.precision,
                     max_extraction_iters=m, use_kernels=True,
-                    matrix_free=not args.gram)
+                    matrix_free=not args.gram, epilogue=args.epilogue)
     tensor = make_planted_tensor(
         torch.Generator(device="cuda").manual_seed(0),
         PlantedSpec.paper(m, float(m)))
+    if args.mesh_shape:
+        return profile_mesh(torch, args, cfg, tensor)
     solve = (build_msc_parallel(cfg, device="cuda")
              if args.schedule == "flat"
              else lambda t: msc_sequential(t, cfg, device="cuda"))
+    return profile_solve(torch, solve, tensor,
+                         f"m={m}, {args.schedule}, {args.precision}, "
+                         f"{'gram' if args.gram else 'matrix-free'}")
+
+
+def profile_mesh(torch, args, cfg, tensor) -> int:
+    """The flat schedule over a mesh of one NCCL rank, profiled like one
+    solve; the process group is torn down whatever happens."""
+    import tempfile
+
+    from repro_torch.core import build_msc_parallel
+    from repro_torch.launch.mesh import (join, leave, make_msc_mesh,
+                                         parse_shape)
+
+    with tempfile.TemporaryDirectory(prefix="torch_profile_") as tmp:
+        try:
+            join("cuda", rank=0, world_size=1,
+                 store_file=os.path.join(tmp, "store"))
+            mesh = make_msc_mesh("flat", parse_shape(args.mesh_shape))
+            solve = build_msc_parallel(cfg, mesh=mesh,
+                                       relayout=args.relayout)
+            return profile_solve(
+                torch, solve, tensor,
+                f"m={args.m}, flat over mesh {args.mesh_shape} (one NCCL "
+                f"rank), {args.relayout}, {args.epilogue}, "
+                f"{args.precision}, "
+                f"{'gram' if args.gram else 'matrix-free'}")
+        finally:
+            leave()
+
+
+def profile_solve(torch, solve, tensor, label: str) -> int:
+    """A warm-up solve, one under the profiler with the report, and the
+    host reads of a third."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import power_iter as kpi
+    from repro_torch.kernels import ring as kring
+
     solve(tensor)  # warm-up: kernel build, allocator, cuBLAS handles
     kpi.launches = kring.launches = kgram.launches = 0
     torch.cuda.synchronize()
@@ -152,8 +202,7 @@ def main(argv=None) -> int:
         result = solve(tensor)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"profiled solve (m={m}, {args.schedule}, {args.precision}, "
-          f"{'gram' if args.gram else 'matrix-free'}): sweeps "
+    print(f"profiled solve ({label}): sweeps "
           f"{[int(mr.power_iters_run) for mr in result.modes]}, launches "
           f"power_iter={kpi.launches} abs_rowsum={kring.launches} "
           f"batched_gram={kgram.launches}")
