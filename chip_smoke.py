@@ -115,6 +115,31 @@ line):
    after), no host read in an extraction, and 0 B left once the process
    group and the tensors are freed.  Prints each warm solve time beside
    phase 4's, the peak memory and the NCCL version.
+9. MSC serving on a mesh of one NCCL rank: phase 5b's static cells
+   (m = 200 and 400, B = 4, fp32, kernels) through MSCServeEngine on
+   (1,) and (1, 1) under each relayout (gspmd, collective,
+   collective_stream), and phase 5c's skewed mix (m = 200, 32 requests, 8
+   slots) through MSCContinuousEngine on (1,); then `msc_serve
+   --mesh-shape 1 --continuous` at the reference's defaults and
+   `msc_run --batch 2 --mesh-shape 1 --kernels` at m = 1000 (the CLIs'
+   rank bodies in this process's group).  Required: the one-device
+   engines' bits on (1,) (phase 5's `--batch 2` too), masks and sweeps
+   on (1, 1) (d within 3e-5); 9 graphs per bucket (static) and 2
+   (continuous) captured cold with the collectives inside, none warm;
+   no host sync in a replay; every kernel of a run launched (counts set
+   to 0 just before the warm run and read just after); 0 B left once
+   closed.  Prints each warm time beside the one-device engine's, run
+   in turns.
+10. LM serving on a (data, model) = (1, 1) mesh of one NCCL rank:
+   `serve --model-axis 1` on whisper-tiny at phase 7's size (batch 16,
+   prompt 32, 16 tokens, kernel route), twice: 72 `flash_attention`
+   launches and no other kernel; prefill, decode per token and peak
+   memory beside phase 7's.  Then per compute dtype (bf16, fp32) the
+   mesh engine against the one-device engine on the same weights: fp32
+   tokens identical (and to phase 7's), teacher-forced logits within
+   2e-2 / 1e-4 of max |logit|, the decode step one CUDA graph with no
+   host sync in its replays; warm prefill and decode beside the
+   one-device engine's; 0 B left once the group is gone.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -143,6 +168,9 @@ M, GAMMA, SEED = 1000, 1000.0, 0
 # γ = 10 m the spread shrinks below it (PERF.md, Findings)
 GAMMA_RECOVERY = 10000.0
 DEVICE = "cuda"
+# what a phase keeps for a later one (phase 5b/5c's requests and results,
+# phase 7's times and fp32 tokens for the mesh phases 9 and 10)
+STASH = {}
 
 
 def log(*a):
@@ -605,10 +633,11 @@ class NoHostReadsInExtraction:
             mod.extract_cluster = self.orig
 
 
-def drive(torch, label, argv):
+def drive(torch, label, argv, mesh_device=None):
     """One `msc_run` run with every launch count set to 0 just before it
-    and read just after, and no host read allowed in its extractions.
-    Returns (what run() returned, counts)."""
+    and read just after, and no host read allowed in its extractions (on
+    the mesh of this process's group with `mesh_device`, the CLI's rank
+    body).  Returns (what run() returned, counts)."""
     from repro_torch.launch import msc_run
 
     log(f"main path: {label}")
@@ -619,7 +648,10 @@ def drive(torch, label, argv):
         mod.launches = 0
     t0 = time.perf_counter()
     with NoHostReadsInExtraction(torch) as guard:
-        out = msc_run.run(msc_run.parse_args(argv))
+        if mesh_device is None:
+            out = msc_run.run(msc_run.parse_args(argv))
+        else:
+            out = msc_run._run(msc_run.parse_args(argv), mesh_device, 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: mod.launches for n, mod in mods.items()}
@@ -779,6 +811,7 @@ def phase_batched(torch, checks, singles):
         for n in (solve, "abs_rowsum"):
             if counts[n] == 0:
                 checks.failures.append(f"{label}: {n} never launched")
+        singles[label] = out  # phase 9 holds the mesh's --batch to it
         for i, res in enumerate(out["results"]):
             one = singles[f"flat+kernels {solver}fp32" + (" seed 1" if i
                                                           else "")]
@@ -910,6 +943,8 @@ def phase_static(torch, checks):
         f"{pools} B; launches of one warm run {counts}")
     loop.close()
     engine.close()
+    STASH["static"] = {"tensors": tensors, "results": got, "cfg": cfg,
+                       "label": label}
     return {label: counts}
 
 
@@ -1107,6 +1142,8 @@ def phase_continuous(torch, checks, smi):
         checks.failures.append(f"{label}: holds {held} B > {static_b} + "
                                f"{pools} B, or {left} B left once closed")
     static.close()
+    STASH["continuous"] = {"tensors": tensors, "results": res_c, "cfg": cfg,
+                           "label": label, "warm_ms": c_s * 1e3}
     return {label: counts}
 
 
@@ -1423,6 +1460,8 @@ def phase_lm(torch, checks, smi):
                         ("lm serve whisper-tiny chunked (plain)", "chunked")):
         out, counts = drive_lm(torch, label, base + ["--attn-impl", impl])
         launches[label] = counts
+        STASH.setdefault("lm", {})[label] = out["timings"] | {
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
         n = counts["flash_attention"]
         expect = want if impl == "pallas" else 0
         if n != expect:
@@ -1486,6 +1525,7 @@ def phase_lm(torch, checks, smi):
         if cdt == "float32":
             k_toks = ServeEngine(kern, params, LM_B,
                                  LM_PROMPT + LM_GEN).generate(batch, LM_GEN)
+            STASH["lm_fp32_tokens"] = k_toks
             same = torch.equal(k_toks, toks)
             log(f"  {'ok  ' if same else 'FAIL'} fp32 greedy tokens, kernel "
                 f"route == plain route: {same}")
@@ -1623,6 +1663,332 @@ def _mesh_run(torch, checks, label, mesh, relayout, cfg, tensor, one,
     return counts
 
 
+# phase 9: the MSC serving engines over a mesh of one NCCL rank; each
+# engine's CUDA graphs per bucket hold the bucket's collectives
+# (mesh shape, relayout) of the static engine's runs: every relayout on
+# both shapes (the collective ones make all three blocks in mode 1's
+# head, inside its graph)
+MESH_SERVE_RUNS = tuple((shape, relayout) for relayout in
+                        ("gspmd", "collective", "collective_stream")
+                        for shape in ((1,), (1, 1)))
+
+
+def _mesh_engine_run(torch, checks, label, make, tensors, one, exact,
+                     per_bucket, buckets, one_engine):
+    """One engine on a mesh: cold (its captures), then warm with the
+    launch counts set to 0 just before and read just after, and no host
+    sync in a replay; held to the one-device engine's results `one`
+    (bits when `exact`, else masks and sweeps and d within 3e-5); warm
+    walls of both engines in turns; 0 B left once closed.  Returns the
+    counts."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = make()
+    eng.run(tensors)
+    cold = eng.stats.compiles
+    mods = counters()
+    for mod in mods.values():
+        mod.launches = 0
+    with NoSyncInReplays(torch) as guard:
+        got = eng.run(tensors)
+    counts = {n: mod.launches for n, mod in mods.items()}
+    warm = eng.stats.compiles - cold
+    ok = cold == per_bucket * buckets == eng.graphs and warm == 0
+    log(f"  {'ok  ' if ok else 'FAIL'} {label}: CUDA graphs captured {cold} "
+        f"cold (want {per_bucket} x {buckets} buckets, collectives inside), "
+        f"{warm} warm; {guard.calls} replays with no host sync; launches "
+        f"{counts}")
+    if not ok:
+        checks.failures.append(f"{label}: {cold} graphs cold, {warm} warm")
+    for n in ("power_iter", "abs_rowsum"):
+        if counts[n] == 0:
+            checks.failures.append(f"{label}: {n} never launched")
+    for n in ("batched_gram", "flash_attention"):
+        if counts[n]:
+            checks.failures.append(f"{label}: {n} ran off its path")
+    if exact:
+        same = all(torch.equal(g[j].mask, w[j].mask)
+                   and torch.equal(g[j].d, w[j].d)
+                   and torch.equal(g[j].lambdas, w[j].lambdas)
+                   and g[j].power_iters_run == w[j].power_iters_run
+                   for g, w in zip(got, one) for j in range(3))
+        what = "masks, d, λ and sweeps bit-identical to"
+    else:
+        same = _same_requests(got, one, d_tol=3e-5)
+        what = "masks and sweeps identical (d within 3e-5) to"
+    log(f"  {'ok  ' if same else 'FAIL'} every request's {what} the "
+        "one-device engine's")
+    if not same:
+        checks.failures.append(f"{label}: differs from the one-device "
+                               "engine")
+    t = {"mesh": [], "one device": []}
+    for name in ("mesh", "one device", "one device", "mesh"):
+        e = eng if name == "mesh" else one_engine
+        t[name].append(_timed_s(torch, lambda: e.run(tensors))[1])
+    log(f"  warm {len(tensors)} requests: mesh "
+        f"{' / '.join(f'{x * 1e3:.2f}' for x in t['mesh'])} ms, one device "
+        f"{' / '.join(f'{x * 1e3:.2f}' for x in t['one device'])} ms "
+        f"(mesh / one device {min(t['mesh']) / min(t['one device']):.3f}x)")
+    static, pools = eng.memory_reckoning()
+    eng.close()
+    del eng
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base
+    log(f"  {'ok  ' if left == 0 else 'FAIL'} static buffers {static} B, "
+        f"graph pools {pools} B; left once closed {left} B")
+    if left:
+        checks.failures.append(f"{label}: {left} B left once closed")
+    return counts
+
+
+def phase_mesh_serving(torch, checks, singles, smi):
+    """Phase 5b's static cells and phase 5c's skewed mix through the
+    engines on meshes of one NCCL rank, then msc_serve --mesh-shape 1 and
+    msc_run --batch 2 --mesh-shape 1 (the CLIs' mesh paths in this
+    process's group).  Returns {label: launch counts}."""
+    import gc
+    import tempfile
+
+    from repro_torch.launch import msc_run, msc_serve
+    from repro_torch.launch.mesh import join, leave, make_msc_mesh
+    from repro_torch.serving import MSCContinuousEngine, MSCServeEngine
+
+    log(f"MSC serving on a mesh: one NCCL rank; card: {smi}")
+    launches = {}
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    st, ct = STASH["static"], STASH["continuous"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        try:
+            dev = join("cuda", rank=0, world_size=1,
+                       store_file=os.path.join(tmp, "store"))
+            one = MSCServeEngine(st["cfg"], max_batch=SERVE_B, device=dev)
+            one.run(st["tensors"])
+            for shape, relayout in MESH_SERVE_RUNS:
+                mesh = make_msc_mesh("flat", shape)
+                label = f"{st['label']} mesh {shape}" + (
+                    f" {relayout}" if relayout != "gspmd" else "")
+                launches[label] = _mesh_engine_run(
+                    torch, checks, label,
+                    lambda: MSCServeEngine(st["cfg"], max_batch=SERVE_B,
+                                           mesh=mesh, relayout=relayout),
+                    st["tensors"], st["results"], shape == (1,),
+                    GRAPHS_PER_BUCKET, len(SERVE_SIZES), one)
+            one.close()
+            one = MSCContinuousEngine(ct["cfg"], slots=CONT_B, device=dev)
+            one.run(ct["tensors"])
+            mesh = make_msc_mesh("flat", (1,))
+            label = f"{ct['label']} mesh (1,)"
+            launches[label] = _mesh_engine_run(
+                torch, checks, label,
+                lambda: MSCContinuousEngine(ct["cfg"], slots=CONT_B,
+                                            mesh=mesh),
+                ct["tensors"], ct["results"], True, GRAPHS_PER_CONT_BUCKET,
+                1, one)
+            one.close()
+            del one, mesh
+
+            log("MSC serving on a mesh: msc_serve --mesh-shape 1 "
+                "--continuous at the reference's defaults")
+            with NoSyncInReplays(torch) as guard:
+                res = msc_serve._serve(msc_serve.parse_args(
+                    ["--device", DEVICE, "--mesh-shape", "1",
+                     "--continuous"]), dev)
+            nb, cont = len(res["buckets"]), res["continuous"]
+            ok = (res["stats_cold"].compiles == GRAPHS_PER_BUCKET * nb
+                  and res["stats_warm"].compiles == 0
+                  and cont["stats_warmup"].compiles
+                  == GRAPHS_PER_CONT_BUCKET * nb
+                  and cont["stats_stream"].compiles == 0
+                  and len(cont["results"]) == 9)
+            log(f"  {'ok  ' if ok else 'FAIL'} static: "
+                f"{res['stats_cold'].compiles} graphs cold, "
+                f"{res['stats_warm'].compiles} warm; continuous: "
+                f"{cont['stats_warmup'].compiles} warming up, "
+                f"{cont['stats_stream'].compiles} in the stream; "
+                f"{guard.calls} replays with no host sync")
+            if not ok:
+                checks.failures.append("msc_serve --mesh-shape 1: graph "
+                                       "counts or results off")
+            msc_serve._close(res)
+            del res, cont
+
+            label = "batch 2 flat+kernels fp32 mesh (1,)"
+            one = singles["batch 2 flat+kernels fp32"]
+            out, counts = drive(torch, label, [
+                "--m", str(M), "--gamma", str(GAMMA), "--seed", str(SEED),
+                "--device", DEVICE, "--kernels", "--batch", "2",
+                "--mesh-shape", "1"], mesh_device=dev)
+            launches[label] = counts
+            cold, warm = out["stats_cold"], out["stats_warm"]
+            same = all(torch.equal(g[j].mask, w[j].mask)
+                       and torch.equal(g[j].d, w[j].d)
+                       and g[j].power_iters_run == w[j].power_iters_run
+                       for g, w in zip(out["results"], one["results"])
+                       for j in range(3))
+            ok = (same and cold.compiles == GRAPHS_PER_BUCKET
+                  and warm.compiles == 0 and out["left"] == 0
+                  and out["loop_left"] == 0
+                  and counts["power_iter"] and counts["abs_rowsum"])
+            log(f"  {'ok  ' if ok else 'FAIL'} masks, d and sweeps "
+                f"bit-identical to phase 5's one-device --batch 2: {same}; "
+                f"graphs {cold.compiles} cold / {warm.compiles} warm; warm "
+                f"{out['warm'] * 1e3:.1f} ms (one device, phase 5: "
+                f"{one['warm'] * 1e3:.1f} ms); left once closed "
+                f"{out['left']} / {out['loop_left']} B")
+            if not ok:
+                checks.failures.append(f"{label}: bits, graph counts, "
+                                       "kernels or memory off")
+        finally:
+            leave()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    log(f"  device memory left once the process group is gone: {left} B")
+    if left:
+        checks.failures.append(f"mesh serving: {left} B left allocated")
+    return launches
+
+
+# phase 10: LM serving on a (data, model) = (1, 1) mesh of one NCCL rank
+LM_MESH_RUN = "lm serve whisper-tiny pallas mesh (1, 1)"
+
+
+def phase_mesh_lm(torch, checks, smi):
+    """whisper-tiny at phase 7's size through `serve` on a (1, 1) mesh:
+    72 flash_attention launches, its times beside phase 7's; then, per
+    compute dtype, the mesh engine against the one-device engine on the
+    same weights: fp32 tokens identical (and to phase 7's), teacher-forced
+    logits within phase 7's tolerances, the decode step one CUDA graph
+    with no host sync in its replays, 0 B left."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import join, leave, make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    log(f"LM serving on a (data, model) = (1, 1) mesh: one NCCL rank; card: "
+        f"{smi}")
+    cfg = get_config("whisper-tiny")
+    want = cfg.n_enc_layers + cfg.n_layers + cfg.n_layers * LM_GEN
+    launches = {}
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    argv = ["--arch", "whisper-tiny", "--batch", str(LM_B), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--device", DEVICE,
+            "--attn-impl", "pallas", "--model-axis", "1"]
+    tol = {"bfloat16": 2e-2, "float32": 1e-4}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        try:
+            dev = join("cuda", rank=0, world_size=1,
+                       store_file=os.path.join(tmp, "store"))
+            for label, ref in ((LM_MESH_RUN, LM_RUN),
+                               (LM_MESH_RUN + " (warm)", LM_RUN + " (warm)")):
+                log(f"LM serving: {label}")
+                mods = counters()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for mod in mods.values():
+                    mod.launches = 0
+                out = serve._serve(serve.parse_args(argv), dev)
+                counts = {n: mod.launches for n, mod in mods.items()}
+                launches[label] = counts
+                tm, p7 = out["timings"], STASH["lm"][ref]
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                ok = (counts["flash_attention"] == want
+                      and not any(counts[n] for n in KERNELS
+                                  if n != "flash_attention")
+                      and tuple(out["tokens"].shape) == (LM_B, LM_GEN)
+                      and out["mesh"] == {"data": 1, "model": 1})
+                log(f"  {'ok  ' if ok else 'FAIL'} mesh {out['mesh']}, "
+                    f"launches {counts} (want {want} flash_attention); "
+                    f"prefill {tm['prefill_ms']:.3f} ms (phase 7: "
+                    f"{p7['prefill_ms']:.3f}), decode "
+                    f"{tm['decode_ms'] / LM_GEN:.3f} ms per token (phase 7: "
+                    f"{p7['decode_ms'] / LM_GEN:.3f}), max_memory_allocated "
+                    f"{peak:.1f} MiB (phase 7: {p7['peak_mib']:.1f})")
+                if not ok:
+                    checks.failures.append(f"{label}: launches, tokens or "
+                                           "mesh off")
+                del out
+            params = build_model(cfg).init(
+                torch.Generator(device=dev).manual_seed(0))
+            mesh = make_local_mesh(1)
+            max_len = LM_PROMPT + 2 * LM_GEN
+            for cdt in ("bfloat16", "float32"):
+                model = build_model(dataclasses.replace(
+                    cfg, compute_dtype=cdt, attn_impl="pallas"))
+                batch = make_batch(model.cfg, LM_B, LM_PROMPT, kind="serve",
+                                   device=dev)
+                one = ServeEngine(model, params, LM_B, max_len)
+                one.generate(batch, LM_GEN)  # cold: one eager step, capture
+                toks = one.generate(batch, LM_GEN)
+                eng = ServeEngine(model, params, LM_B, max_len, mesh=mesh)
+                eng.generate(batch, LM_GEN)  # cold: one eager step, capture
+                got = eng.generate(batch, LM_GEN)
+                synced = False
+                try:
+                    torch.cuda.set_sync_debug_mode("error")
+                    for _ in range(LM_GEN):
+                        eng._decode()
+                    torch.cuda.set_sync_debug_mode("default")
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    torch.cuda.set_sync_debug_mode("default")
+                    synced = str(e).splitlines()[0]
+                # teacher forcing: both fed the one-device engine's tokens
+                want_l = teacher_forced(torch, model, params, batch, toks,
+                                        max_len)
+                logits, cache = eng._prefill_fn(eng.params,
+                                                eng.local_batch(batch))
+                got_l = [logits]
+                for i in range(LM_GEN):
+                    logits, cache = eng._decode_fn(
+                        eng.params, toks[:, i:i + 1], cache, LM_PROMPT + i)
+                    got_l.append(logits)
+                worst = max(((g - w).abs().max() / w.abs().max()).item()
+                            for g, w in zip(got_l, want_l))
+                same = torch.equal(got, toks)
+                p7 = (torch.equal(got, STASH["lm_fp32_tokens"])
+                      if cdt == "float32" else True)
+                ok = (worst <= tol[cdt] and not synced and eng.captures == 1
+                      and (cdt != "float32" or (same and p7)))
+                log(f"  {'ok  ' if ok else 'FAIL'} {cdt}: tokens == one "
+                    f"device's {same} (== phase 7's fp32 tokens {p7}); "
+                    f"teacher-forced logits max rel diff {worst:.3e} (tol "
+                    f"{tol[cdt]:g}); decode graphs {eng.captures}, host "
+                    f"sync in {LM_GEN} replays: {synced or 'none'}; warm "
+                    f"prefill {eng.timings['prefill_ms']:.3f} ms (one device "
+                    f"{one.timings['prefill_ms']:.3f}), decode "
+                    f"{eng.timings['decode_ms'] / LM_GEN:.3f} ms per token "
+                    f"(one device {one.timings['decode_ms'] / LM_GEN:.3f}), "
+                    f"{smi}")
+                if not ok:
+                    checks.failures.append(f"{LM_MESH_RUN} {cdt}: tokens, "
+                                           "logits, graphs or syncs off")
+                del one, eng, got_l, want_l, logits, cache, got, toks, batch
+                del model
+            del params, mesh
+        finally:
+            leave()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    log(f"  device memory left once the process group is gone: {left} B")
+    if left:
+        checks.failures.append(f"mesh LM serving: {left} B left allocated")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1651,6 +2017,8 @@ def main() -> int:
     rows.update(phase_flash(torch, checks))
     launches.update(phase_lm(torch, checks, smi))
     launches.update(phase_mesh(torch, checks, singles, solve_ms, smi))
+    launches.update(phase_mesh_serving(torch, checks, singles, smi))
+    launches.update(phase_mesh_lm(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

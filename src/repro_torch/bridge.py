@@ -54,25 +54,49 @@ def lm_config_from_fields(fields: dict) -> ModelConfig:
     return ModelConfig(**fields)
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu"):
+def _numpy_leaf(tree, path, shape) -> np.ndarray:
+    """The reference's parameter at the port's `path`: the stacked
+    `layers` / `enc_layers` (a leading layer dim) indexed by the path's
+    layer index; its shape must match the port's def."""
+    node, layer = tree, None
+    for key in path:
+        if isinstance(key, int) and isinstance(node, dict):
+            layer = key  # a stacked block: index its leaves' first dim
+        else:
+            node = node[key]
+    a = np.asarray(node) if layer is None else np.asarray(node)[layer]
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"parameter {'/'.join(map(str, path))}: shape "
+                         f"{a.shape}, the port's def {shape}")
+    return a
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", mesh=None):
     """The port's parameter modules holding the reference's parameter
     pytree (nested dicts and tuples of numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`).  The reference's stacked
     `layers` / `enc_layers` (a leading layer dim) become one module per
-    layer; every shape must match the port's defs."""
+    layer; every shape must match the port's defs.
+
+    With `mesh` (an LM serving mesh, `launch/mesh.py:make_local_mesh`)
+    each rank gets only its shards under the serve rules' `param_specs`,
+    cut from the numpy arrays before they reach the device (for
+    `ServeEngine(..., mesh=mesh)`)."""
+    defs = model_defs(cfg)
+    if mesh is not None:
+        from .models import Model
+        from .serving.engine import shard_params
+        from .sharding.activation import LMShards
+        from .sharding.specs import param_specs, rules_for
+
+        specs = param_specs(defs, mesh, rules_for(cfg.zero_shard, serve=True))
+        return shard_params(
+            Model(cfg), lambda d, path: _numpy_leaf(tree, path, d.shape),
+            LMShards(mesh, ()), specs, device)
 
     def make(d, path):
-        node, layer = tree, None
-        for key in path:
-            if isinstance(key, int) and isinstance(node, dict):
-                layer = key  # a stacked block: index its leaves' first dim
-            else:
-                node = node[key]
-        a = np.asarray(node) if layer is None else np.asarray(node)[layer]
-        if tuple(a.shape) != tuple(d.shape):
-            raise ValueError(f"parameter {'/'.join(map(str, path))}: shape "
-                             f"{a.shape}, the port's def {d.shape}")
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device, d.dtype)
+        return torch.from_numpy(np.array(_numpy_leaf(tree, path, d.shape),
+                                         dtype=np.float32)).to(device,
+                                                                d.dtype)
 
-    return build(model_defs(cfg), make)
+    return build(defs, make)

@@ -312,7 +312,8 @@ def build_msc_batched(cfg: MSCConfig, mesh=None, relayout: str = "gspmd",
 
 
 class MSCChunkPlan:
-    """The continuous engine's two programs per bucket, on one device.
+    """The continuous engine's two programs per bucket, on one device or
+    on every rank of a mesh.
 
     The static batched pipeline runs a bucket to completion: its gated
     loop ends on the batch's slowest request, so one slow request holds
@@ -334,19 +335,24 @@ class MSCChunkPlan:
     slot dim, so results do not depend on slot placement, eviction order
     or arrival interleaving.
 
+    On a mesh (the flat schedule's roles, `msc_axes`) each rank holds its
+    (slice, inner) block of every unfolding and its rows of the carries
+    (`mode_shapes`), and every rank runs both programs in lockstep.  Each
+    rank is a process of its own, so what the host policy reads is the
+    same on every rank by construction, the counterpart of the
+    reference's `replicate_outputs`: `finished` comes from verdicts the
+    gate all-reduces over the slice group (and λ and the residuals are
+    summed over the inner group before it), and the refill gathers every
+    slot's d, λ and sweeps over the slice group before its extraction.
+
     The programs update the blocks and carries they are given in place,
     the port's counterpart of the reference's donated buffers; on a card
-    the engine captures each as a CUDA graph (`serving/msc_engine.py`).
-    Matrix-free only, as in the reference.
+    the engine captures each as a CUDA graph (`serving/msc_engine.py`),
+    with the collectives inside.  Matrix-free only, as in the reference.
     """
 
     def __init__(self, cfg: MSCConfig, chunks_per_step=1, device="cuda",
                  mesh=None):
-        if mesh is not None:
-            from repro_torch.sharding.specs import MESH_REST_TODO
-
-            raise NotImplementedError(f"MSCChunkPlan on a mesh: "
-                                      f"{MESH_REST_TODO}")
         if not cfg.matrix_free:
             raise ValueError("the continuous engine requires "
                              "matrix_free=True (see power_iter."
@@ -358,15 +364,35 @@ class MSCChunkPlan:
         if self.chunks_per_step < 1:
             raise ValueError(f"chunks_per_step must be >= 1, got "
                              f"{chunks_per_step}")
-        self.sched = ModeSchedule(cfg)
-        self.device = resolve_device(device)
+        self.sched = _flat_schedule(cfg, mesh)
+        self.device = _mesh_device(mesh, device)
 
     # ---- shapes and state ---------------------------------------------
-    @staticmethod
-    def mode_shapes(bucket, B: int):
-        """(B, m, r, c) block shape per mode (one device pads nothing)."""
-        return tuple((B,) + tuple(bucket[i] for i in MODE_PERMS[j])
-                     for j in range(3))
+    def padded_shapes(self, bucket, B: int):
+        """(B, m', r', c) whole padded block shape per mode: m to the slice
+        shards, r to the inner shards (one device pads nothing)."""
+        shapes = []
+        for j in range(3):
+            m, r, c = (bucket[i] for i in MODE_PERMS[j])
+            m_pad, r_pad = self.sched.pad_amounts(m, r)
+            shapes.append((B, m_pad, r_pad, c))
+        return tuple(shapes)
+
+    def mode_shapes(self, bucket, B: int):
+        """(B, m'/S, r'/Q, c) block shape per mode: this rank's share of
+        the padded unfolding (the whole unfolding on one device)."""
+        p, q = self.sched.slice_shards, self.sched.inner_shards
+        return tuple((B, m // p, r // q, c)
+                     for B, m, r, c in self.padded_shapes(bucket, B))
+
+    def local_block(self, j: int, tensor: torch.Tensor, shape):
+        """This rank's (m'/S, r'/Q, c) block of a request's mode-j
+        unfolding, zero-padded to `shape` (one mode_shapes entry, without
+        its slot dim)."""
+        b, rq, c = shape
+        t = tensor.permute(MODE_PERMS[j])
+        return take_block(t, ((self.sched.slice_index * b, b),
+                              (self.sched.inner_index * rq, rq), (0, c)))
 
     def init_state(self, bucket, B: int, dtype):
         """A fresh slot table on the device: zero blocks, every slot inert
@@ -388,7 +414,8 @@ class MSCChunkPlan:
     def export_slot(self, bucket, carries, slot: int):
         """Host form of one slot's three mode carries: per mode a
         SolveState of v (m, c), lam (m,), resid (m,), iters (int), done
-        (bool), each mode's slice dim at its true bucket size."""
+        (bool), each mode's slice dim at its true bucket size (gathered
+        over the slice ranks: every rank calls it)."""
         out = []
         for j, carry in enumerate(carries):
             host = self.sched.export_carry(carry, bucket[MODE_PERMS[j][0]])
@@ -405,24 +432,24 @@ class MSCChunkPlan:
                 for j, carry in enumerate(carries)]
 
     def import_carries(self, bucket, host_carries):
-        """Device carries from `export_carries`' host form."""
-        return tuple(self.sched.import_carry(host, bucket[MODE_PERMS[j][0]],
-                                             self.device)
+        """This rank's device carries from `export_carries`' host form
+        (from any mesh)."""
+        shapes = self.padded_shapes(bucket, 1)
+        return tuple(self.sched.import_carry(host, shapes[j][1], self.device)
                      for j, host in enumerate(host_carries))
 
     def rebuild_blocks(self, bucket, B: int, dtype, arrs):
         """Device blocks from per-slot host tensors (None for a slot
-        without a request, whose rows stay zero): each tensor's three
-        unfoldings written into zero-padded blocks, as the engine stages
-        an admitted request."""
+        without a request, whose rows stay zero): this rank's block of
+        each tensor's three unfoldings, as the engine stages an admitted
+        request."""
         blocks = []
         for j, shape in enumerate(self.mode_shapes(bucket, B)):
             host = torch.zeros(shape, dtype=dtype)
             for s, arr in enumerate(arrs):
-                if arr is None:
-                    continue
-                t = torch.as_tensor(np.asarray(arr)).permute(MODE_PERMS[j])
-                host[s, :t.shape[0], :t.shape[1], :t.shape[2]] = t
+                if arr is not None:
+                    host[s] = self.local_block(
+                        j, torch.as_tensor(np.array(arr)), shape[1:])
             blocks.append(host.to(self.device))
         return tuple(blocks)
 
@@ -433,9 +460,10 @@ class MSCChunkPlan:
         One scheduler tick: every slot's three modes advance
         `chunks_per_step` gate chunks (finished modes pass through
         frozen); the carries are updated in place.  A slot is finished
-        once all three of its modes are converged or capped.  The blocks
-        may be given in the precision policy's dtype (the engine's
-        operand copies), so that nothing is cast per step.
+        once all three of its modes are converged or capped; the flags
+        are the same on every rank.  The blocks may be given in the
+        precision policy's dtype (the engine's operand copies), so that
+        nothing is cast per step.
         """
         sched = self.sched
         cap = sched.cfg.power_iters
@@ -461,12 +489,13 @@ class MSCChunkPlan:
         of every slot from the pre-repack state, under the pre-repack
         sizes `dims` (B, 3): the similarity tail and the extraction (on
         the device, no host read) from each slot's current iterates,
-        frozen for a finished slot.  The engine reads the evicted slots'
-        rows.  Then the repack, in place: slot s takes the fresh request
-        of `new_blocks` (the staged unfoldings, `mode_shapes`) and
-        `new_dims` where take_new[s], else old slot perm[s]'s state
-        verbatim; new_done[s] seeds slot s inert.  The reference's warm
-        and resume inputs are not ported yet (ROADMAP.md queue 1 item 10).
+        frozen for a finished slot, gathered to every rank.  The engine
+        reads the evicted slots' rows.  Then the repack, in place: slot s
+        takes the fresh request of `new_blocks` (the staged blocks,
+        `mode_shapes`) and `new_dims` where take_new[s], else old slot
+        perm[s]'s state verbatim; new_done[s] seeds slot s inert.  The
+        reference's warm and resume inputs are not ported yet (ROADMAP.md
+        queue 1 item 10).
         """
         sched = self.sched
         dev = self.device
@@ -481,14 +510,16 @@ class MSCChunkPlan:
             modes = []
             for j in range(3):
                 block, carry = blocks[j], carries[j]
-                B, m, _, c = block.shape
-                valid = (torch.arange(m, device=dev)[None, :]
+                B, b, _, c = block.shape
+                m_pad = b * sched.slice_shards
+                d, lam = sched.finalize_local(
+                    block, sched.slice_mask(m_pad, dims[:, j], dev), carry.v)
+                valid = (torch.arange(m_pad, device=dev)[None, :]
                          < dims[:, j][:, None])
-                d, lam = sched.finalize_local(block, valid, carry.v)
                 modes.append(sched.finalize_mode_batched(
                     d, lam, carry.iters[:, None], valid))
-                fresh = sched.init_mode_carry(B, m, c, new_dims[:, C_OF[j]],
-                                              new_done)
+                fresh = sched.init_mode_carry(B, m_pad, c,
+                                              new_dims[:, C_OF[j]], new_done)
                 sched.repack_local(perm, take_new, block, carry,
                                    new_blocks[j], fresh)
             return blocks, carries, MSCResult(modes=tuple(modes))

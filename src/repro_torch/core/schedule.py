@@ -8,7 +8,9 @@ device, where no dim is padded and no collective runs.
 
 Mesh roles (dims of the DeviceMesh, from `sharding/specs.py:msc_axes`):
 
-  slice — shards the slice index m (the paper's group communicator):
+  slice — shards the slice index m (the paper's group communicator); a
+      slice role over several dims (a production (data, model) mesh) is
+      one group over them, row-major:
       the λ max (all_reduce MAX), the lockstep convergence gate
       (all_reduce MAX before the chunk's host read) and the epilogue
       (all_gather, or the ring of p−1 send/receive steps) run over it.
@@ -33,7 +35,7 @@ vectors to each request's true column count.
 Chunk-resumable entry points (`init_mode_carry`, `chunk_local`,
 `finalize_local`, `repack_local`, `export_carry`, `import_carry`) are
 the continuous engine's per-mode body (`parallel.MSCChunkPlan`), on one
-device: on a mesh they are ROADMAP.md queue 1 item 9 (rest).
+device or on each rank of a mesh.
 """
 from __future__ import annotations
 
@@ -235,24 +237,27 @@ class ModeSchedule:
             raise ValueError(f"overlapping dim roles: {roles}")
         if not self.slice_axes:
             raise ValueError("ModeSchedule needs a slice dim")
-        if len(self.slice_axes) > 1 or len(self.inner_axes) > 1:
-            from repro_torch.sharding.specs import MESH_REST_TODO
-
-            raise NotImplementedError(
-                f"slice dims {self.slice_axes}, inner dims "
-                f"{self.inner_axes}: one of each at most; "
-                f"{MESH_REST_TODO}")
+        if len(self.inner_axes) > 1:
+            raise ValueError(f"one inner dim at most, got {self.inner_axes}")
 
     # ---- static mesh facts -------------------------------------------
+    def _role(self, axes):
+        """(group, size, index) of a role (`launch/mesh.py:axes_group`);
+        a slice role over several dims is one group, row-major."""
+        if not axes:
+            return None, 1, 0
+        from repro_torch.launch.mesh import axes_group
+
+        return axes_group(self.mesh, axes)
+
     def _size(self, axes) -> int:
-        return self.mesh.size(self.mesh.mesh_dim_names.index(axes[0])) \
-            if axes else 1
+        return self._role(axes)[1]
 
     def _group(self, axes):
-        return self.mesh.get_group(axes[0]) if axes else None
+        return self._role(axes)[0]
 
     def _index(self, axes) -> int:
-        return self.mesh.get_local_rank(axes[0]) if axes else 0
+        return self._role(axes)[2]
 
     @property
     def slice_shards(self) -> int:
@@ -383,11 +388,16 @@ class ModeSchedule:
         contraction).  Returns (Eigensolve, valid_local (B, M'/p)).
         """
         block, valid = self.local_block(slices, m_req)
-        plan = plan_eigensolve(block, self.cfg,
+        return self.plan_block_batched(block, c_req), valid
+
+    def plan_block_batched(self, block: torch.Tensor, c_req: torch.Tensor):
+        """The Eigensolve of this rank's block (B, b, r_local, c) of a
+        bucket, start vectors masked to the requests' column counts c_req
+        (B,)."""
+        return plan_eigensolve(block, self.cfg,
                                c_valid=c_req.to(block.device)[:, None],
                                slice_group=self.slice_group,
                                inner_group=self.inner_group)
-        return plan, valid
 
     def run_mode_batched(self, slices: torch.Tensor, m_req: torch.Tensor,
                          c_req: torch.Tensor):
@@ -417,33 +427,35 @@ class ModeSchedule:
     # ---- chunk-resumable entry points (the continuous engine) ----------
     #
     # The continuous engine keeps one SolveState per mode per slot table
-    # on the device between dispatches (B slots, m the bucket's slice
-    # count, c its column count):
+    # on the device between dispatches; each rank holds its block (B
+    # slots, m' the bucket's slice count padded to the slice shards, S
+    # the slice shards, c the column count):
     #
-    #   v (B, m, c)  lam/resid (B, m)  iters/done (B,)
+    #   v (B, m'/S, c)  lam/resid (B, m'/S)  iters/done (B,)
     #
     # The reference carries the per-request verdicts at (B, S), one
-    # identical column per slice shard; one device has one shard, so
-    # they are (B,) here, and no slice dim is padded (m_pad = m).  On a
-    # mesh they are ROADMAP.md queue 1 item 9 (rest).
+    # identical column per slice shard (the gate all-reduces over the
+    # slice dims); here each rank holds its column, (B,), the same on
+    # every rank.  On one device S = 1 and nothing is padded.
 
-    def _one_device(self, what: str) -> None:
-        if self.mesh is not None:
-            from repro_torch.sharding.specs import MESH_REST_TODO
-
-            raise NotImplementedError(f"{what} on a mesh: {MESH_REST_TODO}")
+    def local_rows(self, m_pad: int) -> int:
+        """This rank's share of a padded slice dim."""
+        return m_pad // self.slice_shards
 
     def init_mode_carry(self, B: int, m_pad: int, c: int, c_req, done,
                         warm_v=None, use_warm=None, resume_lam=None,
                         resume_resid=None, resume_iters=None,
                         resume_done=None, use_resume=None) -> SolveState:
-        """Fresh carry for one mode of a B-slot table.
+        """Fresh carry for one mode of a B-slot table: this rank's rows of
+        the padded slice dim m_pad.
 
         c_req: (B,) per-request column bounds masking the deterministic
-        start vectors (the bucket-padding contract); done: (B,) bool,
-        True seeds an inert slot (its iterate never advances).  Device
-        ops only, on `done`'s device: the refill program runs this.  The
-        reference's warm-start and resume inputs are not ported yet.
+        start vectors (the bucket-padding contract; every slice starts
+        from the same vector, so a rank makes its rows alone); done: (B,)
+        bool, True seeds an inert slot (its iterate never advances).
+        Device ops only, on `done`'s device: the refill program runs
+        this.  The reference's warm-start and resume inputs are not
+        ported yet.
         """
         if any(x is not None for x in (warm_v, use_warm, resume_lam,
                                        resume_resid, resume_iters,
@@ -452,44 +464,49 @@ class ModeSchedule:
                                       f"{TIERS_TODO}")
         done = torch.as_tensor(done, dtype=torch.bool)
         dev = done.device
-        v = _init_vectors((B, m_pad), c, torch.float32,
+        b = self.local_rows(m_pad)
+        v = _init_vectors((B, b), c, torch.float32,
                           c_valid=torch.as_tensor(c_req, device=dev)[:, None],
                           device=dev)
         z = dict(dtype=torch.float32, device=dev)
-        return SolveState(v=v, lam=torch.zeros((B, m_pad), **z),
-                          resid=torch.zeros((B, m_pad), **z),
+        return SolveState(v=v, lam=torch.zeros((B, b), **z),
+                          resid=torch.zeros((B, b), **z),
                           iters=torch.zeros(B, dtype=torch.int32, device=dev),
                           done=done.clone())
 
     def chunk_local(self, block: torch.Tensor, carry: SolveState,
                     steps: int = 1) -> SolveState:
-        """`steps` gate chunks of one mode over a carry: the resumable
-        form of `mode_local`'s eigensolve.
+        """`steps` gate chunks of one mode over this rank's carry: the
+        resumable form of `mode_local`'s eigensolve.
 
-        block (B, m, r, c) is read in the precision policy's dtype (a
+        block (B, m'/S, r'/Q, c) is read in the precision policy's dtype (a
         block already in that dtype is read as it is; another is cast
         here).  Every slot advances steps × power_check_every sweeps; a
         finished slot passes through frozen (`step_chunk`'s per-request
         masking), so the iterate it is finalized from does not depend on
-        how many more chunks its table ran.  Padding slices are zero and
-        hold the gate open nowhere, so no validity mask is needed.
+        how many more chunks its table ran.  On a mesh every sweep's
+        partials are summed over the inner group and the gate reduces over
+        the slice group, so every rank's verdicts agree.  Padding slices
+        are zero and hold the gate open nowhere, so no validity mask is
+        needed.
         """
-        self._one_device("chunk_local")
         cfg = self.cfg
-        chunk_fn, k = build_chunk_fn(block, cfg)
+        chunk_fn, k = build_chunk_fn(block, cfg, inner_group=self.inner_group)
         for _ in range(steps):
             carry = step_chunk(chunk_fn, carry, k=k, n_iters=cfg.power_iters,
-                               tol=cfg.power_tol)
+                               tol=cfg.power_tol,
+                               slice_group=self.slice_group)
         return carry
 
     def finalize_local(self, block: torch.Tensor, valid_local: torch.Tensor,
                        v: torch.Tensor):
         """The similarity tail from a carry's (frozen) iterates: the fp32
-        Rayleigh quotient on the block, the λ-max normalization and the
-        epilogue.  Returns (d, λ).  The continuous engine runs it when a
+        Rayleigh quotient on the block (summed over the inner group), the
+        λ-max normalization and the epilogue over the slice group.
+        Returns this rank's (d, λ).  The continuous engine runs it when a
         slot is evicted, not per chunk."""
-        self._one_device("finalize_local")
-        return self._similarity_tail(rayleigh_fp32(block, v), v, valid_local)
+        return self._similarity_tail(
+            rayleigh_fp32(block, v, self.inner_group), v, valid_local)
 
     @staticmethod
     def repack_local(perm, take_new, block: torch.Tensor, carry: SolveState,
@@ -498,8 +515,10 @@ class ModeSchedule:
         block[s] ← new_block[s] where take_new[s], else the old
         block[perm[s]], and likewise every carry leaf.  Each old row is
         gathered into a scratch copy before any row is written, so any
-        permutation is safe.  Returns (block, carry), the updated inputs
-        (the port's counterpart of the reference's donated buffers)."""
+        permutation is safe.  The slot dim is whole on every rank, so a
+        repack moves no bytes between ranks.  Returns (block, carry), the
+        updated inputs (the port's counterpart of the reference's donated
+        buffers)."""
         def sel(old, new):
             t = take_new.reshape((-1,) + (1,) * (old.dim() - 1))
             torch.where(t, new, old.index_select(0, perm), out=old)
@@ -509,31 +528,42 @@ class ModeSchedule:
             sel(getattr(carry, f.name), getattr(new_carry, f.name))
         return block, carry
 
-    @staticmethod
-    def export_carry(carry: SolveState, m: int) -> SolveState:
-        """Host form (numpy) of one mode's carry, the slice dim trimmed to
-        the true bucket size m: v (B, m, c), lam and resid (B, m), iters
-        and done (B,).  Trimming is lossless: padded slices keep zero
-        iterates after their first chunk."""
+    def export_carry(self, carry: SolveState, m: int) -> SolveState:
+        """Host form (numpy) of one mode's carry, the slice dim gathered
+        from every slice rank and trimmed to the true bucket size m: v (B,
+        m, c), lam and resid (B, m), iters and done (B,).  Trimming is
+        lossless: padded slices keep zero iterates after their first
+        chunk.  On a mesh every rank calls it (a collective)."""
+        v, lam, resid = carry.v, carry.lam, carry.resid
+        group = self.slice_group
+        if group is not None:
+            v = _all_gather_rows(v, group)
+            rows = _all_gather_rows(torch.stack([lam, resid], dim=-1),
+                                    group)
+            lam, resid = rows[..., 0], rows[..., 1]
+
         def g(x):
             return x.detach().cpu().numpy()
 
-        return SolveState(v=g(carry.v)[:, :m], lam=g(carry.lam)[:, :m],
-                          resid=g(carry.resid)[:, :m], iters=g(carry.iters),
+        return SolveState(v=g(v)[:, :m], lam=g(lam)[:, :m],
+                          resid=g(resid)[:, :m], iters=g(carry.iters),
                           done=g(carry.done))
 
-    @staticmethod
-    def import_carry(host: SolveState, m_pad: int,
+    def import_carry(self, host: SolveState, m_pad: int,
                      device="cpu") -> SolveState:
-        """A device carry from `export_carry`'s host form, the slice dim
-        padded with zeros to m_pad."""
+        """This rank's device carry from `export_carry`'s host form (from
+        any mesh): the slice dim padded with zeros to m_pad and this rank's
+        rows taken."""
         B, m = np.shape(host.lam)
+        b = self.local_rows(m_pad)
+        lo = self.slice_index * b
 
         def padm(a, dtype):
             a = np.asarray(a, dtype)
             out = np.zeros((B, m_pad) + a.shape[2:], dtype)
             out[:, :m] = a
-            return torch.from_numpy(out).to(device)
+            return torch.from_numpy(np.ascontiguousarray(
+                out[:, lo:lo + b])).to(device)
 
         return SolveState(
             v=padm(host.v, np.float32), lam=padm(host.lam, np.float32),

@@ -12,15 +12,21 @@ Ranks join in one of two ways (`join`):
   * from a FileStore that every rank opens, when this package spawns its
     own ranks (`spawn`: `msc_run --nproc N` and the tests).
 
+The LM meshes are ("data", "model") over every rank (`make_local_mesh`)
+and the reference's production shapes (`make_production_mesh`: 16 x 16,
+or 2 x 16 x 16 with a "pod" dim).  A role over several mesh dims (the
+MSC slice role of a (data, model) mesh) is one process group over those
+dims, row-major (`axes_group`).
+
 Nothing here runs at import: a mesh exists once `join` has run in every
-rank.  The production (data, model) meshes and the LM serving meshes
-are ROADMAP.md queue 1 item 9 (rest).
+rank.
 """
 from __future__ import annotations
 
 import datetime
 import math
 import os
+import sys
 import time
 
 import torch
@@ -145,7 +151,9 @@ def join(device_type: str = "cuda", *, rank=None, world_size=None,
 
 def leave() -> None:
     """Tear down the default process group (and with it every mesh's
-    groups), if there is one."""
+    groups), if there is one.  Close the engines first: a CUDA graph
+    that captured NCCL collectives holds its communicator, and a
+    teardown while it lives waits for it."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -166,6 +174,90 @@ def make_msc_mesh(schedule: str = "flat", shape=None, device_type=None):
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, tuple(dims), mesh_dim_names=axes)
+
+
+def _mesh(shape, names, device_type=None):
+    """DeviceMesh of `shape` over the first prod(shape) ranks of the
+    default process group (every rank when they are all of them)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    n = math.prod(shape)
+    if n == dist.get_world_size():
+        return init_device_mesh(device_type, tuple(shape),
+                                mesh_dim_names=tuple(names))
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """The reference's production mesh: ("data", "model") = (16, 16), or
+    ("pod", "data", "model") = (2, 16, 16) with multi_pod, over the first
+    256 (512) ranks.  Fewer ranks raise the reference's RuntimeError."""
+    import torch.distributed as dist
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < n:
+        raise RuntimeError(
+            f"need {n} devices for the production mesh, have {have} (one "
+            f"rank per device: start {n} ranks)")
+    return _mesh(shape, names, device_type)
+
+
+def local_mesh_shape(n: int, model_axis: int = 1) -> tuple:
+    """(data, model) over n ranks: model_axis clamped to [1, n] and down
+    to a divisor of n, as the reference's `make_local_mesh` does."""
+    model_axis = max(1, min(int(model_axis), n))
+    while n % model_axis:
+        model_axis -= 1
+    return (n // model_axis, model_axis)
+
+
+def make_local_mesh(model_axis: int = 1, device_type=None):
+    """("data", "model") mesh over every rank of the default process group
+    (`local_mesh_shape`)."""
+    import torch.distributed as dist
+
+    return _mesh(local_mesh_shape(dist.get_world_size(), model_axis),
+                 ("data", "model"), device_type)
+
+
+def axes_group(mesh, axes):
+    """(process group, size, this rank's index) of the role `axes` (a
+    tuple of mesh dim names): the mesh dim's own group for one dim; for
+    several, one group per coordinate of the other dims, its ranks in
+    row-major order over `axes` (so block k of a dim sharded over the
+    role sits on the rank the reference's composite axis gives it).
+    Made once per mesh and role; every rank makes every group (as
+    `new_group` asks), in the same order.  None, 1, 0 for no dims."""
+    axes = tuple(axes)
+    if not axes:
+        return None, 1, 0
+    names = tuple(mesh.mesh_dim_names)
+    if len(axes) == 1:
+        return (mesh.get_group(axes[0]), mesh.size(names.index(axes[0])),
+                mesh.get_local_rank(axes[0]))
+    cache = mesh.__dict__.setdefault("_role_groups", {})
+    if axes not in cache:
+        import torch.distributed as dist
+
+        idx = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in idx]
+        ranks = mesh.mesh.permute(rest + idx).reshape(
+            -1, math.prod(mesh.size(i) for i in idx))
+        me = dist.get_rank()
+        mine = None
+        for row in ranks.tolist():
+            group = dist.new_group(row)
+            if me in row:
+                mine = (group, len(row), row.index(me))
+        cache[axes] = mine
+    return cache[axes]
 
 
 def mesh_dims(mesh) -> dict:
@@ -191,15 +283,71 @@ def mesh_device(mesh) -> torch.device:
 def _rank_main(rank, fn, world_size, store_file, device_type, timeout,
                args):
     """One spawned rank: join, run fn(device, *args), leave.  An
-    exception ends the process with a nonzero code (and its traceback)."""
+    exception ends the process with a nonzero code (and its traceback).
+    Under NCCL a failed rank prints its traceback and exits at once:
+    tearing the group down would wait for peers that wait for it."""
     if device_type == "cpu":
         torch.set_num_threads(1)
     device = join(device_type, rank=rank, world_size=world_size,
                   store_file=store_file, timeout=timeout)
     try:
         fn(device, *args)
-    finally:
+    except BaseException:
+        if device_type == "cuda":
+            import traceback
+
+            traceback.print_exc()
+            sys.stderr.flush()
+            os._exit(1)
         leave()
+        raise
+    leave()
+
+
+def world_size(args) -> int:
+    """The ranks a CLI's flags ask for: `--nproc`, torchrun's, or 1."""
+    if args.nproc:
+        return int(args.nproc)
+    return int(os.environ["WORLD_SIZE"]) if launched_by_torchrun() else 1
+
+
+def on_ranks(args, body):
+    """body(args, device) where a CLI's flags put it:
+
+      * with `--nproc N` (outside torchrun), in N new ranks, one per
+        device (gloo on the CPU, NCCL on the cards); returns None once
+        every rank has ended;
+      * under torchrun, in this process as one rank of its group; returns
+        body's result on rank 0 and None on the others;
+      * else on the one device `args.device`; returns body's result.
+
+    On ranks body prints from rank 0 only, and closes what holds the
+    group's communicators (the engines' graphs) before it returns: the
+    group is left after it."""
+    device_type = torch.device(args.device).type
+    if args.nproc and not launched_by_torchrun():
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+            spawn(_body_on_rank, args.nproc, os.path.join(tmp, "store"),
+                  body, args, device_type=device_type)
+        return None
+    if launched_by_torchrun():
+        import torch.distributed as dist
+
+        device = join(device_type)
+        try:
+            res = body(args, device)
+            return res if dist.get_rank() == 0 else None
+        finally:
+            leave()
+    from repro_torch.core.types import resolve_device
+
+    return body(args, resolve_device(args.device))
+
+
+def _body_on_rank(device, body, args):
+    body(args, device)
 
 
 def spawn(fn, nproc: int, store_file, *args, device_type: str = "cuda",

@@ -6,8 +6,9 @@ eigensolver: matrix-free or the explicit gram with `--gram`) and reports
 recovery rate, similarity index (Eq. 6), cluster sizes, realized power
 sweeps and wall time, with the same output lines as the reference.
 `--batch B` serves B planted requests (seeds seed … seed+B−1) through
-MSCServeEngine in one dispatch (CUDA graphs on the card) and compares
-warm time with a loop of single-request dispatches.
+MSCServeEngine in one dispatch (CUDA graphs on the card), on one device
+or on the mesh, and compares warm time with a loop of single-request
+dispatches.
 
 A mesh is one process per device (`launch/mesh.py`): `--nproc N` spawns
 N ranks (gloo on the CPU, NCCL on N cards), and under `torchrun` every
@@ -21,6 +22,8 @@ Examples:
       --gram --batch 2
   PYTHONPATH=src python -m repro_torch.launch.msc_run --m 24 --device cpu \\
       --nproc 4 --mesh-shape 2,2 --epilogue ring
+  PYTHONPATH=src python -m repro_torch.launch.msc_run --m 24 --device cpu \\
+      --nproc 2 --batch 2 --mesh-shape 2
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.msc_run \\
       -- --m 1000 --kernels --mesh-shape 2,2
 
@@ -30,7 +33,6 @@ be an ambiguous abbreviation of torchrun's.)
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import numpy as np
@@ -39,12 +41,10 @@ import torch
 from repro_torch.core import (MSCConfig, PlantedSpec, build_msc_parallel,
                               make_planted_tensor, msc_sequential,
                               msc_similarity_matrices, planted_masks,
-                              recovery_rate, resolve_device,
-                              similarity_index)
-from repro_torch.launch.mesh import (join, launched_by_torchrun, leave,
-                                     make_msc_mesh, mesh_dims,
-                                     msc_mesh_shape, parse_shape, spawn)
-from repro_torch.sharding.specs import MESH_REST_TODO
+                              recovery_rate, similarity_index)
+from repro_torch.launch.mesh import (make_msc_mesh, mesh_dims,
+                                     msc_mesh_shape, on_ranks, parse_shape,
+                                     world_size)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -90,7 +90,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=0,
                     help="serve this many independent planted requests "
                          "through MSCServeEngine in one batched dispatch "
-                         "instead of one tensor; flat schedule only")
+                         "instead of one tensor (on the mesh with "
+                         "--nproc / torchrun)")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -128,14 +129,17 @@ def _timed(dev, fn):
     return out, time.perf_counter() - t0
 
 
-def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev) -> dict:
+def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev, mesh=None,
+                 say=print) -> dict:
     """--batch B: serve B independent planted requests in one dispatch
-    and report per-request quality, cold / warm / looped-warm times and
-    the engine's compile counts; on a card also the device memory the
-    live engine holds beside its reckoning (static buffers + graph pools)
-    and what each engine leaves once closed.  Returns {"results", "recs",
-    "sweeps", "cold", "warm", "loop_warm", "stats_cold", "stats_warm",
-    "held", "reckoned", "left", "loop_left"}."""
+    (on `mesh` when given: every rank makes the same requests) and report
+    per-request quality, cold / warm / looped-warm times and the engine's
+    compile counts; on a card also the device memory the live engine
+    holds beside its reckoning (static buffers + graph pools; one rank's)
+    and what each engine leaves once closed.  `say` prints (rank 0's
+    print on a mesh).  Returns {"results", "recs", "sweeps", "cold",
+    "warm", "loop_warm", "stats_cold", "stats_warm", "held", "reckoned",
+    "left", "loop_left"}."""
     from repro_torch.serving import MSCServeEngine
     from repro_torch.serving.graphs import capture_stream
 
@@ -143,7 +147,8 @@ def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev) -> dict:
         torch.Generator(device=dev).manual_seed(args.seed + i), spec)
         for i in range(args.batch)]
     true_masks = planted_masks(spec, device=dev)
-    engine = MSCServeEngine(cfg, max_batch=args.batch, device=dev)
+    engine = MSCServeEngine(cfg, max_batch=args.batch, device=dev,
+                            mesh=mesh)
     if dev.type == "cuda":
         # the process's capture stream and its cuBLAS workspace, made once
         # and shared by every engine, are not the engine's memory
@@ -163,20 +168,20 @@ def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev) -> dict:
             for r in results]
     sweeps = [[r[j].power_iters_run for j in range(3)] for r in results]
     for i, (rec, sw) in enumerate(zip(recs, sweeps)):
-        print(f"  req {i}: rec={rec:.3f} "
+        say(f"  req {i}: rec={rec:.3f} "
               f"sizes={[r.size for r in results[i].modes]} sweeps={sw}")
-    loop = MSCServeEngine(cfg, max_batch=1, device=dev)
+    loop = MSCServeEngine(cfg, max_batch=1, device=dev, mesh=mesh)
     loop.run(tensors)
     _, loop_warm = _timed(dev, lambda: loop.run(tensors))
     loop.close()
     loop_left = _allocated(dev) - base
-    print(f"mean rec={np.mean(recs):.3f} B={args.batch} "
+    say(f"mean rec={np.mean(recs):.3f} B={args.batch} "
           f"cold={cold:.3f}s warm={warm:.3f}s "
           f"looped-warm={loop_warm:.3f}s speedup={loop_warm / warm:.2f}x "
           f"(compiles: {stats_cold.compiles} cold, "
           f"{stats_warm.compiles} warm){peak}")
     if dev.type == "cuda":
-        print(f"device memory held by the live engine: {held} B (reckoned: "
+        say(f"device memory held by the live engine: {held} B (reckoned: "
               f"static buffers {reckoned[0]} B + graph pools {reckoned[1]} "
               f"B); left once closed: {left} B (looped engine: "
               f"{loop_left} B)")
@@ -187,53 +192,27 @@ def _run_batched(cfg: MSCConfig, spec: PlantedSpec, args, dev) -> dict:
             "loop_left": loop_left}
 
 
-def _world(args) -> int:
-    """Ranks of this run: --nproc, torchrun's, or 1."""
-    if args.nproc:
-        return args.nproc
-    return int(os.environ["WORLD_SIZE"]) if launched_by_torchrun() else 1
-
-
 def run(args: argparse.Namespace):
     """Run the CLI's work and print its lines.  Returns one record per
     repeat, {"result": MSCResult, "rec", "sim", "t"}, or with --batch the
-    dict of `_run_batched`.  With --nproc the ranks run in new processes
-    and this returns None once all have ended."""
-    world = _world(args)
-    on_mesh = args.nproc > 0 or launched_by_torchrun()
-    if args.batch and on_mesh:
-        raise NotImplementedError(f"--batch on a mesh: {MESH_REST_TODO}")
+    dict of `_run_batched` (under torchrun rank 0's).  With --nproc the
+    ranks run in new processes and this returns None once all have
+    ended."""
     if args.schedule != "sequential":  # the reference's checks
-        msc_mesh_shape(args.schedule, world, parse_shape(args.mesh_shape))
-    if args.nproc and not launched_by_torchrun():
-        import tempfile
-
-        with tempfile.TemporaryDirectory(prefix="msc_run_") as tmp:
-            spawn(_rank_run, args.nproc, os.path.join(tmp, "store"), args,
-                  device_type=torch.device(args.device).type)
-        return None
-    if on_mesh:
-        dev = join(torch.device(args.device).type)
-        try:
-            return _run(args, dev, world)
-        finally:
-            leave()
-    return _run(args, resolve_device(args.device), 1)
+        msc_mesh_shape(args.schedule, world_size(args),
+                       parse_shape(args.mesh_shape))
+    return on_ranks(args, _run)
 
 
-def _rank_run(dev, args):
-    """One rank of `--nproc`: the run on the mesh of every rank."""
-    import torch.distributed as dist
-
-    _run(args, dev, dist.get_world_size())
-
-
-def _run(args, dev, world: int):
-    """The run on `dev`: on a mesh of `world` ranks when the process group
-    is up (rank 0 prints), else on one device."""
+def _run(args, dev, world=None):
+    """The run on `dev`: on a mesh of every rank (`world`, by default the
+    group's size) when the process group is up (rank 0 prints), else on
+    one device."""
     import torch.distributed as dist
 
     on_mesh = dist.is_available() and dist.is_initialized()
+    if world is None:
+        world = dist.get_world_size() if on_mesh else 1
     say = print if not on_mesh or dist.get_rank() == 0 else (
         lambda *a, **k: None)
     m = args.m
@@ -261,6 +240,8 @@ def _run(args, dev, world: int):
         mesh = make_msc_mesh(args.schedule, parse_shape(args.mesh_shape),
                              dev.type)
         say(f"mesh: {mesh_dims(mesh)}")
+        if args.batch:
+            return _run_batched(cfg, spec, args, dev, mesh, say)
         kw = {"relayout": args.relayout} if args.schedule == "flat" else {}
         run_fn = build_msc_parallel(cfg, schedule=args.schedule, mesh=mesh,
                                     **kw)

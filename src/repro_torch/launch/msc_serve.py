@@ -10,10 +10,13 @@ arrival simulation (`simulate_continuous`: Poisson arrivals,
 `--arrival-rate` per scheduler tick), after every bucket is warmed off
 the clock, and the decode loop's occupancy, eviction and queue-wait
 counters are reported.  The reference's flags and defaults, plus
-`--device` (default `cuda`; `cpu` runs the same steps eagerly).  The
-serving tiers, meshes and the roofline choosers are later items of
-ROADMAP.md queue 1; their flags raise `NotImplementedError` naming the
-item.
+`--device` (default `cuda`; `cpu` runs the same steps eagerly) and
+`--nproc`.  `--mesh-shape p` or `p,q` serves on a flat mesh of ranks, one
+process per device (`launch/mesh.py`): `--nproc N` spawns N ranks (gloo
+on the CPU, NCCL on N cards), and under `torchrun` every process it
+starts is a rank; every rank serves the same stream and rank 0 prints.
+The serving tiers and the roofline choosers are later items of ROADMAP.md
+queue 1; their flags raise `NotImplementedError` naming the item.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.msc_serve
@@ -21,6 +24,10 @@ Examples:
       --sizes 14,19 --requests 6 --max-batch 2
   PYTHONPATH=src python -m repro_torch.launch.msc_serve --continuous \\
       --arrival-rate 1.5 --slow-every 4 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.msc_serve --device cpu \\
+      --nproc 4 --mesh-shape 2,2 --continuous --slots 4
+  PYTHONPATH=src torchrun --nproc-per-node 4 \\
+      -m repro_torch.launch.msc_serve -- --mesh-shape 4 --continuous
 """
 from __future__ import annotations
 
@@ -31,10 +38,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import (MSCConfig, PlantedSpec, make_planted_tensor,
-                              planted_masks, recovery_rate, resolve_device)
+                              planted_masks, recovery_rate)
 from repro_torch.core.parallel import AUTO_TODO
 from repro_torch.core.schedule import TIERS_TODO
-from repro_torch.sharding.specs import MESH_REST_TODO
+from repro_torch.launch.mesh import (make_msc_mesh, mesh_dims,
+                                     msc_mesh_shape, on_ranks, parse_shape,
+                                     world_size)
 from repro_torch.serving import MSCContinuousEngine, MSCServeEngine
 
 # flags of later items, with the value that leaves them off
@@ -112,7 +121,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bucket-quantum", type=int, default=8,
                     help="request dims round up to multiples of this")
     ap.add_argument("--mesh-shape", default=None,
-                    help="mesh factorization; one device only takes '1'")
+                    help="flat-mesh factorization of the ranks, e.g. '4,2' "
+                         "= (slice=4, inner=2)")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="spawn this many ranks, one per device (gloo on "
+                         "the CPU, NCCL on the cards); torchrun's "
+                         "processes join without it")
     ap.add_argument("--epilogue", default="allgather",
                     choices=("allgather", "ring", "auto"))
     ap.add_argument("--precision", default="fp32",
@@ -159,9 +173,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_args(args: argparse.Namespace) -> None:
     """Raise on a flag of a later item (ROADMAP.md queue 1)."""
-    if args.mesh_shape not in (None, "1"):
-        raise NotImplementedError(f"--mesh-shape {args.mesh_shape}: "
-                                  f"{MESH_REST_TODO}")
     if args.epilogue == "auto":
         raise NotImplementedError(f"--epilogue auto: {AUTO_TODO}")
     if args.chunks_per_step == "auto":
@@ -177,7 +188,7 @@ def check_args(args: argparse.Namespace) -> None:
                 f"--{name.replace('_', '-')}: {todo}")
 
 
-def run(args: argparse.Namespace) -> dict:
+def run(args: argparse.Namespace):
     """Serve the stream cold, then warm (and with a B = 1 engine unless
     --no-loop-compare), then with --continuous through the continuous
     engine, printing the reference's lines.  Returns {"engine", "specs",
@@ -185,23 +196,58 @@ def run(args: argparse.Namespace) -> dict:
     "cold", "warm", "loop_warm", "continuous"}; "continuous" is None or
     {"engine", "results", "ticks", "stream_s", "stats_warmup",
     "stats_stream"}.  The engines stay open (their graphs and buffers)
-    for the caller to read and close."""
+    for the caller to read and close.  On ranks (--nproc, torchrun) each
+    rank closes its engines before it leaves the group, and this returns
+    None."""
     check_args(args)
-    dev = resolve_device(args.device)
+    # the reference's check: the mesh shape must use every device
+    msc_mesh_shape("flat", world_size(args), parse_shape(args.mesh_shape))
+    return on_ranks(args, _serve_here)
+
+
+def _close(out) -> None:
+    out["engine"].close()
+    if out["continuous"] is not None:
+        out["continuous"]["engine"].close()
+
+
+def _serve_here(args: argparse.Namespace, dev):
+    """`_serve` on `dev`; a rank closes its engines and returns None."""
+    import torch.distributed as dist
+
+    out = _serve(args, dev)
+    if dist.is_available() and dist.is_initialized():
+        _close(out)
+        return None
+    return out
+
+
+def _serve(args: argparse.Namespace, dev) -> dict:
+    """The serving run on `dev`: on a flat mesh of every rank when the
+    process group is up (rank 0 prints), else on one device."""
+    import torch.distributed as dist
+
+    mesh, say = None, print
+    if dist.is_available() and dist.is_initialized():
+        mesh = make_msc_mesh("flat", parse_shape(args.mesh_shape), dev.type)
+        if dist.get_rank() != 0:
+            say = _silent
     sizes = [int(s) for s in args.sizes.split(",")]
     cfg = MSCConfig(epsilon=3e-4, power_tol=args.power_tol,
                     precision=args.precision, epilogue=args.epilogue)
-    print(f"MSC serve: {args.requests} requests over sizes {sizes}, "
-          f"mesh {{'slice': 1}}, B={args.max_batch}, "
-          f"epilogue={args.epilogue} precision={args.precision} "
-          f"device={dev}")
+    say(f"MSC serve: {args.requests} requests over sizes {sizes}, "
+        f"mesh {mesh_dims(mesh) if mesh is not None else {'slice': 1}}, "
+        f"B={args.max_batch}, "
+        f"epilogue={args.epilogue} precision={args.precision} "
+        f"device={dev}")
     specs, tensors = build_request_stream(sizes, args.requests, args.seed,
                                           slow_every=args.slow_every,
                                           device=dev)
     engine = MSCServeEngine(cfg, max_batch=args.max_batch,
-                            bucket_quantum=args.bucket_quantum, device=dev)
+                            bucket_quantum=args.bucket_quantum, device=dev,
+                            mesh=mesh)
     buckets = sorted({engine.bucket_of(t.shape) for t in tensors})
-    print(f"buckets: {buckets}")
+    say(f"buckets: {buckets}")
 
     t0 = time.perf_counter()
     results = engine.run(tensors)  # cold: captures each bucket's graphs
@@ -217,54 +263,61 @@ def run(args: argparse.Namespace) -> dict:
         recs.append(float(recovery_rate(planted_masks(spec),
                                         [res[j].mask for j in range(3)])))
         sweeps.append([res[j].power_iters_run for j in range(3)])
-        print(f"  req {i}: shape={spec.shape} rec={recs[-1]:.3f} "
-              f"sizes={[res[j].size for j in range(3)]} sweeps={sweeps[-1]}")
+        say(f"  req {i}: shape={spec.shape} rec={recs[-1]:.3f} "
+            f"sizes={[res[j].size for j in range(3)]} sweeps={sweeps[-1]}")
 
     s = engine.stats
-    print(f"stats: {s.dispatches} dispatches, {s.compiles} compiles, "
-          f"{s.exec_cache_hits} exec cache hits, "
-          f"{s.filler_slots} filler slots")
-    print(f"cold {cold_s:.2f}s (incl. {s.compiles} compiles), "
-          f"warm {warm_s:.2f}s "
-          f"({args.requests / warm_s:.1f} req/s)")
+    say(f"stats: {s.dispatches} dispatches, {s.compiles} compiles, "
+        f"{s.exec_cache_hits} exec cache hits, "
+        f"{s.filler_slots} filler slots")
+    say(f"cold {cold_s:.2f}s (incl. {s.compiles} compiles), "
+        f"warm {warm_s:.2f}s "
+        f"({args.requests / warm_s:.1f} req/s)")
     if dev.type == "cuda":
         static, pools = engine.memory_reckoning()
-        print(f"graphs: {engine.graphs} held for {len(buckets)} buckets "
-              f"({stats_cold.compiles} captured cold, "
-              f"{stats_warm.compiles} warm); static buffers {static} B, "
-              f"graph pools {pools} B")
+        say(f"graphs: {engine.graphs} held for {len(buckets)} buckets "
+            f"({stats_cold.compiles} captured cold, "
+            f"{stats_warm.compiles} warm); static buffers {static} B, "
+            f"graph pools {pools} B")
 
     loop_s = None
     if not args.no_loop_compare:
         loop = MSCServeEngine(cfg, max_batch=1,
-                              bucket_quantum=args.bucket_quantum, device=dev)
+                              bucket_quantum=args.bucket_quantum, device=dev,
+                              mesh=mesh)
         loop.run(tensors)  # capture its graphs
         t0 = time.perf_counter()
         loop.run(tensors)
         loop_s = time.perf_counter() - t0
         loop.close()
-        print(f"looped (B=1) warm {loop_s:.2f}s → batched speedup "
-              f"{loop_s / warm_s:.2f}x")
+        say(f"looped (B=1) warm {loop_s:.2f}s → batched speedup "
+            f"{loop_s / warm_s:.2f}x")
     out = {"engine": engine, "specs": specs, "results": results,
            "recs": recs, "sweeps": sweeps, "buckets": buckets,
            "stats_cold": stats_cold, "stats_warm": stats_warm,
            "cold": cold_s, "warm": warm_s, "loop_warm": loop_s,
            "continuous": None}
     if args.continuous:
-        out["continuous"] = run_continuous(args, cfg, tensors, dev)
+        out["continuous"] = run_continuous(args, cfg, tensors, dev, mesh,
+                                           say)
     return out
 
 
+def _silent(*args, **kw) -> None:
+    """The print of a rank other than 0."""
+
+
 def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
-                   dev: torch.device) -> dict:
+                   dev: torch.device, mesh=None, say=print) -> dict:
     """The stream through MSCContinuousEngine under Poisson arrivals,
-    every bucket warmed off the clock first, with the reference's lines."""
-    print(f"\ncontinuous decode loop: Poisson arrivals "
-          f"{args.arrival_rate}/tick, slow-every={args.slow_every}")
+    every bucket warmed off the clock first, with the reference's lines
+    (on `mesh` when given)."""
+    say(f"\ncontinuous decode loop: Poisson arrivals "
+        f"{args.arrival_rate}/tick, slow-every={args.slow_every}")
     ceng = MSCContinuousEngine(cfg, slots=args.slots or args.max_batch,
                                bucket_quantum=args.bucket_quantum,
                                chunks_per_step=int(args.chunks_per_step),
-                               device=dev)
+                               device=dev, mesh=mesh)
     probes = {}  # warm every bucket's programs off the clock
     for t in tensors:
         probes.setdefault(ceng.bucket_of(t.shape), t)
@@ -273,39 +326,39 @@ def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
     results, ticks, stream_s, shed = simulate_continuous(
         ceng, tensors, arrival_rate=args.arrival_rate, seed=args.seed)
     cs = ceng.stats.delta(base)  # the stream only, not the warm-up
-    print(f"streamed {len(results)} results over {ticks} ticks in "
-          f"{stream_s:.2f}s ({len(results) / stream_s:.1f} req/s)")
-    print(f"  occupancy {cs.occupancy:.2f} "
-          f"({cs.busy_slot_chunks}/{cs.slot_chunks} slot-chunks), "
-          f"{cs.evictions} evictions, {cs.refills} refills, "
-          f"mean queue wait "
-          f"{cs.queue_wait_chunks / max(cs.requests, 1):.2f} chunks")
+    say(f"streamed {len(results)} results over {ticks} ticks in "
+        f"{stream_s:.2f}s ({len(results) / stream_s:.1f} req/s)")
+    say(f"  occupancy {cs.occupancy:.2f} "
+        f"({cs.busy_slot_chunks}/{cs.slot_chunks} slot-chunks), "
+        f"{cs.evictions} evictions, {cs.refills} refills, "
+        f"mean queue wait "
+        f"{cs.queue_wait_chunks / max(cs.requests, 1):.2f} chunks")
     ss = ceng.stats  # cumulative; p50/p99 rolling
-    print(f"  scheduler: {ss.preemptions} preemptions, "
-          f"{ss.resumes} resumes, {ss.deadline_misses} deadline "
-          f"misses, {ss.slo_sheds} SLO-shed ({shed} dropped), "
-          f"{ss.idle_bucket_ticks} idle-bucket ticks, queue wait "
-          f"p50 {ss.queue_wait_p50_chunks:.1f} / "
-          f"p99 {ss.queue_wait_p99_chunks:.1f} chunks")
-    print(f"  fault tolerance: {ss.checkpoints_written} checkpoints, "
-          f"{ss.restores} restores, {ss.retries} retries, "
-          f"{ss.shed_requests} shed, "
-          f"{ss.fallback_requests} fallback-served, "
-          f"{ss.heartbeats_missed} heartbeats missed, "
-          f"{ss.host_losses} host losses, {ss.reinits} reinits, "
-          f"{ss.shard_files_written} shard files, "
-          f"{ss.cache_hits} cache hits / {ss.cache_misses} misses, "
-          f"{ss.warm_starts} warm starts "
-          f"({ss.warm_sweeps_saved} sweeps saved)")
+    say(f"  scheduler: {ss.preemptions} preemptions, "
+        f"{ss.resumes} resumes, {ss.deadline_misses} deadline "
+        f"misses, {ss.slo_sheds} SLO-shed ({shed} dropped), "
+        f"{ss.idle_bucket_ticks} idle-bucket ticks, queue wait "
+        f"p50 {ss.queue_wait_p50_chunks:.1f} / "
+        f"p99 {ss.queue_wait_p99_chunks:.1f} chunks")
+    say(f"  fault tolerance: {ss.checkpoints_written} checkpoints, "
+        f"{ss.restores} restores, {ss.retries} retries, "
+        f"{ss.shed_requests} shed, "
+        f"{ss.fallback_requests} fallback-served, "
+        f"{ss.heartbeats_missed} heartbeats missed, "
+        f"{ss.host_losses} host losses, {ss.reinits} reinits, "
+        f"{ss.shard_files_written} shard files, "
+        f"{ss.cache_hits} cache hits / {ss.cache_misses} misses, "
+        f"{ss.warm_starts} warm starts "
+        f"({ss.warm_sweeps_saved} sweeps saved)")
     if dev.type == "cuda":
         static, pools = ceng.memory_reckoning()
-        print(f"  graphs: {ceng.graphs} held for {len(probes)} buckets "
-              f"({base.compiles} captured warming up, {cs.compiles} in "
-              f"the stream); static buffers {static} B, graph pools "
-              f"{pools} B")
+        say(f"  graphs: {ceng.graphs} held for {len(probes)} buckets "
+            f"({base.compiles} captured warming up, {cs.compiles} in "
+            f"the stream); static buffers {static} B, graph pools "
+            f"{pools} B")
     for i in (0, len(tensors) - 1):
         sw = [results[i][j].power_iters_run for j in range(3)]
-        print(f"  req {i}: sweeps={sw}")
+        say(f"  req {i}: sweeps={sw}")
     return {"engine": ceng, "results": results, "ticks": ticks,
             "stream_s": stream_s, "stats_warmup": base,
             "stats_stream": cs}
@@ -313,9 +366,8 @@ def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
 
 def main(argv=None) -> int:
     out = run(parse_args(argv))
-    out["engine"].close()
-    if out["continuous"] is not None:
-        out["continuous"]["engine"].close()
+    if out is not None:
+        _close(out)
     return 0
 
 

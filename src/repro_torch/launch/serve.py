@@ -1,17 +1,26 @@
 """Batched LM serving CLI — counterpart of `repro/launch/serve.py`.
 
-Prefill, then greedy decode with the KV cache, on one device, with
-random weights from seed 0.  The reference's flags, plus `--device`
-(default `cuda`; `cpu` runs the kernels' plain versions) and
-`--attn-impl` (default: the config's own, `chunked`; `pallas` sends
-the encoder's self-attention and every cross-attention through the
-hand-written CUDA kernel).
+Prefill, then greedy decode with the KV cache, with random weights from
+seed 0.  The reference's flags, plus `--device` (default `cuda`; `cpu`
+runs the kernels' plain versions), `--attn-impl` (default: the config's
+own, `chunked`; `pallas` sends the encoder's self-attention and every
+cross-attention through the hand-written CUDA kernel) and `--nproc`.
+
+Without `--production-mesh` or `--model-axis` it serves on one device.
+With either it serves on a (data, model) mesh of ranks, one process per
+device (`launch/mesh.py`): `--nproc N` spawns N ranks (gloo on the CPU,
+NCCL on N cards), and under `torchrun` every process it starts is a
+rank; `--model-axis` is clamped to a divisor of the rank count, as the
+reference clamps it, and `--production-mesh` needs 256 ranks.  Every rank
+serves the same batch and rank 0 prints.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
       --batch 16 --prompt-len 32 --gen 16 --attn-impl pallas
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
       --reduced --device cpu --attn-impl pallas
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --reduced --device cpu --nproc 4 --model-axis 2
 """
 from __future__ import annotations
 
@@ -25,11 +34,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.inputs import make_batch
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
+                                     mesh_dims, on_ranks)
 from repro_torch.models import build_model
 from repro_torch.serving.engine import ServeEngine
-
-MESH_TODO = ("serving over a device mesh is not ported yet: ROADMAP.md, "
-             "queue 1 item 9 (rest) (the port serves on one device)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -45,19 +53,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=("full", "chunked", "pallas"),
                     help="attention route (default: the config's own); "
                          "pallas is the CUDA kernel")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="spawn this many ranks, one per device (gloo on "
+                         "the CPU, NCCL on the cards); torchrun's "
+                         "processes join without it")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
     return ap.parse_args(argv)
 
 
-def build(args: argparse.Namespace):
+def build(args: argparse.Namespace, dev=None, mesh=None):
     """(engine, batch) for the arguments: the model at the arch's
     published size (or reduced), random weights from seed 0 and a batch
-    from seed 0, on the requested device."""
-    if args.production_mesh or args.model_axis != 1:
-        raise NotImplementedError(MESH_TODO)
-    dev = resolve_device(args.device)
+    from seed 0, on the requested device, or on `mesh` (this rank's
+    shards of the same weights) on `dev`."""
+    dev = resolve_device(args.device) if dev is None else dev
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -66,30 +77,62 @@ def build(args: argparse.Namespace):
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     engine = ServeEngine(model, params, args.batch,
-                         args.prompt_len + args.gen)
+                         args.prompt_len + args.gen, mesh=mesh)
     batch = make_batch(cfg, args.batch, args.prompt_len, kind="serve",
                        device=dev)
     return engine, batch
 
 
-def run(args: argparse.Namespace) -> dict:
-    """Serve one batch.  Returns the generated ids, the host seconds and
-    the engine's device timings of `generate`, the config and the
-    flash_attention launches of the run."""
-    engine, batch = build(args)
+def run(args: argparse.Namespace):
+    """Serve one batch and print the reference's lines (rank 0's on a
+    mesh).  Returns the generated ids, the host seconds and the engine's
+    device timings of `generate`, the config, the mesh's dims (None on
+    one device) and the flash_attention launches of the run; under
+    torchrun rank 0's (None on the other ranks); with --nproc the ranks
+    run in new processes and this returns None."""
+    return on_ranks(args, _serve_and_report)
+
+
+def _serve(args: argparse.Namespace, dev) -> dict:
+    """One batch served on `dev`: on the production mesh with
+    --production-mesh (which raises with fewer than 256 ranks), on the
+    (data, model) mesh of every rank when the process group is up, else
+    on one device (--model-axis clamps to the one rank, as the
+    reference's make_local_mesh does)."""
+    import torch.distributed as dist
+
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh(device_type=dev.type)
+    elif dist.is_available() and dist.is_initialized():
+        mesh = make_local_mesh(args.model_axis, dev.type)
+    engine, batch = build(args, dev, mesh)
     n0 = kfa.launches
     t0 = time.perf_counter()
     out = engine.generate(batch, args.gen)
     dt = time.perf_counter() - t0
+    engine.close()
     return {"tokens": out, "seconds": dt, "timings": engine.timings,
-            "cfg": engine.model.cfg, "flash_launches": kfa.launches - n0}
+            "cfg": engine.model.cfg, "flash_launches": kfa.launches - n0,
+            "mesh": None if mesh is None else mesh_dims(mesh)}
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    res = run(args)
+def _serve_and_report(args: argparse.Namespace, dev) -> dict:
+    import torch.distributed as dist
+
+    res = _serve(args, dev)
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_rank() == 0:
+        report(args, res)
+    return res
+
+
+def report(args, res) -> None:
+    """The reference's lines, and the port's timings and launches."""
     cfg, out, dt, tm = res["cfg"], res["tokens"], res["seconds"], \
         res["timings"]
+    if res["mesh"] is not None:
+        print(f"mesh: {res['mesh']}")
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen}")
     print(f"generated shape={tuple(out.shape)} in {dt:.2f}s "
@@ -99,6 +142,10 @@ def main(argv=None) -> int:
           f"prefill_ms={tm['prefill_ms']:.3f} "
           f"decode_ms_per_token={tm['decode_ms'] / max(args.gen, 1):.3f} "
           f"flash_attention launches={res['flash_launches']}")
+
+
+def main(argv=None) -> int:
+    run(parse_args(argv))
     return 0
 
 

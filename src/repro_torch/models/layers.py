@@ -1,8 +1,15 @@
 """Shared transformer layers — counterpart of `repro/models/layers.py`.
 
 Functions of (params, x, cfg, ...) → y as in the reference; `p` is a
-`ParamTree` read like the reference's dict.  The reference's activation
-sharding constraints have no counterpart on one device and are dropped.
+`ParamTree` read like the reference's dict.  Under
+`sharding/activation.py:activation_sharding` (one rank of an LM serving
+mesh) `p` holds local shards and the layers run the collectives where
+GSPMD places them: each parameter gathered over "data" where it is used,
+the heads and the FFN cut over "model" (the products over them summed),
+a KV projection cut over its head dim gathered whole, and a KV cache
+cut over its time or head dim gathered for the step and written back to
+the rank's shard.  The reference's `constrain` points are kept.  Outside
+it every one of those is the identity.
 
 Attention implementations (cfg.attn_impl), dispatched under the
 reference's three conditions (`attention` below):
@@ -21,6 +28,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.activation import (constrain, current, held_of,
+                                             hold, is_model, on_model,
+                                             psum_model, use)
 
 from .config import ModelConfig
 from .params import ParamDef
@@ -41,7 +52,7 @@ def rmsnorm(p, x, eps: float):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + p["scale"].float())).to(x.dtype)
+    return (y * (1.0 + use(p["scale"]).float())).to(x.dtype)
 
 
 # ----------------------------------------------------------------- rope ----
@@ -176,6 +187,52 @@ def _attn_pallas(q, k, v, *, scale, causal, window, softcap, q_offset):
     return o.reshape(b, hk, g, sq, dh).permute(0, 3, 1, 2, 4)
 
 
+def _cache_want(held):
+    """The layout a cache leaf is read in for a step: its batch cut and a
+    kv-head cut over "model" kept, its time and head-dim cuts gathered."""
+    return (held[0], None,
+            held[2] if is_model(held[2]) else None, None)
+
+
+def _cache_view(t: torch.Tensor) -> torch.Tensor:
+    """A cache leaf whole over time and head dim for this step (the local
+    shard itself when nothing is cut there)."""
+    ctx, held = current(), held_of(t)
+    if ctx is None or held is None:
+        return t
+    return ctx.reshard(t, held, _cache_want(held))
+
+
+def _cache_store(local: torch.Tensor, view: torch.Tensor) -> None:
+    """Write the rank's shard of a step's cache view back (nothing when the
+    view is the shard)."""
+    if view is not local:
+        held = held_of(local)
+        local.copy_(current().reshard(view, _cache_want(held), held))
+
+
+def _as_cache(t: torch.Tensor, held_now) -> torch.Tensor:
+    """A whole-time (B, T, K, dh) projection as a cache leaf: the rank's
+    shard under the cache spec of its global shape, marked with it."""
+    ctx = current()
+    if ctx is None:
+        return t
+    spec = ctx.cache_spec(ctx.global_shape(t, held_now))
+    return hold(ctx.reshard(t, held_now, spec).contiguous(), spec)
+
+
+def _kv_for_heads(k, v, h_loc: int, h0: int, cfg: ModelConfig):
+    """k, v (B, T, K', dh) narrowed to the kv heads of this rank's query
+    heads h0 … h0 + h_loc − 1 (query head h reads kv head h // G).  Returns
+    (k, v) with h_loc a multiple of their head count, heads in order."""
+    g = padded_heads(cfg) // cfg.n_kv_heads
+    if k.shape[2] * g == h_loc:  # the rank's kv heads are its groups'
+        return k, v
+    idx = torch.div(h0 + torch.arange(h_loc, device=k.device), g,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
               pos_offset=0, kv_cache: Optional[Tuple] = None,
               cache_len=None, kv_source: Optional[torch.Tensor] = None,
@@ -198,19 +255,32 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
     h = padded_heads(cfg)
     cd = cfg.cdtype
     dev = x.device
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(cd))
+    ctx = current()
+    q = torch.einsum("bsd,dhe->bshe", x, use(p["wq"]).to(cd))
+    h_loc = q.shape[2]  # this rank's query heads: h0 … h0 + h_loc − 1
+    h0 = ctx.model_index() * h_loc if on_model(p["wq"], 1) else 0
     is_cross = kv_source is not None or static_kv is not None
     if static_kv is not None:
-        k, v = static_kv
+        k, v = (_cache_view(t) for t in static_kv)
     else:
         src = x if kv_source is None else kv_source
-        k = torch.einsum("bsd,dhe->bshe", src, p["wk"].to(cd))
-        v = torch.einsum("bsd,dhe->bshe", src, p["wv"].to(cd))
+        k = torch.einsum("bsd,dhe->bshe", src, use(p["wk"]).to(cd))
+        v = torch.einsum("bsd,dhe->bshe", src, use(p["wv"]).to(cd))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(cd)
+        q = q + use(p["bq"]).to(cd)
         if static_kv is None:
-            k = k + p["bk"].to(cd)
-            v = v + p["bv"].to(cd)
+            k = k + use(p["bk"]).to(cd)
+            v = v + use(p["bv"]).to(cd)
+    kv_held = None
+    if ctx is not None and static_kv is None:
+        # kv heads the model dim does not divide: the projection is cut
+        # over its head dim, gathered whole before rope and the cache
+        kv_held = (ctx.batch_entry, None,
+                   "model" if on_model(p["wk"], 1) else None,
+                   "model" if on_model(p["wk"], 2) else None)
+        k = constrain(k, ("batch", None, "model", None), kv_held)
+        v = constrain(v, ("batch", None, "model", None), kv_held)
+        kv_held = kv_held[:3] + (None,)
 
     if not is_cross:
         qpos_vec = pos_offset + torch.arange(s, device=dev)
@@ -219,11 +289,14 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
 
     kpos_vec = None
     if is_cross:
-        new_cache = (k, v)  # prefill caches the encoder projections
+        # prefill caches the encoder projections (the rank's shards)
+        new_cache = ((k, v) if kv_held is None else
+                     (_as_cache(k, kv_held), _as_cache(v, kv_held)))
         kv_len = k.shape[1]
         qpos = torch.arange(s, device=dev)
     elif kv_cache is not None:
-        ck, cv = kv_cache
+        ck_local, cv_local = kv_cache
+        ck, cv = _cache_view(ck_local), _cache_view(cv_local)
         w_buf = ck.shape[1]
         ring = (kind == "local" and cfg.local_window is not None
                 and w_buf == cfg.local_window)
@@ -240,7 +313,7 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
             tail = max(s - w_buf, 0)
             ck[:, slots[tail:]] = k[:, tail:].to(ck.dtype)
             cv[:, slots[tail:]] = v[:, tail:].to(cv.dtype)
-            new_cache = (ck, cv)
+            new_cache = (ck_local, cv_local)
             qpos = cache_len + torch.arange(s, device=dev)
             if s == 1:
                 j = torch.arange(w_buf, device=dev)
@@ -259,7 +332,7 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
             ck.index_copy_(1, pos, k.to(ck.dtype))
             cv.index_copy_(1, pos, v.to(cv.dtype))
             k, v = ck, cv
-            new_cache = (ck, cv)
+            new_cache = (ck_local, cv_local)
             kv_len = cache_len + s
             qpos = cache_len + torch.arange(s, device=dev)
     else:
@@ -267,7 +340,11 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
         kv_len = k.shape[1]
         qpos = qpos_vec
 
-    qg = _grouped(q, hk)
+    if kv_cache is not None and not is_cross:
+        _cache_store(ck_local, ck)
+        _cache_store(cv_local, cv)
+    k, v = _kv_for_heads(k, v, h_loc, h0, cfg)
+    qg = _grouped(q, k.shape[2])
     scale = dh ** -0.5
     window = cfg.local_window if kind == "local" else None
     softcap = cfg.attn_softcap
@@ -291,15 +368,17 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
                             window=window, softcap=softcap, qpos=qpos,
                             kv_len=kv_len, chunk=cfg.attn_chunk,
                             kpos_vec=kpos_vec)
+    out = out.reshape(b, s, h_loc, dh)
     if h > cfg.n_heads:
         # zero the TP-padding heads (grouped layout: the first
         # n_heads//n_kv_heads slots of each kv group are the real heads)
         g_real = cfg.n_heads // hk
-        gmask = torch.arange(out.shape[3], device=dev) < g_real
-        out = out * gmask[None, None, None, :, None].to(out.dtype)
-    out = out.reshape(b, s, h, dh).to(cd)
-    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd))
-    return y, new_cache
+        heads = h0 + torch.arange(h_loc, device=dev)
+        hmask = torch.remainder(heads, h // hk) < g_real
+        out = out * hmask[None, None, :, None].to(out.dtype)
+    out = out.to(cd)
+    y = torch.einsum("bshe,hed->bsd", out, use(p["wo"]).to(cd))
+    return psum_model(y, p["wo"], 0), new_cache
 
 
 # ------------------------------------------------------------------ mlp ----
@@ -321,10 +400,15 @@ def _act(x, name):
 
 def mlp(p, x, cfg: ModelConfig):
     cd = cfg.cdtype
-    h = _act(x @ p["w1"].to(cd), cfg.act)
+    h = _act(x @ use(p["w1"]).to(cd), cfg.act)
     if "w3" in p:
-        h = h * (x @ p["w3"].to(cd))
-    return h @ p["w2"].to(cd)
+        h = h * (x @ use(p["w3"]).to(cd))
+    ctx = current()
+    if ctx is not None:
+        h = constrain(h, ("batch",) + (None,) * (h.dim() - 2) + ("model",),
+                      (ctx.batch_entry,) + (None,) * (h.dim() - 2)
+                      + ("model" if on_model(p["w1"], 1) else None,))
+    return psum_model(h @ use(p["w2"]).to(cd), p["w2"], 0)
 
 
 # ------------------------------------------------------------------ moe ----

@@ -16,7 +16,11 @@ a tuple under "tail", written in place by the decode step.
 On this path the attention kernel runs in the encoder's self-attention
 and in every cross-attention (prefill and decode); the decoder's
 self-attention has a KV cache and takes the chunked route
-(`layers.attention`).  The training side (`lm_loss`, `loss_fn`), the SSM
+(`layers.attention`).  Under `sharding/activation.py:activation_sharding`
+the model runs as one rank of an LM serving mesh: the embedding looks
+its tokens up in the rank's vocab rows (summed over "model"), the caches
+are made as the rank's shards (`init_cache`) and the logits are gathered
+whole over the vocab.  The training side (`lm_loss`, `loss_fn`), the SSM
 and RG-LRU blocks and MoE are not ported yet (ROADMAP.md, queue 1 item
 12).
 """
@@ -27,6 +31,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.activation import (constrain, current, hold,
+                                             on_model, use)
 
 from .config import ModelConfig
 from .params import ParamDef, init_params, stack_defs
@@ -147,9 +154,40 @@ def _zeros_like_shapes(tree, dtype, device):
     return tuple(_zeros_like_shapes(v, dtype, device) for v in tree)
 
 
+def _shard_leaves(tree, ctx):
+    """Under a mesh, each cache leaf's global shape → (local shape, its
+    cache spec)."""
+    if isinstance(tree, dict):
+        return {k: _shard_leaves(v, ctx) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shard_leaves(v, ctx) for v in tree]
+    if tree and isinstance(tree[0], int):
+        spec = ctx.cache_spec(tree)
+        return ("leaf", ctx.local_shape(tree, spec), spec)
+    return tuple(_shard_leaves(v, ctx) for v in tree)
+
+
+def _zeros_of(tree, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _zeros_of(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_of(v, dtype, device) for v in tree]
+    if tree and tree[0] == "leaf":
+        return hold(torch.zeros(tree[1], dtype=dtype, device=device),
+                    tree[2])
+    return tuple(_zeros_of(v, dtype, device) for v in tree)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    return _zeros_like_shapes(cache_shapes(cfg, batch, max_len),
-                              cfg.cdtype, device)
+    """A zero cache for `batch` sequences; under a mesh `batch` is the
+    rank's rows and each leaf is the rank's shard of the global cache
+    (marked with its spec)."""
+    ctx = current()
+    if ctx is None:
+        return _zeros_like_shapes(cache_shapes(cfg, batch, max_len),
+                                  cfg.cdtype, device)
+    shapes = cache_shapes(cfg, batch * ctx.size(ctx.batch_entry), max_len)
+    return _zeros_of(_shard_leaves(shapes, ctx), cfg.cdtype, device)
 
 
 # ----------------------------------------------------------- blocks ----
@@ -157,7 +195,7 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, cache=None,
                  cache_len=None, enc_out=None, pos_offset=0, causal=True):
     """One residual block.  Returns (x, new_cache)."""
     new_cache = dict(cache) if cache is not None else None
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = constrain(L.rmsnorm(p["ln1"], x, cfg.norm_eps), ("batch", None, None))
     y, kvc = L.attention(
         p["attn"], h, cfg, kind=kind, pos_offset=pos_offset,
         kv_cache=cache["attn"] if cache is not None else None,
@@ -212,14 +250,15 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
     kinds, n_scan, n_rest = _pattern(cfg)
     period = _period(cfg)
     cd = cfg.cdtype
-    x = F.embedding(tokens, params["embed"]).to(cd)
+    x = _embed(params["embed"], tokens).to(cd)
+    x = constrain(x, ("batch", None, None))
     if prefix_embed is not None:
         pfx = prefix_embed.to(cd)
         x = torch.cat([pfx, x[:, pfx.shape[1]:]], dim=1)
 
     enc_out = None
     if cfg.is_encdec and enc_frames is not None:
-        e = enc_frames.to(cd) + params["enc_pos"].to(cd)[None]
+        e = enc_frames.to(cd) + use(params["enc_pos"]).to(cd)[None]
         for p_layer in params["enc_layers"]:
             e, _ = _apply_block(p_layer, e, cfg, "attn", causal=False)
         enc_out = L.rmsnorm(params["enc_norm"], e, cfg.norm_eps)
@@ -233,6 +272,7 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
         x, nc = _superblock(params["layers"][i], x, cfg, kinds_period,
                             cache=c_sb, cache_len=cache_len,
                             enc_out=enc_out, pos_offset=pos_offset)
+        x = constrain(x, ("batch", None, None))
         new_layers.append(nc)
 
     new_tail = []
@@ -255,18 +295,39 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
     return x, new_cache
 
 
+def _embed(emb, tokens):
+    """The token embeddings.  With the vocab cut over "model" each rank
+    looks up the tokens in its rows (zeros for the others) and the ranks'
+    rows are summed: exact, each token's row is found on one rank."""
+    w = use(emb)
+    if not on_model(emb, 0):
+        return F.embedding(tokens, w)
+    ctx = current()
+    rows = w.shape[0]
+    local = tokens - ctx.model_index() * rows
+    inside = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), w) * inside[..., None]
+    return ctx.psum(x, "model")
+
+
 def _head_weight(params, cfg):
+    """(the head weight (D, V), its vocab dim cut over "model")."""
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["lm_head"]
+        return use(params["embed"]).T, on_model(params["embed"], 0)
+    return use(params["lm_head"]), on_model(params["lm_head"], 1)
 
 
 def logits_last(params, hidden, cfg: ModelConfig):
-    """Decode-time logits for the final position only, fp32."""
-    w = _head_weight(params, cfg).to(cfg.cdtype)
-    logits = (hidden[:, -1] @ w).float()
+    """Decode-time logits for the final position only, fp32 (whole over
+    the vocab on every rank of a mesh)."""
+    w, cut = _head_weight(params, cfg)
+    logits = (hidden[:, -1] @ w.to(cfg.cdtype)).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    if cut:
+        ctx = current()
+        logits = ctx.reshard(logits, (ctx.batch_entry, "model"),
+                             (ctx.batch_entry, None))
     return logits
 
 

@@ -8,6 +8,13 @@ buffers the caller writes in place, and tensors the capture allocated
 from the graph's memory pool, `Step.out`).  A capture that fails raises;
 nothing falls back to eager launches.
 
+On a mesh of NCCL ranks a step holds the ranks' collectives, captured
+as graph nodes: every rank captures and replays the same steps in the
+same order.  The caller's warm-up runs each function once eagerly on the
+capture stream first, which also makes each communicator (a first NCCL
+call inside a capture fails).  gloo collectives cannot be captured; on
+the CPU the steps run eagerly.
+
 Launch counts: a kernel wrapper called under capture adds to its
 module's `captured` count and launches nothing; each replay adds the
 launches its capture recorded to the module's `launches`, so the counts
@@ -16,6 +23,8 @@ are those of kernels that reached the device.
 from __future__ import annotations
 
 import functools
+import inspect
+import weakref
 from typing import Callable, Sequence
 
 import torch
@@ -64,14 +73,21 @@ def warm_up(fns: Sequence[Callable], device: torch.device) -> None:
 
 
 class Step:
-    """fn as one program on `device`: captured into a CUDA graph (in the
-    memory pool `pool`, shared by the steps of one caller) and replayed on
-    a card, called on the CPU.  `out` is what the capture returned;
-    `pool_bytes` the device memory the capture added to the pools;
-    `launches` the kernel launches of one replay, by module."""
+    """fn(*args) as one program on `device`: captured into a CUDA graph
+    (in the memory pool `pool`, shared by the steps of one caller) and
+    replayed on a card, called on the CPU.  `out` is what the capture
+    returned; `pool_bytes` the device memory the capture added to the
+    pools; `launches` the kernel launches of one replay, by module.
 
-    def __init__(self, fn: Callable, device: torch.device, pool=None):
-        self.fn = fn
+    A bound method is held weakly: its object usually holds the step, and
+    a cycle would keep a dropped owner's graph (and on a mesh the
+    communicators it captured) alive until a garbage collection."""
+
+    def __init__(self, fn: Callable, device: torch.device, pool=None,
+                 args: tuple = ()):
+        self._fn = (weakref.WeakMethod(fn) if inspect.ismethod(fn)
+                    else lambda: fn)
+        self._args = tuple(args)
         self.graph = None
         self.out = None
         self.pool_bytes = 0
@@ -85,7 +101,7 @@ class Step:
             with torch.cuda.graph(self.graph, pool=pool,
                                   stream=capture_stream(device)):
                 reserved = torch.cuda.memory_reserved(device)
-                self.out = fn()
+                self.out = fn(*self._args)
                 self.pool_bytes = (torch.cuda.memory_reserved(device)
                                    - reserved)
         self.launches = {m: m.captured - b for m, b in zip(mods, before)
@@ -98,7 +114,7 @@ class Step:
     def __call__(self):
         """Replay (a card) or call (the CPU); returns the step's output."""
         if self.graph is None:
-            return self.fn()
+            return self._fn()(*self._args)
         self.graph.replay()
         for mod, n in self.launches.items():
             mod.launches += n

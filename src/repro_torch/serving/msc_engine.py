@@ -1,6 +1,6 @@
-"""Batched multi-tensor MSC serving on one device.
+"""Batched multi-tensor MSC serving, on one device or on a mesh of ranks.
 
-Counterpart of the static engine in `repro/serving/msc_engine.py`.  Many
+Counterpart of the engines in `repro/serving/msc_engine.py`.  Many
 independent MSC requests share one dispatch per microbatch:
 
   * shape buckets — request dims round up to multiples of
@@ -28,8 +28,18 @@ independent MSC requests share one dispatch per microbatch:
     with (1, 1, 1) zero requests that converge at the first gate probe
     and never hold the batch back.
 
+On a mesh (`launch/mesh.py:make_msc_mesh`, the flat schedule's roles)
+every rank builds the engine with the same arguments, submits the same
+requests in the same order and packs its own block of each; every rank
+then captures and replays the same graphs in the same order, each holding
+the bucket's collectives (the gate's all_reduce, the λ max, the epilogue,
+the gather of d and λ), and every decision the host makes (the gated
+loop's exit, admission, eviction, rotation) reads values that are the
+same on every rank.  Results and `ServeStats` come back the same on every
+rank.  Bucket dims round up to the shard counts too (`_bucket_quantum`).
+
 A warm engine holds each bucket's static buffers and graph pool
-(`memory_reckoning`); `close()` releases them.  Results come back per
+(`memory_reckoning`: one rank's bytes); `close()` releases them.  Results come back per
 request on the host (CPU tensors and Python ints), trimmed to the true
 sizes, with each request's own `power_iters_run`.  The eager runner
 `core.parallel.build_msc_batched` computes the same results and is what
@@ -47,22 +57,22 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from collections import defaultdict, deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.msc import MODE_PERMS
-from repro_torch.core.parallel import (C_OF, MSCChunkPlan, batch_perm,
-                                       check_relayout)
+from repro_torch.core.parallel import (C_OF, MSCChunkPlan, _collective_blocks,
+                                       _flat_schedule, _mesh_device,
+                                       batch_perm, check_relayout,
+                                       collective_pads)
 from repro_torch.core.power_iter import (SolveState, _gated_loop,
                                          compute_dtype, init_solve_state)
-from repro_torch.core.schedule import TIERS_TODO, ModeSchedule
-from repro_torch.core.types import (ModeResult, MSCConfig, MSCResult,
-                                    resolve_device)
+from repro_torch.core.schedule import TIERS_TODO, ModeSchedule, pad_to
+from repro_torch.core.types import ModeResult, MSCConfig, MSCResult
 from repro_torch.serving.graphs import Step, warm_up
-from repro_torch.sharding.specs import MESH_REST_TODO
 
 # filler requests need >= 1 valid slice and column per mode: an all-zero
 # (1, 1, 1) request has zero residual (its gate fires at the first probe)
@@ -137,12 +147,19 @@ class ServeStats:
                                 dataclasses.astuple(other))))
 
 
-def _bucket_quantum(bucket_quantum: int) -> int:
-    """The reference rounds the quantum up to a multiple of the mesh's
-    shard counts; one device has one shard, so the quantum stands."""
+def _bucket_quantum(bucket_quantum: int, sched=None) -> int:
+    """The quantum rounded up to a multiple of the schedule's shard counts
+    (`sched`: the engine's ModeSchedule), so that bucket padding already
+    meets the schedule's even-shard contract.  Each dim is a slice dim (a
+    multiple of p) in one mode and a row dim (a multiple of q) in another,
+    so lcm(p, q) is enough, not p·q.  One device has one shard: the
+    quantum stands."""
     if int(bucket_quantum) < 1:
         raise ValueError(f"bucket_quantum must be >= 1, got {bucket_quantum}")
-    return int(bucket_quantum)
+    if sched is None:
+        return int(bucket_quantum)
+    return pad_to(int(bucket_quantum),
+                  math.lcm(sched.slice_shards, sched.inner_shards))
 
 
 def _bucket_of(shape: Sequence[int], quantum: int) -> Tuple[int, int, int]:
@@ -157,23 +174,30 @@ class _BucketProgram:
     one graph memory pool.
 
     `batch` (B, M1, M2, M3) and `dims` (B, 3) are written in place per
-    dispatch; `flat` holds modes 1 and 2's unfoldings in turn (mode 0's
-    is the batch itself).  Everything else the steps use (operands, the
-    solve carry, results) is allocated by the captures from the pool, at
-    addresses every replay reuses.  The tail drops the mode's operands
+    dispatch; on one device `flat` holds modes 1 and 2's unfoldings in
+    turn (mode 0's is the batch itself).  On a mesh each head cuts this
+    rank's block of its mode's unfolding from the batch ("gspmd"), or the
+    first head makes all three by the all_to_all relayout ("collective",
+    "collective_stream": `core/parallel.py:_collective_blocks`) and each
+    head takes its own.  Everything else the steps use (blocks, operands,
+    the solve carry, results) is allocated by the captures from the pool,
+    at addresses every replay reuses.  The tail drops the mode's operands
     once captured, so the next mode's head may reuse their memory: the
     steps replay in the order they were captured.
     """
 
     def __init__(self, sched: ModeSchedule, bucket, batch: int, dtype,
-                 device: torch.device):
+                 device: torch.device, relayout: str = "gspmd"):
         self.sched = sched
         self.device = device
+        self.relayout = relayout
         self.batch = torch.zeros((batch,) + tuple(bucket), dtype=dtype,
                                  device=device)
         self.dims = torch.ones((batch, 3), dtype=torch.int32, device=device)
-        self.flat = torch.empty(self.batch.numel(), dtype=dtype,
+        self.flat = torch.empty(0 if sched.mesh is not None
+                                else self.batch.numel(), dtype=dtype,
                                 device=device)
+        self.coll: List[Optional[torch.Tensor]] = [None] * 3
         self.pool = (torch.cuda.graph_pool_handle()
                      if device.type == "cuda" else None)
         self.steps: List[Optional[Tuple[Step, Step, Step]]] = [None] * 3
@@ -196,11 +220,12 @@ class _BucketProgram:
                    for st in steps)
 
     def release(self) -> None:
-        """Drop the steps and what they hold (the steps' functions refer
-        back to this object, so the graphs and their pool would otherwise
-        wait for the garbage collector)."""
+        """Drop the steps, their graphs and what the captures allocated
+        (the relayout's blocks among it): the pool's memory goes back
+        now, not when the engine is dropped."""
         self.steps = [None] * 3
         self.live = [{} for _ in range(3)]
+        self.coll = [None] * 3
 
     def load(self, tensors) -> np.ndarray:
         """Write the requests into the static batch (the rest zero) and
@@ -219,16 +244,31 @@ class _BucketProgram:
         return dims
 
     def _head(self, j: int) -> None:
-        if j == 0:
-            slices = self.batch
+        sched = self.sched
+        m_req, c_req = self.dims[:, j], self.dims[:, C_OF[j]]
+        if sched.mesh is not None and self.relayout != "gspmd":
+            if j == 0:
+                self.coll = list(_collective_blocks(
+                    sched, self.batch, self.relayout == "collective_stream"))
+            m_pad = collective_pads(sched, self.batch.shape[1:])[j]
+            # the slot stays filled: the warm-up and the capture each call
+            # this head, and the replays read the blocks head 0's capture
+            # made, at their addresses, until `release`
+            plan = sched.plan_block_batched(self.coll[j], c_req)
+            valid = sched.slice_mask(m_pad, m_req, self.device)
         else:
-            src = self.batch.permute(batch_perm(j))
-            slices = self.flat[:src.numel()].view(src.shape)
-            slices.copy_(src)
-        plan, valid = self.sched.plan_mode_batched(
-            slices, self.dims[:, j], self.dims[:, C_OF[j]])
-        self.live[j].update(plan=plan, valid=valid, gated=plan.gated,
-                            n_iters=plan.n_iters,
+            if j == 0 or sched.mesh is not None:
+                slices = self.batch.permute(batch_perm(j))
+            else:
+                src = self.batch.permute(batch_perm(j))
+                slices = self.flat[:src.numel()].view(src.shape)
+                slices.copy_(src)
+            m_pad, _ = sched.pad_amounts(*slices.shape[-3:-1])
+            plan, valid = sched.plan_mode_batched(slices, m_req, c_req)
+        whole = (torch.arange(m_pad, device=self.device)[None, :]
+                 < m_req[:, None])
+        self.live[j].update(plan=plan, valid=valid, whole=whole,
+                            gated=plan.gated, n_iters=plan.n_iters,
                             state=init_solve_state(plan.v0))
 
     def _chunk(self, j: int) -> None:
@@ -240,19 +280,18 @@ class _BucketProgram:
 
     def _tail(self, j: int) -> ModeResult:
         live = self.live[j]
-        state, valid = live["state"], live["valid"]
+        state = live["state"]
         d, lam = self.sched._similarity_tail(live.pop("plan").finish(state),
-                                             state.v, valid)
+                                             state.v, live.pop("valid"))
         return self.sched.finalize_mode_batched(d, lam, state.iters[..., None],
-                                                live.pop("valid"))
+                                                live.pop("whole"))
 
     def _steps(self, j: int) -> Tuple[Step, Step, Step]:
         if self.steps[j] is None:
-            fns = [functools.partial(f, j)
-                   for f in (self._head, self._chunk, self._tail)]
-            warm_up(fns, self.device)
-            self.steps[j] = tuple(Step(fn, self.device, self.pool)
-                                  for fn in fns)
+            fns = (self._head, self._chunk, self._tail)
+            warm_up([functools.partial(f, j) for f in fns], self.device)
+            self.steps[j] = tuple(Step(f, self.device, self.pool, (j,))
+                                  for f in fns)
             if self.device.type == "cuda":
                 self.compiles += sum(st.captured for st in self.steps[j])
             elif j == 0:  # nothing to capture: count the bucket's first
@@ -281,18 +320,21 @@ class _BucketProgram:
 
 
 class MSCServeEngine:
-    """Batched MSC serving on one device.
+    """Batched MSC serving on one device or a mesh of ranks.
 
     cfg: MSCConfig shared by every request.
     max_batch: microbatch size B; every dispatch carries exactly B slots.
     bucket_quantum: dims round up to multiples of this.
     dtype: request tensor dtype at the engine boundary (the precision
       policy stays cfg.precision).
-    device: where requests are packed and solved (`cuda` by default,
-      through CUDA graphs; `cpu` runs the same steps eagerly, with the
-      kernels' plain versions).
+    device: where requests are packed and solved on one device (`cuda` by
+      default, through CUDA graphs; `cpu` runs the same steps eagerly,
+      with the kernels' plain versions); on a mesh, the rank's.
     relayout: one of core.parallel.RELAYOUTS (all one local transpose on
       one device); "auto" is not ported.
+    mesh: a flat-schedule DeviceMesh (`launch/mesh.py:make_msc_mesh`, or
+      any mesh whose dims other than "inner" make a composite slice
+      role), or None for one device.
 
     `run(tensors)` is the whole API: third-order tensors (torch or numpy)
     in, per-request host-side MSCResults at their true sizes out, in
@@ -302,18 +344,17 @@ class MSCServeEngine:
     def __init__(self, cfg: MSCConfig, *, max_batch: int = 8,
                  bucket_quantum: int = 8, dtype=torch.float32,
                  device="cuda", relayout: str = "gspmd", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"MSCServeEngine on a mesh: "
-                                      f"{MESH_REST_TODO}")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         check_relayout(relayout, cfg.epilogue)
         self.cfg = cfg
+        self.mesh = mesh
         self.max_batch = int(max_batch)
         self.dtype = dtype
-        self.device = resolve_device(device)
-        self._quantum = _bucket_quantum(bucket_quantum)
-        self._sched = ModeSchedule(cfg)
+        self.relayout = relayout
+        self.device = _mesh_device(mesh, device)
+        self._sched = _flat_schedule(cfg, mesh)
+        self._quantum = _bucket_quantum(bucket_quantum, self._sched)
         self._programs: Dict[Tuple[int, int, int], _BucketProgram] = {}
         self._stats = ServeStats()
 
@@ -366,7 +407,8 @@ class MSCServeEngine:
         prog = self._programs.get(bucket)
         if prog is None:
             prog = self._programs[bucket] = _BucketProgram(
-                self._sched, bucket, self.max_batch, self.dtype, self.device)
+                self._sched, bucket, self.max_batch, self.dtype, self.device,
+                self.relayout)
         compiles = prog.compiles
         dims = prog.load([tensors[i] for i in chunk])
         modes = prog.run()
@@ -433,13 +475,13 @@ class _SlotState:
 
     def __init__(self, plan: MSCChunkPlan, bucket, slots: int, dtype,
                  device: torch.device):
+        self.plan = plan
         self.device = device
         self.blocks, self.carries = plan.init_state(bucket, slots, dtype)
         cdt = compute_dtype(plan.sched.cfg.precision)
         self.ops = tuple(b if b.dtype == cdt else b.to(cdt)
                          for b in self.blocks)
         self.stage = tuple(torch.zeros_like(b) for b in self.blocks)
-        self.dirty = np.zeros(slots, bool)  # staging rows holding a request
         fill = np.tile(np.int32(_FILLER_DIMS), (slots, 1))
         # neutral inputs: the warm-up before a capture changes no state
         self.ctl = torch.from_numpy(_control(
@@ -478,22 +520,17 @@ class _SlotState:
         return len(fns)
 
     def release(self) -> None:
-        """Drop the programs and what they hold (their functions refer
-        back to this object, so the graphs and their pool would otherwise
-        wait for the garbage collector)."""
+        """Drop the programs and their graphs: the pool's memory goes back
+        now, not when the engine is dropped."""
         self.programs = None
 
     def admit_write(self, s: int, tensor: torch.Tensor) -> None:
-        """Write one admitted request's three unfoldings into staging row
-        s (zeroed first if an earlier request left bytes there)."""
+        """Write this rank's block of one admitted request's three
+        unfoldings, zero-padded, over staging row s (the whole unfoldings
+        on one device)."""
         x = tensor.to(self.device, self.blocks[0].dtype)
-        if self.dirty[s]:
-            for st in self.stage:
-                st[s].zero_()
-        for st, perm in zip(self.stage, MODE_PERMS):
-            t = x.permute(perm)
-            st[s, :t.shape[0], :t.shape[1], :t.shape[2]].copy_(t)
-        self.dirty[s] = True
+        for j, st in enumerate(self.stage):
+            st[s].copy_(self.plan.local_block(j, x, st.shape[1:]))
 
     def refill(self, perm, take_new, new_done, dims, new_dims) -> MSCResult:
         """One refill: the inputs in one copy, then the program.  The
@@ -573,8 +610,9 @@ class _SlotTable:
 
 
 class MSCContinuousEngine:
-    """Continuous-batching MSC serving on one device: the MSC counterpart
-    of an LM engine's decode loop (`repro/serving/msc_engine.py`).
+    """Continuous-batching MSC serving on one device or a mesh of ranks:
+    the MSC counterpart of an LM engine's decode loop
+    (`repro/serving/msc_engine.py`).
 
     Where `MSCServeEngine` runs a microbatch to completion (its slowest
     request holds all B slots, and new arrivals wait for the next
@@ -588,6 +626,11 @@ class MSCContinuousEngine:
     pool: a warm bucket captures nothing, whatever the arrival, eviction
     and placement sequence.  A capture that fails raises.  On the CPU,
     which the caller asks for explicitly, the same programs run eagerly.
+    On a mesh (`mesh=`, as `MSCServeEngine`'s) each rank holds its blocks
+    of every slot's unfoldings and its rows of the carries, and makes the
+    same admission, eviction and rotation decisions as every other rank:
+    they read only the step's finished flags (from the all-reduced gate)
+    and the refill's gathered results.
 
     The policy and its knobs are the reference's:
       refill_min_free: repack only once this many slots are free (clamped
@@ -628,9 +671,6 @@ class MSCContinuousEngine:
                  bucket_policy: str = "weighted", checkpoint_dir=None,
                  result_cache=None, warm_start: bool = False,
                  autotune: bool = False, fault_injector=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"MSCContinuousEngine on a mesh: "
-                                      f"{MESH_REST_TODO}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if placement not in ("compact", "stable"):
@@ -653,16 +693,18 @@ class MSCContinuousEngine:
         if asked:
             raise NotImplementedError(f"{', '.join(asked)}: {TIERS_TODO}")
         self.cfg = cfg
+        self.mesh = mesh
         self.slots = int(slots)
         self.dtype = dtype
-        self.device = resolve_device(device)
         # clamped to the table: a threshold no drain reaches would stall
         # admission (the starvation clock only runs while chunks run)
         self.refill_min_free = min(max(1, int(refill_min_free)), self.slots)
         self.max_queue_chunks = int(max_queue_chunks)
         self.placement = placement
-        self._plan = MSCChunkPlan(cfg, chunks_per_step, device=self.device)
-        self._quantum = _bucket_quantum(bucket_quantum)
+        self._plan = MSCChunkPlan(cfg, chunks_per_step, device=device,
+                                  mesh=mesh)
+        self.device = self._plan.device
+        self._quantum = _bucket_quantum(bucket_quantum, self._plan.sched)
         self._tables: Dict[Tuple[int, int, int], _SlotTable] = {}
         self._pending: Dict[int, torch.Tensor] = {}
         self._next_rid = 0

@@ -1,2 +1,3 @@
 """Sharding rules of the port (counterpart of `repro.sharding`): the MSC
-mesh roles only; the LM specs are ROADMAP.md queue 1 item 9 (rest)."""
+mesh roles and the LM parameter, batch and cache specs (`specs`), and the
+sharded LM activations (`activation`)."""

@@ -41,9 +41,9 @@ def test_cli_returns_results_per_repeat():
 @pytest.mark.parametrize("flag,exc,match", [
     # 8 ranks asked, 1 there: the reference's message
     (["--mesh-shape", "4,2"], ValueError, "8 devices but 1 are available"),
-    # the serving engines on a mesh are item 9's rest
-    (["--batch", "2", "--mesh-shape", "2", "--nproc", "2"],
-     NotImplementedError, r"item 9 \(rest\)"),
+    # --batch on a mesh is checked as any mesh is: 2 ranks asked, 1 there
+    (["--batch", "2", "--mesh-shape", "2"], ValueError,
+     "2 devices but 1 are available"),
 ], ids=["mesh_shape_on_one_rank", "batch_on_a_mesh"])
 def test_cli_unported_options_raise(flag, exc, match):
     with pytest.raises(exc, match=match):

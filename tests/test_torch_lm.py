@@ -449,9 +449,18 @@ def test_cli_defaults_to_cuda_and_the_config_route():
 @pytest.mark.parametrize("flag", [["--production-mesh"],
                                   ["--model-axis", "2"]])
 def test_cli_mesh_options_raise_with_roadmap_pointer(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.run(tserve.parse_args(["--arch", "whisper-tiny", "--reduced",
-                                      "--device", "cpu", *flag]))
+    """The mesh flags are ported (ROADMAP.md item 9): on one process
+    --production-mesh raises the reference's "need 256 devices" and
+    --model-axis clamps to the one rank, as the reference's
+    make_local_mesh does, and serves on one device."""
+    args = tserve.parse_args(["--arch", "whisper-tiny", "--reduced",
+                              "--device", "cpu", "--batch", "2", "--gen",
+                              "2", *flag])
+    if args.production_mesh:
+        with pytest.raises(RuntimeError, match="need 256 devices"):
+            tserve.run(args)
+    else:
+        assert tuple(tserve.run(args)["tokens"].shape) == (2, 2)
 
 
 # ----------------------------------------------------------------- guard ----

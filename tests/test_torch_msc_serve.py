@@ -193,6 +193,12 @@ def test_request_stream_follows_the_reference_rule():
     (["--warm-start"], "item 10"),
 ])
 def test_later_item_flags_raise_naming_their_item(flag, item):
+    if item == "item 9":
+        # item 9 is closed: --mesh-shape serves on a mesh of ranks, and a
+        # shape that one rank cannot fill raises the reference's error
+        with pytest.raises(ValueError, match="8 devices but 1 are"):
+            msc_serve.main(["--device", "cpu", *flag])
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         msc_serve.main(["--device", "cpu", *flag])
 

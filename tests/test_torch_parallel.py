@@ -460,35 +460,82 @@ def _stub_mesh(*names):
     return types.SimpleNamespace(mesh_dim_names=names)
 
 
-def _refusals():
+def _closed(mesh):
+    """What raised naming item 9 (rest) before it was ported, each case on
+    `mesh` (a (1,) gloo mesh) beside its one-device form: (on the mesh,
+    on one device), equal when it runs."""
     from repro_torch.core.parallel import MSCChunkPlan
+    from repro_torch.core.power_iter import SolveState
     from repro_torch.core.schedule import ModeSchedule
     from repro_torch.serving.msc_engine import (MSCContinuousEngine,
                                                 MSCServeEngine)
     from repro_torch.sharding.specs import msc_axes
 
     cfg = MSCConfig(epsilon=EPS)
-    sched = ModeSchedule(cfg, _stub_mesh("slice"), ("slice",))
+    reqs = [_planted((9, 8, 7), (3, 3, 2), 30.0, i) for i in range(2)]
+    block = torch.from_numpy(_planted((2, 6, 5), (2, 2, 2), 20.0, 5))[None]
+
+    def carry(sched):
+        return sched.init_mode_carry(1, 2, 5, torch.tensor([5]),
+                                     torch.tensor([False]))
+
+    def fields(x):
+        if isinstance(x, SolveState):
+            return [getattr(x, f) for f in ("v", "lam", "resid", "iters",
+                                            "done")]
+        if isinstance(x, tuple):
+            return [t for y in x for t in fields(y)]
+        if isinstance(x, list):  # engine results
+            return [t for r in x for m in r.modes
+                    for t in (m.mask, m.d, m.lambdas)]
+        return [x]
+
+    def both(make):
+        return tuple(fields(make(m)) for m in (mesh, None))
+
+    one = ModeSchedule(cfg)
     return {
-        "serve_engine": lambda: MSCServeEngine(cfg, mesh=object(),
-                                               device="cpu"),
-        "continuous_engine": lambda: MSCContinuousEngine(
-            cfg, mesh=object(), device="cpu"),
-        "chunk_plan": lambda: MSCChunkPlan(cfg, mesh=object(),
-                                           device="cpu"),
-        "chunk_local": lambda: sched.chunk_local(None, None),
-        "finalize_local": lambda: sched.finalize_local(None, None, None),
-        "composite_slice_axes": lambda: msc_axes(_stub_mesh("data",
-                                                            "model")),
-        "two_slice_dims": lambda: ModeSchedule(
-            cfg, _stub_mesh("a", "b"), ("a", "b")),
+        "serve_engine": lambda: both(lambda m: MSCServeEngine(
+            cfg, max_batch=2, mesh=m, device="cpu").run(reqs)),
+        "continuous_engine": lambda: both(lambda m: MSCContinuousEngine(
+            cfg, slots=2, mesh=m, device="cpu").run(reqs)),
+        "chunk_plan": lambda: both(lambda m: MSCChunkPlan(
+            cfg, mesh=m, device="cpu").mode_shapes((9, 8, 7), 2)),
+        "chunk_local": lambda: both(lambda m: (
+            ModeSchedule(cfg, m, ("slice",)) if m else one).chunk_local(
+            block, carry(one))),
+        "finalize_local": lambda: both(lambda m: (
+            ModeSchedule(cfg, m, ("slice",)) if m else one).finalize_local(
+            block, torch.ones((1, 2), dtype=torch.bool),
+            carry(one).v)),
+        "composite_slice_axes": lambda: (
+            list(msc_axes(_stub_mesh("data", "model"))),
+            [("data", "model"), ()]),
+        "two_slice_dims": lambda: (
+            [ModeSchedule(cfg, _stub_mesh("a", "b"), ("a", "b")).slice_axes],
+            [("a", "b")]),
     }
 
 
-@pytest.mark.parametrize("what", list(_refusals()))
-def test_item_9_rest_raises_naming_it(what):
-    with pytest.raises(NotImplementedError, match=r"item 9 \(rest\)"):
-        _refusals()[what]()
+CLOSED = ("serve_engine", "continuous_engine", "chunk_plan", "chunk_local",
+          "finalize_local", "composite_slice_axes", "two_slice_dims")
+
+
+@pytest.mark.parametrize("what", CLOSED)
+def test_item_9_rest_raises_naming_it(what, tmp_path):
+    """Item 9 (rest) is closed: each case that raised naming it now runs,
+    on a one-rank gloo mesh, and gives what one device gives."""
+    tmesh.join("cpu", rank=0, world_size=1, store_file=tmp_path / "store")
+    try:
+        got, want = _closed(tmesh.make_msc_mesh("flat", None, "cpu"))[what]()
+    finally:
+        tmesh.leave()
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        if isinstance(w, torch.Tensor):
+            assert torch.equal(g, w)
+        else:
+            assert g == w
 
 
 def test_mesh_roles_are_checked():
