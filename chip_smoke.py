@@ -140,6 +140,35 @@ line):
    2e-2 / 1e-4 of max |logit|, the decode step one CUDA graph with no
    host sync in its replays; warm prefill and decode beside the
    one-device engine's; 0 B left once the group is gone.
+11. The result cache at m = 200 (kernels, fp32): benchmarks/msc_cache.py's
+   Zipf(1.2) stream of 240 draws over 6 gamma-3 tensors, 8 slots, in
+   batches of 8, cache-off then cache-on: results bit for bit, hits = the
+   draws of a tensor served in an earlier batch, a hit adds no dispatch;
+   both walls and the key's cost per submit (copy to the host + SHA-256).
+   Then 4 donors (gamma 1000) cold and 8 near-duplicates (0.3% of the
+   std) warm under tol 1e-4: masks equal msc_sequential's, median sweeps
+   below the cold median, nothing captured; the ratio.
+12. The SLO scheduler at m = 200: benchmarks/msc_scheduler.py's schedule
+   (40 requests, 4 slots, a class-1 near-noise backlog at tick 0, class-0
+   arrivals every 2 ticks) under FIFO and with preempt-to-host: every
+   request's bits equal, preemptions > 0, nothing captured; the p99
+   interactive wait and ticks to drain of both.  A burst of 20 with
+   24-tick deadlines with and without shedding (something shed, no more
+   misses per admitted request), and two buckets (200, 208) with 0 idle
+   ticks.
+13. Checkpoints and faults on phase 5c's mix at 3 chunks a step: warm
+   walls with and without a checkpoint every 10 chunk steps (bytes,
+   write time, overhead, reported); a mid-solve checkpoint restored after
+   close() on one device and on a (1,) NCCL mesh, one written on the mesh
+   restored on one device; a child SIGKILLed after a chunk, restored
+   here; one injected chunk and one refill failure (retries); a
+   persistent failure (every request through msc_sequential on the card);
+   a corrupt newest leaf (the previous step, with a warning): every
+   result bit-identical to the uninterrupted run; 0 B left after each of
+   phases 11-13.
+`--only 11,12,13` runs the card and build phases and the named tier
+phases alone (a development run: no result lines, exit code 3 when
+they pass).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -1989,6 +2018,717 @@ def phase_mesh_lm(torch, checks, smi):
     return launches
 
 
+# ---------------------------------------------------------------- tiers --
+# the serving tiers of the continuous engine at m = 200 (phases 11-13),
+# under benchmarks/msc_continuous.py's gate (tol 3e-3, a probe every 8
+# sweeps, cap 240)
+TIER_M = 200
+# phase 11: benchmarks/msc_cache.py's mix: a Zipf(1.2) stream of n draws
+# over U planted tensors (gamma 3), then donors under a tight gate (tol
+# 1e-4, cap 480) and near-duplicates 0.3% of the std away.  The donors'
+# gamma is 1000, not the benchmark's 20: at m = 200 a gamma-20 solve
+# never passes the tight gate (480 sweeps, the cap, cold and warm on the
+# card: PERF.md, PR 20), while gamma 1000 takes ~200 sweeps cold
+ZIPF_A, ZIPF_U, ZIPF_N, CACHE_SLOTS = 1.2, 6, 240, 8
+GAMMA_POOL, GAMMA_DONOR, WARM_TOL, NEAR_REL = 3.0, 1000.0, 1e-4, 0.003
+N_DONORS = 4
+# phase 12: benchmarks/msc_scheduler.py's schedule: n requests through
+# B slots, every 8th a class-1 near-noise backlog at tick 0, the rest
+# class 0 arriving every 2 ticks
+SCHED_N, SCHED_B = 40, 4
+# phase 13: the skewed mix of phase 5c, 3 chunks a step; a checkpoint
+# every 10 chunks in the timed run
+FT_CHUNKS, FT_CKPT_EVERY = 3, 10
+
+
+def tier_cfg(**kw):
+    from repro_torch.core import MSCConfig
+
+    return MSCConfig(epsilon=3e-4, power_tol=3e-3, power_iters=240,
+                     power_check_every=8, use_kernels=True).with_(**kw)
+
+
+def _planted(torch, seed, m, gamma):
+    from repro_torch.core import PlantedSpec, make_planted_tensor
+
+    return make_planted_tensor(
+        torch.Generator(device=DEVICE).manual_seed(seed),
+        PlantedSpec.paper(m, gamma))
+
+
+def _bits(a, b):
+    """Masks, sweeps and d of two results bit for bit."""
+    return all(a[j].mask.cpu().equal(b[j].mask.cpu())
+               and int(a[j].power_iters_run) == int(b[j].power_iters_run)
+               and a[j].d.cpu().equal(b[j].d.cpu()) for j in range(3))
+
+
+def _reset_counts():
+    mods = counters()
+    for mod in mods.values():
+        mod.launches = 0
+    return mods
+
+
+def _read_counts(mods):
+    return {n: mod.launches for n, mod in mods.items()}
+
+
+def _gate(checks, ok, label, text):
+    log(f"  {'ok  ' if ok else 'FAIL'} {text}")
+    if not ok:
+        checks.failures.append(f"{label}: {text}")
+
+
+def _freed(torch, checks, label, base):
+    """0 B left once the engines are closed and dropped."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base
+    _gate(checks, left == 0, label, f"{left} B left once closed")
+
+
+def phase_cache(torch, checks, smi):
+    """Phase 11 (`_cache_runs`), then 0 B left once its engines and
+    tensors are gone.  Returns {label: launch counts}."""
+    return _without_leftovers(torch, checks, "cache", _cache_runs, smi)
+
+
+def _without_leftovers(torch, checks, label, runs, smi):
+    """runs(torch, checks, smi) with the device memory allocated before it
+    as the baseline: once it returns (its locals gone), none may be
+    left."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = runs(torch, checks, smi)
+    _freed(torch, checks, label, base)
+    return out
+
+
+def _cache_runs(torch, checks, smi):
+    """The result cache on the card: benchmarks/msc_cache.py's Zipf mix
+    cache-off then cache-on (bit-identical results, hits = repeats, a hit
+    adds no dispatch), the key's cost per submit, then warm starts of
+    near-duplicates (masks equal msc_sequential's, fewer sweeps than
+    cold, nothing captured).  Returns {label: launch counts}."""
+    import numpy as np
+
+    from repro_torch.core import msc_sequential
+    from repro_torch.core.fingerprint import (cache_salt, host_array,
+                                              result_cache_key)
+    from repro_torch.serving import MSCContinuousEngine, MSCResultCache
+
+    label = f"cache tier 1 m={TIER_M} B={CACHE_SLOTS}"
+    log(f"{label}: Zipf({ZIPF_A}) stream of {ZIPF_N} draws over {ZIPF_U} "
+        f"tensors (gamma={GAMMA_POOL:g}); card: {smi}")
+    cfg = tier_cfg()
+    pool = [_planted(torch, SEED + i, TIER_M, GAMMA_POOL)
+            for i in range(ZIPF_U)]
+    rng = np.random.RandomState(0)
+    probs = 1.0 / (np.arange(1, ZIPF_U + 1) ** ZIPF_A)
+    draws = rng.choice(ZIPF_U, size=ZIPF_N, p=probs / probs.sum())
+    stream = [pool[i] for i in draws]
+    distinct = len(set(int(i) for i in draws))
+    # a draw hits when its tensor was served in an earlier batch: repeats
+    # within a batch are submitted before the first is served, and miss
+    served, want_hits = set(), 0
+    for i in range(0, ZIPF_N, CACHE_SLOTS):
+        batch = [int(x) for x in draws[i:i + CACHE_SLOTS]]
+        want_hits += sum(x in served for x in batch)
+        served.update(batch)
+    off = MSCContinuousEngine(cfg, slots=CACHE_SLOTS, device=DEVICE)
+    on = MSCContinuousEngine(cfg, slots=CACHE_SLOTS, device=DEVICE,
+                             result_cache=MSCResultCache(max_bytes=256 << 20))
+    # both engines' graphs off the clock, on a tensor outside the pool
+    warm_t = _planted(torch, SEED + 99, TIER_M, GAMMA_POOL)
+    off.run([warm_t])
+    on.run([warm_t])
+
+    def serve(eng):
+        out = []
+        for i in range(0, ZIPF_N, CACHE_SLOTS):  # batch by batch
+            out.extend(eng.run(stream[i:i + CACHE_SLOTS]))
+        return out
+
+    mods = _reset_counts()
+    res_off, t_off = _timed_s(torch, lambda: serve(off))
+    counts_off = _read_counts(mods)
+    before = on.stats
+    mods = _reset_counts()
+    res_on, t_on = _timed_s(torch, lambda: serve(on))
+    counts = _read_counts(mods)
+    s_on = on.stats.delta(before)
+    same = all(_bits(a, b) for a, b in zip(res_on, res_off))
+    _gate(checks, same, label, f"cache-on results equal cache-off's bit for "
+          f"bit ({ZIPF_N} requests)")
+    _gate(checks, s_on.cache_hits == want_hits, label,
+          f"cache_hits {s_on.cache_hits} = the draws of a tensor served in "
+          f"an earlier batch ({want_hits}; n - distinct draws = "
+          f"{ZIPF_N} - {distinct}, {ZIPF_N - distinct - want_hits} repeats "
+          f"within a batch miss); misses {s_on.cache_misses}")
+    drawn = sorted(set(int(i) for i in draws))
+    before = on.stats
+    hot = on.run([pool[i] for i in drawn])  # every one cached by now
+    d_hot = on.stats.delta(before)
+    first = [res_off[list(draws).index(i)] for i in drawn]
+    _gate(checks, d_hot.cache_hits == len(drawn) and d_hot.dispatches == 0
+          and all(_bits(a, b) for a, b in zip(hot, first)), label,
+          f"{len(drawn)} hits added {d_hot.dispatches} dispatches (want 0), "
+          f"the first solves' bits")
+    # the key's cost per submit: device-to-host copy and SHA-256
+    salt = cache_salt()
+    t_copy, t_key = [], []
+    for t in pool:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arr = host_array(t, np.float32)
+        t1 = time.perf_counter()
+        result_cache_key(arr, cfg, salt=salt)
+        t_copy.append(t1 - t0)
+        t_key.append(time.perf_counter() - t1)
+    del t
+    copy_ms, sha_ms = np.median(t_copy) * 1e3, np.median(t_key) * 1e3
+    log(f"  walls: cache-off {t_off * 1e3:.1f} ms, cache-on "
+        f"{t_on * 1e3:.1f} ms ({t_off / t_on:.3f}x; the reference's bar "
+        f">= 5); {s_on.dispatches} dispatches cache-on against "
+        f"{off.stats.dispatches} cache-off; launches cache-off {counts_off}, "
+        f"cache-on {counts} ({smi})")
+    log(f"  key per submit ({TIER_M}^3 fp32 on the card, "
+        f"{pool[0].numel() * 4} B): copy to the host {copy_ms:.3f} ms + "
+        f"SHA-256 {sha_ms:.3f} ms = {copy_ms + sha_ms:.3f} ms (median of "
+        f"{ZIPF_U})")
+    off.close()
+    on.close()
+    del off, on, res_off, res_on, hot, stream, pool, warm_t
+
+    label_w = f"cache tier 2 (warm start) m={TIER_M} B={CACHE_SLOTS}"
+    wcfg = cfg.with_(power_tol=WARM_TOL, power_iters=480)
+    log(f"{label_w}: {N_DONORS} donors gamma={GAMMA_DONOR:g} cold, "
+        f"{2 * N_DONORS} near-duplicates {NEAR_REL} of the std away, tol "
+        f"{WARM_TOL:g}")
+    donors = [_planted(torch, SEED + 100 + i, TIER_M, GAMMA_DONOR)
+              for i in range(N_DONORS)]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    nears = []
+    for i in range(2 * N_DONORS):
+        d = donors[i % N_DONORS]
+        nears.append(d + NEAR_REL * d.std() * torch.randn(
+            d.shape, generator=gen, device=DEVICE))
+    del d
+    weng = MSCContinuousEngine(wcfg, slots=CACHE_SLOTS, device=DEVICE,
+                               warm_start=True,
+                               result_cache=MSCResultCache(256 << 20))
+    cold, t_cold = _timed_s(torch, lambda: weng.run(donors))
+    graphs = weng.graphs
+    before = weng.stats
+    mods = _reset_counts()
+    with NoSyncInReplays(torch) as guard:
+        warm, t_warm = _timed_s(torch, lambda: weng.run(nears))
+    counts_w = _read_counts(mods)
+    sw = weng.stats.delta(before)
+    cold_sw = [max(int(r[j].power_iters_run) for j in range(3)) for r in cold]
+    warm_sw = [max(int(r[j].power_iters_run) for j in range(3)) for r in warm]
+    med_c, med_w = float(np.median(cold_sw)), float(np.median(warm_sw))
+    same = all(all(r[j].mask.cpu().equal(
+        msc_sequential(t, wcfg, device=DEVICE)[j].mask.cpu())
+        for j in range(3)) for t, r in zip(nears, warm))
+    _gate(checks, same, label_w, "every warm-started mask equals "
+          "msc_sequential's on the card (kernels)")
+    _gate(checks, med_w < med_c and sw.warm_starts == 2 * N_DONORS, label_w,
+          f"median max-mode sweeps warm {med_w:g} < cold {med_c:g} "
+          f"(ratio {med_w / med_c:.3f}; the reference's bar <= 0.5); "
+          f"{sw.warm_starts} warm starts, {sw.warm_sweeps_saved} sweeps "
+          f"saved")
+    _gate(checks, sw.compiles == 0 and weng.graphs == graphs, label_w,
+          f"{sw.compiles} graphs captured across the warm phase (want 0); "
+          f"{guard.calls} replays with no host sync")
+    log(f"  walls: {N_DONORS} donors cold {t_cold * 1e3:.1f} ms, "
+        f"{2 * N_DONORS} near-duplicates warm {t_warm * 1e3:.1f} ms; "
+        f"sweeps cold {cold_sw}, warm {warm_sw}; launches {counts_w} "
+        f"({smi})")
+    weng.close()
+    return {label: counts, label_w: counts_w}
+
+
+def _drive_schedule(eng, schedule, deadline_chunks=None):
+    """Feed [(tick, tag, tensor, priority)] through submit/step; each
+    request's wait (admission tick - submit tick) read off the slot
+    tables, as benchmarks/msc_scheduler.py reads it.  Returns (results
+    by tag, tag -> (priority, wait), ticks, shed tags)."""
+    from repro_torch.serving import LoadShedError
+
+    schedule = sorted(schedule, key=lambda e: e[0])
+    nxt, tick, shed = 0, 0, []
+    tag_of, submit_tick, prio_of, waits, results = {}, {}, {}, {}, {}
+    while nxt < len(schedule) or eng.has_work():
+        while nxt < len(schedule) and schedule[nxt][0] <= tick:
+            _, tag, t, pr = schedule[nxt]
+            nxt += 1
+            try:
+                rid = eng.submit(t, priority=pr,
+                                 deadline_chunks=deadline_chunks)
+            except LoadShedError:
+                shed.append(tag)
+                continue
+            tag_of[rid], submit_tick[rid], prio_of[rid] = tag, tick, pr
+        for rid, res in eng.step().items():
+            results[tag_of[rid]] = res
+        tick += 1
+        for tb in eng._tables.values():
+            for rid in tb.slot_req:
+                if rid is not None and tag_of[rid] not in waits:
+                    waits[tag_of[rid]] = (prio_of[rid],
+                                          tick - submit_tick[rid])
+    return results, waits, tick, shed
+
+
+def phase_scheduler(torch, checks, smi):
+    """Phase 12 (`_scheduler_runs`), then 0 B left.  Returns {label:
+    launch counts}."""
+    return _without_leftovers(torch, checks, "scheduler", _scheduler_runs,
+                              smi)
+
+
+def _scheduler_runs(torch, checks, smi):
+    """The SLO scheduler on the card: benchmarks/msc_scheduler.py's
+    schedule under FIFO and under the scheduler (preemption results
+    bit-identical to FIFO's, preemptions, nothing captured warm), the
+    two-bucket cell (no idle ticks) and shedding under overload.
+    Returns {label: launch counts}."""
+    import numpy as np
+
+    from repro_torch.serving import MSCContinuousEngine
+
+    label = f"scheduler m={TIER_M} B={SCHED_B}"
+    log(f"{label}: {SCHED_N} requests, every {CONT_SLOW_EVERY}th class 1 "
+        f"gamma={CONT_GAMMA_SLOW:g} at tick 0, the rest class 0 "
+        f"gamma={CONT_GAMMA_FAST:g} every 2 ticks; card: {smi}")
+    cfg = tier_cfg()
+    tensors = [_planted(torch, SEED + i, TIER_M,
+                        CONT_GAMMA_SLOW if i % CONT_SLOW_EVERY == 0
+                        else CONT_GAMMA_FAST) for i in range(SCHED_N)]
+    cls = [1 if i % CONT_SLOW_EVERY == 0 else 0 for i in range(SCHED_N)]
+    schedule, k = [], 0
+    for i, t in enumerate(tensors):
+        if cls[i]:
+            schedule.append((0, i, t, 1))
+        else:
+            schedule.append((2 + 2 * k, i, t, 0))
+            k += 1
+    del t
+
+    def engine(**kw):
+        e = MSCContinuousEngine(cfg, slots=SCHED_B, device=DEVICE,
+                                preempt_min_remaining_chunks=1, **kw)
+        e.run([tensors[0], tensors[1]])  # its graphs and a histogram
+        return e
+
+    fifo = engine(preempt=False)
+    t0 = time.perf_counter()
+    res_f, waits_f, ticks_f, _ = _drive_schedule(
+        fifo, [(tk, i, t, 0) for tk, i, t, _ in schedule])
+    wall_f = time.perf_counter() - t0
+    fifo_int = [w for i, (_, w) in waits_f.items() if cls[i] == 0]
+    sched = engine(preempt=True, aging_chunks=32)
+    graphs = sched.graphs
+    before = sched.stats
+    mods = _reset_counts()
+    with NoSyncInReplays(torch) as guard:
+        t0 = time.perf_counter()
+        res_s, waits_s, ticks_s, _ = _drive_schedule(sched, schedule)
+        wall_s = time.perf_counter() - t0
+    counts = _read_counts(mods)
+    warm = sched.stats.delta(before)
+    sched_int = [w for _, (pr, w) in waits_s.items() if pr == 0]
+
+    def p99(v):
+        return float(np.percentile(np.asarray(v, float), 99)) if v else 0.0
+
+    same = all(_bits(res_s[i], res_f[i]) for i in range(SCHED_N))
+    _gate(checks, same, label, "every request's masks, sweeps and d under "
+          "the scheduler (preempted ones included) equal its FIFO run's")
+    _gate(checks, warm.preemptions > 0 and warm.resumes == warm.preemptions,
+          label, f"{warm.preemptions} preemptions, {warm.resumes} resumes")
+    _gate(checks, warm.compiles == 0 and sched.graphs == graphs, label,
+          f"{warm.compiles} graphs captured in the scheduled run (want 0); "
+          f"{guard.calls} replays with no host sync")
+    ratio = p99(fifo_int) / max(p99(sched_int), 1.0)
+    log(f"  interactive p99 wait: FIFO {p99(fifo_int):.2f}, scheduler "
+        f"{p99(sched_int):.2f} ticks ({ratio:.2f}x; the reference's bar "
+        f">= 3); ticks to drain FIFO {ticks_f}, scheduler {ticks_s} "
+        f"({ticks_f / ticks_s:.3f}; bar >= 0.95); walls {wall_f * 1e3:.1f} "
+        f"/ {wall_s * 1e3:.1f} ms; per-class waits {sched.class_waits()}; "
+        f"launches {counts} ({smi})")
+    fifo.close()
+    sched.close()
+    del fifo, sched
+
+    # overload: a burst at tick 0, deadlines 24 ticks, with and without
+    # shedding (slo_chunks 6)
+    burst = [(0, i, t, i % 2) for i, t in enumerate(tensors[:SCHED_N // 2])]
+    miss, shed, admitted = {}, {}, {}
+    for name, slo in (("noshed", None), ("shed", 6)):
+        e = engine(preempt=True, slo_chunks=slo)
+        b = e.stats
+        _, _, _, tags = _drive_schedule(e, burst, deadline_chunks=24)
+        d = e.stats.delta(b)
+        miss[name], shed[name] = d.deadline_misses, d.slo_sheds
+        admitted[name] = len(burst) - len(tags)
+        e.close()
+    rate = {n: miss[n] / max(admitted[n], 1) for n in miss}
+    # the reference's bar: something shed, and no more misses per
+    # admitted request than without shedding
+    _gate(checks, shed["shed"] > 0 and rate["shed"] <= rate["noshed"], label,
+          f"shedding: {shed['shed']} shed; deadline misses per admitted "
+          f"request {miss['shed']}/{admitted['shed']} = {rate['shed']:.3f} "
+          f"against {miss['noshed']}/{admitted['noshed']} = "
+          f"{rate['noshed']:.3f} without")
+
+    # two buckets (m and m + 8) under the weighted rotation
+    mixed = [_planted(torch, SEED + 1000 + i, m, g) for i, (m, g) in
+             enumerate([(TIER_M, CONT_GAMMA_FAST),
+                        (TIER_M + 8, CONT_GAMMA_FAST)] * 4
+                       + [(TIER_M, CONT_GAMMA_SLOW),
+                          (TIER_M + 8, CONT_GAMMA_SLOW)])]
+    mb = MSCContinuousEngine(cfg, slots=SCHED_B, device=DEVICE,
+                             refill_min_free=1, bucket_policy="weighted")
+    mb.run(mixed[:2])
+    b = mb.stats
+    mb.run(mixed, priorities=[i % 2 for i in range(len(mixed))])
+    d_mb = mb.stats.delta(b)
+    _gate(checks, d_mb.idle_bucket_ticks == 0 and d_mb.compiles == 0, label,
+          f"two buckets ({TIER_M}, {TIER_M + 8}) at refill_min_free 1: "
+          f"{d_mb.idle_bucket_ticks} idle-bucket ticks, {d_mb.compiles} "
+          f"captures warm")
+    mb.close()
+    return {label: counts}
+
+
+FT_CHILD = r'''
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from repro_torch.core import MSCConfig, PlantedSpec, make_planted_tensor
+from repro_torch.serving import MSCContinuousEngine
+from repro_torch.serving.faults import FaultInjector, FaultPlan
+cfg, ckpt, outdir = json.loads(sys.argv[2]), sys.argv[3], sys.argv[4]
+spec = json.loads(sys.argv[5])
+tensors = [make_planted_tensor(
+    torch.Generator(device="cuda").manual_seed(spec["seed"] + i),
+    PlantedSpec.paper(spec["m"], spec["slow"] if i % spec["every"] == 0
+                      else spec["fast"])) for i in range(spec["n"])]
+eng = MSCContinuousEngine(MSCConfig(**cfg), slots=spec["slots"],
+                          chunks_per_step=spec["chunks"], device="cuda",
+                          checkpoint_dir=ckpt,
+                          ckpt_every_chunks=spec["ckpt_every"],
+                          fault_injector=FaultInjector(
+                              FaultPlan(kill_after_chunk=spec["kill"])))
+for t in tensors:
+    eng.submit(t)
+while eng.has_work():
+    for rid, res in eng.step().items():
+        np.savez(os.path.join(outdir, "rid_%d.npz" % rid),
+                 **{"m%d_%s" % (j, k): getattr(res[j], k).numpy()
+                    for j in range(3) for k in ("mask", "d")},
+                 **{"m%d_sweeps" % j: np.asarray(res[j].power_iters_run)
+                    for j in range(3)})
+raise SystemExit(7)  # the kill never fired
+'''
+
+
+class _Loaded:
+    """A child's result for one mode, read back from its file."""
+
+    def __init__(self, z, j):
+        import torch
+
+        self.mask = torch.from_numpy(z[f"m{j}_mask"])
+        self.d = torch.from_numpy(z[f"m{j}_d"])
+        self.power_iters_run = int(z[f"m{j}_sweeps"])
+
+
+def _drain(eng, got):
+    while eng.has_work():
+        got.update(eng.step())
+    return got
+
+
+def phase_faults(torch, checks, smi):
+    """Phase 13 (`_fault_runs`), then 0 B left.  Returns {label: launch
+    counts}."""
+    return _without_leftovers(torch, checks, "fault tolerance",
+                              _fault_runs, smi)
+
+
+def _fault_runs(torch, checks, smi):
+    """Checkpoints, faults and restores on the card: the skewed mix of
+    phase 5c with and without periodic checkpoints (their bytes, write
+    time and overhead), a mid-solve checkpoint restored on one device
+    and on a (1,) NCCL mesh (and the reverse), a SIGKILLed child
+    restored here, injected transient and persistent failures, and a
+    corrupt newest step.  Returns {label: launch counts}."""
+    import dataclasses
+    import json as js
+    import shutil
+    import signal
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.core import msc_sequential
+    from repro_torch.launch.mesh import join, leave, make_msc_mesh
+    from repro_torch.serving import MSCContinuousEngine
+    from repro_torch.serving.faults import (FaultInjector, FaultPlan,
+                                            corrupt_checkpoint_leaf,
+                                            fail_all_from)
+
+    cfg = tier_cfg()
+    label = (f"fault tolerance m={CONT_M} B={CONT_B} {FT_CHUNKS} chunks "
+             f"a step")
+    log(f"{label}: the skewed mix of phase 5c ({CONT_N} requests); card: "
+        f"{smi}")
+    stash = STASH.get("continuous")
+    tensors = (stash["tensors"] if stash is not None else
+               [_planted(torch, SEED + i, CONT_M,
+                         CONT_GAMMA_SLOW if i % CONT_SLOW_EVERY == 0
+                         else CONT_GAMMA_FAST) for i in range(CONT_N)])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    launches = {}
+    try:
+        def engine(**kw):
+            return MSCContinuousEngine(cfg, slots=CONT_B,
+                                       chunks_per_step=FT_CHUNKS,
+                                       device=DEVICE, **kw)
+
+        # ---- the overhead of periodic checkpoints, in turns
+        plain = engine()
+        ref = plain.run(tensors)  # cold: the captures
+        ck_dir = os.path.join(tmp, "periodic")
+        ckeng = engine(checkpoint_dir=ck_dir,
+                       ckpt_every_chunks=FT_CKPT_EVERY)
+        ckeng.run(tensors)
+        writes = []
+        orig = ckeng.checkpoint
+
+        def timed_checkpoint():
+            t0 = time.perf_counter()
+            path = orig()
+            writes.append((time.perf_counter() - t0, sum(
+                os.path.getsize(os.path.join(path, f))
+                for f in os.listdir(path))))
+            return path
+
+        ckeng.checkpoint = timed_checkpoint
+        t = {"plain": [], "ckpt": []}
+        for name in ("plain", "ckpt", "ckpt", "plain"):
+            e = plain if name == "plain" else ckeng
+            if name == "ckpt":
+                writes.clear()  # the last run's checkpoints are reported
+            mods = _reset_counts()
+            before = e.stats
+            out, s = _timed_s(torch, lambda: e.run(tensors))
+            t[name].append(s)
+            if name == "ckpt":
+                launches[label] = _read_counts(mods)
+                same = all(_bits(a, b) for a, b in zip(out, ref))
+                d = e.stats.delta(before)
+        _gate(checks, same and d.checkpoints_written > 0, label,
+              f"with checkpoints every {FT_CKPT_EVERY} chunks: results as "
+              f"without, {d.checkpoints_written} checkpoints a run")
+        p_s, c_s = min(t["plain"]), min(t["ckpt"])
+        n_w = len(writes)
+        w_s = [w for w, _ in writes] or [0.0]
+        w_b = [b for _, b in writes] or [0]
+        log(f"  warm walls: without {' / '.join(f'{x * 1e3:.1f}' for x in t['plain'])} "
+            f"ms, with {' / '.join(f'{x * 1e3:.1f}' for x in t['ckpt'])} ms: "
+            f"overhead {(c_s - p_s) / p_s * 100:.1f}% (the reference's bar "
+            f"<= 10%, reported); per checkpoint {min(w_b)}-{max(w_b)} B "
+            f"written in {min(w_s) * 1e3:.1f}-{max(w_s) * 1e3:.1f} ms "
+            f"({n_w} a run) ({smi})")
+        ckeng.close()
+        plain.close()
+        del plain, ckeng
+
+        # ---- a mid-solve checkpoint, close(), restore: one device
+        mid_dir = os.path.join(tmp, "mid")
+        eng = engine(checkpoint_dir=mid_dir, ckpt_every_chunks=0)
+        rids = [eng.submit(x) for x in tensors]
+        got = {}
+        for _ in range(4):
+            got.update(eng.step())
+        eng.checkpoint()
+        graphs_cold = eng.stats.compiles
+        eng.close()
+        before_ckpt = dict(got)
+        re1 = MSCContinuousEngine.restore(mid_dir, device=DEVICE)
+        _drain(re1, got)
+        same = sorted(got) == sorted(rids) and all(
+            _bits(got[r], ref[i]) for i, r in enumerate(rids))
+        new = re1.stats.compiles - graphs_cold
+        _gate(checks, same and re1.stats.restores == 1
+              and new == GRAPHS_PER_CONT_BUCKET, label,
+              f"mid-solve checkpoint (after 4 ticks, {len(before_ckpt)} "
+              f"done), close(), restore: bits of the uninterrupted run; "
+              f"the restored engine captured {new} graphs (its table's "
+              f"{GRAPHS_PER_CONT_BUCKET}) and nothing for the resumed "
+              f"slots")
+        re1.close()
+        del re1, eng
+
+        # ---- the same checkpoint on a (1,) NCCL mesh, and one written
+        # on the mesh restored on one device
+        mesh_dir = os.path.join(tmp, "mesh")
+        try:
+            dev = join(torch.device(DEVICE).type, rank=0, world_size=1,
+                       store_file=os.path.join(tmp, "store"))
+            mesh = make_msc_mesh("flat", (1,))
+            got_m = dict(before_ckpt)
+            rm = MSCContinuousEngine.restore(mid_dir, mesh=mesh, device=dev)
+            _drain(rm, got_m)
+            rm.close()
+            meng = MSCContinuousEngine(cfg, slots=CONT_B,
+                                       chunks_per_step=FT_CHUNKS, mesh=mesh,
+                                       checkpoint_dir=mesh_dir,
+                                       ckpt_every_chunks=0)
+            mr = [meng.submit(x) for x in tensors]
+            got_w = {}
+            for _ in range(4):
+                got_w.update(meng.step())
+            meng.checkpoint()
+            meng.close()
+            del rm, meng
+        finally:
+            leave()
+        r1 = MSCContinuousEngine.restore(mesh_dir, device=DEVICE)
+        _drain(r1, got_w)
+        r1.close()
+        same_a = all(_bits(got_m[r], ref[i]) for i, r in enumerate(rids))
+        same_b = sorted(got_w) == sorted(mr) and all(
+            _bits(got_w[r], ref[i]) for i, r in enumerate(mr))
+        _gate(checks, same_a and same_b, label,
+              f"restored onto a (1,) NCCL mesh: bits equal {same_a}; "
+              f"written on (1,), restored on one device: bits equal "
+              f"{same_b}")
+        del r1
+
+        # ---- a child SIGKILLed after chunk k, restored here
+        kill_dir, out_dir = os.path.join(tmp, "kill"), os.path.join(tmp,
+                                                                    "out")
+        os.makedirs(out_dir)
+        spec = {"seed": SEED, "m": CONT_M, "n": CONT_N,
+                "every": CONT_SLOW_EVERY, "slow": CONT_GAMMA_SLOW,
+                "fast": CONT_GAMMA_FAST, "slots": CONT_B,
+                "chunks": FT_CHUNKS, "ckpt_every": 4, "kill": 9}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", FT_CHILD, SRC,
+             js.dumps(dataclasses.asdict(cfg)), kill_dir, out_dir,
+             js.dumps(spec)], capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        got_k = {}
+        for f in os.listdir(out_dir):
+            with np.load(os.path.join(out_dir, f)) as z:
+                got_k[int(f[4:-4])] = [_Loaded(z, j) for j in range(3)]
+        killed = proc.returncode == -signal.SIGKILL
+        n_before = len(got_k)
+        rk = MSCContinuousEngine.restore(kill_dir, device=DEVICE)
+        step = rk._total_chunks
+        _drain(rk, got_k)
+        rk.close()
+        same = sorted(got_k) == list(range(CONT_N)) and all(
+            _bits(got_k[i], ref[i]) for i in range(CONT_N))
+        _gate(checks, killed and same, label,
+              f"child SIGKILLed after chunk {spec['kill']} (rc "
+              f"{proc.returncode}, {child_s:.1f} s, {n_before} results "
+              f"delivered before), restored here from step {step}: bits "
+              f"equal {same}" + ("" if killed else f"; stderr "
+                                 f"{proc.stderr[-400:]}"))
+        del rk
+
+        # ---- injected failures: one chunk and one refill (transient),
+        # then a persistent one
+        fe = engine(retry_backoff_s=0.0, fault_injector=FaultInjector(
+            FaultPlan(fail_chunks=(3,), fail_refills=(2,))))
+        out = fe.run(tensors)
+        same = all(_bits(a, b) for a, b in zip(out, ref))
+        _gate(checks, same and fe.stats.retries >= 2
+              and fe.stats.fallback_requests == 0, label,
+              f"one injected chunk and one refill failure: "
+              f"{fe.stats.retries} retries, bits equal {same}, "
+              f"{fe.stats.fallback_requests} fallback-served")
+        fe.close()
+        pe = engine(retry_backoff_s=0.0, max_retries=2,
+                    fault_injector=FaultInjector(FaultPlan(
+                        fail_chunks=fail_all_from(2))))
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            mods = _reset_counts()
+            out, s_fb = _timed_s(torch, lambda: pe.run(tensors))
+            counts_fb = _read_counts(mods)
+        seq = [msc_sequential(x, cfg, device=DEVICE) for x in tensors]
+        same = all(all(a[j].mask.cpu().equal(b[j].mask.cpu())
+                       and int(a[j].power_iters_run)
+                       == int(b[j].power_iters_run) for j in range(3))
+                   for a, b in zip(out, seq))
+        n_fb = pe.stats.fallback_requests
+        _gate(checks, same and n_fb + pe.stats.evictions == CONT_N
+              and n_fb > 0 and counts_fb["power_iter"] > 0
+              and any("sequential oracle" in str(x.message) for x in w),
+              label, f"persistent failure from chunk 2: {n_fb} requests "
+              f"(every live and queued one) through msc_sequential on the "
+              f"card ({counts_fb['power_iter']} power_iter launches, "
+              f"{s_fb * 1e3:.1f} ms), {pe.stats.evictions} served before; "
+              f"masks and sweeps equal msc_sequential's: {same}")
+        launches[f"{label} fallback"] = counts_fb
+        pe.close()
+        del fe, pe, seq, out
+
+        # ---- the newest leaf corrupted: restore from the previous step
+        cor_dir = os.path.join(tmp, "corrupt")
+        ce = engine(checkpoint_dir=cor_dir, ckpt_every_chunks=0,
+                    keep_checkpoints=5)
+        cr = [ce.submit(x) for x in tensors]
+        got_c = dict(ce.step())
+        p1 = ce.checkpoint()
+        got_c.update(ce.step())
+        p2 = ce.checkpoint()
+        ce.close()
+        corrupt_checkpoint_leaf(cor_dir, int(os.path.basename(p2)[5:]))
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            rc = MSCContinuousEngine.restore(cor_dir, device=DEVICE)
+        warned = any("failed" in str(x.message) for x in w)
+        step_ok = rc._total_chunks == int(os.path.basename(p1)[5:])
+        got_rc = _drain(rc, {})
+        rc.close()
+        same = all(_bits(got_rc.get(r, got_c.get(r)), ref[i])
+                   for i, r in enumerate(cr))
+        _gate(checks, warned and step_ok and same, label,
+              f"newest leaf corrupted: a warning {warned}, restored from "
+              f"the previous step {step_ok}, bits equal {same}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _only_phases():
+    """`--only 11,12,13`: the tier phases to run alone (development runs
+    only; with no arguments every phase runs)."""
+    if "--only" not in sys.argv:
+        return []
+    names = sys.argv[sys.argv.index("--only") + 1].split(",")
+    bad = [n for n in names if n not in ("11", "12", "13")]
+    if bad:
+        raise SystemExit(f"chip_smoke: --only takes 11, 12, 13; got {bad}")
+    return names
+
+
 def main() -> int:
     try:
         import torch
@@ -2009,6 +2749,18 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_card(torch)
     phase_build()
+    only = _only_phases()
+    if only:
+        # a development run of the named tier phases: no result lines
+        tiers = {"11": phase_cache, "12": phase_scheduler,
+                 "13": phase_faults}
+        for name in only:
+            tiers[name](torch, checks, smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases "
+            f"{', '.join(only)} only)")
+        for f in checks.failures:
+            print(f"FAIL {f}", file=sys.stderr)
+        return 1 if checks.failures else 3
     rows = phase_kernels(torch, checks)
     launches, singles, solve_ms = phase_main_path(torch, checks)
     launches.update(phase_batched(torch, checks, singles))
@@ -2019,6 +2771,9 @@ def main() -> int:
     launches.update(phase_mesh(torch, checks, singles, solve_ms, smi))
     launches.update(phase_mesh_serving(torch, checks, singles, smi))
     launches.update(phase_mesh_lm(torch, checks, smi))
+    launches.update(phase_cache(torch, checks, smi))
+    launches.update(phase_scheduler(torch, checks, smi))
+    launches.update(phase_faults(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

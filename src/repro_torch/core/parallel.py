@@ -385,6 +385,17 @@ class MSCChunkPlan:
         return tuple((B, m // p, r // q, c)
                      for B, m, r, c in self.padded_shapes(bucket, B))
 
+    def warm_shapes(self, bucket, B: int):
+        """(B, m', c) warm-start staging per mode: one row of iterates per
+        slot, the whole padded slice dim (each rank takes its rows in the
+        refill), laid out as the carry's v."""
+        return tuple((B, m, c) for B, m, _, c in self.padded_shapes(bucket, B))
+
+    def resume_shapes(self, bucket, B: int):
+        """(B, m') λ / residual resume staging per mode (the resumed
+        iterate rides the warm staging)."""
+        return tuple((B, m) for B, m, _, _ in self.padded_shapes(bucket, B))
+
     def local_block(self, j: int, tensor: torch.Tensor, shape):
         """This rank's (m'/S, r'/Q, c) block of a request's mode-j
         unfolding, zero-padded to `shape` (one mode_shapes entry, without
@@ -483,7 +494,9 @@ class MSCChunkPlan:
 
     def build_refill(self):
         """(blocks, carries, dims, new_blocks, new_dims, take_new,
-        new_done, perm) → (blocks, carries, results).
+        new_done, perm[, warm_v, use_warm, resume_lam, resume_resid,
+        resume_iters, resume_done, use_resume]) → (blocks, carries,
+        results).
 
         First the finalize: `results` is the slot-padded batched MSCResult
         of every slot from the pre-repack state, under the pre-repack
@@ -493,20 +506,31 @@ class MSCChunkPlan:
         reads the evicted slots' rows.  Then the repack, in place: slot s
         takes the fresh request of `new_blocks` (the staged blocks,
         `mode_shapes`) and `new_dims` where take_new[s], else old slot
-        perm[s]'s state verbatim; new_done[s] seeds slot s inert.  The
-        reference's warm and resume inputs are not ported yet (ROADMAP.md
-        queue 1 item 10).
+        perm[s]'s state verbatim; new_done[s] seeds slot s inert.
+
+        The fresh carries (`ModeSchedule.init_mode_carry`) take the
+        warm-start inputs, warm_v (per mode, `warm_shapes`) and use_warm
+        (B,), and the preempt-to-host resume inputs, resume_lam and
+        resume_resid (per mode, `resume_shapes`), resume_iters and
+        resume_done (B, 3) and use_resume (B,).  A cold refill passes
+        them all-False (the engine's static buffers, so one captured
+        program serves cold, warm and resumed admissions).
         """
         sched = self.sched
         dev = self.device
 
         def refill(blocks, carries, dims, new_blocks, new_dims, take_new,
-                   new_done, perm):
+                   new_done, perm, warm_v, use_warm, resume_lam,
+                   resume_resid, resume_iters, resume_done, use_resume):
             dims = torch.as_tensor(dims, device=dev)
             new_dims = torch.as_tensor(new_dims, device=dev)
             take_new = torch.as_tensor(take_new, device=dev).bool()
             new_done = torch.as_tensor(new_done, device=dev).bool()
             perm = torch.as_tensor(perm, device=dev).long()
+            use_warm = torch.as_tensor(use_warm, device=dev).bool()
+            use_resume = torch.as_tensor(use_resume, device=dev).bool()
+            resume_iters = torch.as_tensor(resume_iters, device=dev)
+            resume_done = torch.as_tensor(resume_done, device=dev)
             modes = []
             for j in range(3):
                 block, carry = blocks[j], carries[j]
@@ -518,8 +542,15 @@ class MSCChunkPlan:
                          < dims[:, j][:, None])
                 modes.append(sched.finalize_mode_batched(
                     d, lam, carry.iters[:, None], valid))
-                fresh = sched.init_mode_carry(B, m_pad, c,
-                                              new_dims[:, C_OF[j]], new_done)
+                fresh = sched.init_mode_carry(
+                    B, m_pad, c, new_dims[:, C_OF[j]], new_done,
+                    warm_v=torch.as_tensor(warm_v[j], device=dev),
+                    use_warm=use_warm,
+                    resume_lam=torch.as_tensor(resume_lam[j], device=dev),
+                    resume_resid=torch.as_tensor(resume_resid[j],
+                                                 device=dev),
+                    resume_iters=resume_iters[:, j],
+                    resume_done=resume_done[:, j], use_resume=use_resume)
                 sched.repack_local(perm, take_new, block, carry,
                                    new_blocks[j], fresh)
             return blocks, carries, MSCResult(modes=tuple(modes))

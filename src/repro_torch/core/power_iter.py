@@ -77,6 +77,34 @@ def _normalize(v: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps)
 
 
+def merge_warm_start(v0: torch.Tensor, warm_v: torch.Tensor,
+                     use_warm: torch.Tensor) -> torch.Tensor:
+    """Warm-start selection of the serving admission path: request b
+    starts from `warm_v[b]` (a cached near-converged iterate set) where
+    `use_warm[b]`, else from `v0[b]`.  The warm rows are re-normalized;
+    an all-zero padded row stays exactly zero.  Device ops only: the
+    refill program runs this."""
+    w = _normalize(warm_v.to(v0.dtype))
+    u = use_warm.reshape((-1,) + (1,) * (v0.dim() - 1))
+    return torch.where(u, w, v0)
+
+
+def predict_remaining_sweeps(iter_hist, current: int, *, cap: int,
+                             check_every: int = 1) -> float:
+    """Expected remaining sweeps of a request that has run `current`,
+    under the empirical histogram of realized max-mode sweeps: the
+    conditional tail E[S − current | S > current].  A request past every
+    entry is predicted to run to `cap`; an empty histogram predicts one
+    more gate chunk.  A pure host function (scheduler policy)."""
+    cur = max(0, int(current))
+    tail = [int(s) for s in iter_hist if int(s) > cur]
+    if tail:
+        return sum(tail) / len(tail) - cur
+    if any(int(s) <= cur for s in iter_hist):
+        return float(max(cap - cur, check_every))
+    return float(max(1, check_every))
+
+
 def _psum_inner(x: torch.Tensor, inner_group=None) -> torch.Tensor:
     """all_reduce(SUM) of a partial contraction over the inner (row-shard)
     group, in place; the identity without one."""

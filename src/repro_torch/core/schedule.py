@@ -47,15 +47,14 @@ import torch
 
 from .extraction import extract_cluster
 from .power_iter import (SolveState, _init_vectors, build_chunk_fn,
-                         compute_dtype, plan_eigensolve, rayleigh_fp32,
-                         step_chunk)
+                         compute_dtype, merge_warm_start, plan_eigensolve,
+                         rayleigh_fp32, step_chunk)
 from .types import ModeResult, MSCConfig
 
 EPILOGUES = ("allgather", "ring")
 
-TIERS_TODO = ("the serving tiers (autotuner, SLO scheduler, checkpoints, "
-              "result cache, warm start, fault injection) are not ported "
-              "yet: ROADMAP.md, queue 1 item 10")
+TIERS_TODO = ("the autotuner and the multi-host control plane are not "
+              "ported yet: ROADMAP.md, queue 1 item 10 (the rest)")
 
 
 def pad_to(n: int, mult: int) -> int:
@@ -454,24 +453,48 @@ class ModeSchedule:
         from the same vector, so a rank makes its rows alone); done: (B,)
         bool, True seeds an inert slot (its iterate never advances).
         Device ops only, on `done`'s device: the refill program runs
-        this.  The reference's warm-start and resume inputs are not
-        ported yet.
+        this.
+
+        warm_v (B, m_pad, c) and use_warm (B,): the warm-start admission.
+        Slot b starts from warm_v[b] (a cached near-duplicate's iterates,
+        re-normalized by `merge_warm_start`) where use_warm[b], else from
+        the deterministic start.
+
+        resume_lam / resume_resid (B, m_pad), resume_iters (B,),
+        resume_done (B,) and use_resume (B,): the preempt-to-host
+        re-admission.  Where use_resume[b], slot b takes its whole
+        exported state back: warm_v[b] verbatim (not re-normalized, so a
+        resumed solve keeps the bits of one never preempted), λ, the
+        residuals, the sweep count and the verdict.  Each rank takes its
+        own rows of the staged (B, m_pad, …) inputs.  use_warm and
+        use_resume never both hold for a slot (the engine's contract).
         """
-        if any(x is not None for x in (warm_v, use_warm, resume_lam,
-                                       resume_resid, resume_iters,
-                                       resume_done, use_resume)):
-            raise NotImplementedError(f"warm-start and resume inputs: "
-                                      f"{TIERS_TODO}")
         done = torch.as_tensor(done, dtype=torch.bool)
         dev = done.device
         b = self.local_rows(m_pad)
+        lo = self.slice_index * b
         v = _init_vectors((B, b), c, torch.float32,
                           c_valid=torch.as_tensor(c_req, device=dev)[:, None],
                           device=dev)
+        wv = None
+        if warm_v is not None:
+            wv = warm_v[:, lo:lo + b].to(torch.float32)
+            if use_warm is not None:
+                v = merge_warm_start(
+                    v, wv, torch.as_tensor(use_warm, device=dev).bool())
         z = dict(dtype=torch.float32, device=dev)
-        return SolveState(v=v, lam=torch.zeros((B, b), **z),
-                          resid=torch.zeros((B, b), **z),
-                          iters=torch.zeros(B, dtype=torch.int32, device=dev),
+        lam = torch.zeros((B, b), **z)
+        resid = torch.zeros((B, b), **z)
+        iters = torch.zeros(B, dtype=torch.int32, device=dev)
+        if use_resume is not None:
+            ur = torch.as_tensor(use_resume, device=dev).bool()
+            v = torch.where(ur[:, None, None], wv, v)
+            lam = torch.where(ur[:, None], resume_lam[:, lo:lo + b], lam)
+            resid = torch.where(ur[:, None], resume_resid[:, lo:lo + b],
+                                resid)
+            iters = torch.where(ur, resume_iters.to(torch.int32), iters)
+            done = torch.where(ur, resume_done.bool(), done)
+        return SolveState(v=v, lam=lam, resid=resid, iters=iters,
                           done=done.clone())
 
     def chunk_local(self, block: torch.Tensor, carry: SolveState,
@@ -542,8 +565,8 @@ class ModeSchedule:
                                     group)
             lam, resid = rows[..., 0], rows[..., 1]
 
-        def g(x):
-            return x.detach().cpu().numpy()
+        def g(x):  # a copy: on the CPU .numpy() would alias the carry
+            return x.detach().cpu().numpy().copy()
 
         return SolveState(v=g(v)[:, :m], lam=g(lam)[:, :m],
                           resid=g(resid)[:, :m], iters=g(carry.iters),

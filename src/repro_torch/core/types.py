@@ -58,6 +58,14 @@ class MSCConfig:
     def with_(self, **kw) -> "MSCConfig":
         return dataclasses.replace(self, **kw)
 
+    def fingerprint(self) -> str:
+        """Config digest of the result-cache keys
+        (`fingerprint.config_fingerprint`): observational knobs dropped,
+        numeric spellings collapsed; equal to the reference's."""
+        from .fingerprint import config_fingerprint
+
+        return config_fingerprint(self)
+
 
 @dataclasses.dataclass
 class ModeResult:

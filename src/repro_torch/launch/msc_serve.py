@@ -9,13 +9,17 @@ same stream is also driven through `MSCContinuousEngine` as a streaming
 arrival simulation (`simulate_continuous`: Poisson arrivals,
 `--arrival-rate` per scheduler tick), after every bucket is warmed off
 the clock, and the decode loop's occupancy, eviction and queue-wait
-counters are reported.  The reference's flags and defaults, plus
-`--device` (default `cuda`; `cpu` runs the same steps eagerly) and
-`--nproc`.  `--mesh-shape p` or `p,q` serves on a flat mesh of ranks, one
+counters are reported; the serving tiers' flags attach the result
+cache and warm starts (`--cache-dir`, `--cache-max-bytes`,
+`--warm-start`), the SLO scheduler (`--priority-mix`, `--slo-chunks`,
+`--deadline-chunks`, `--no-preempt`, `--bucket-policy`) and
+checkpoints (`--checkpoint-dir`, `--ckpt-every`, `--restore`).  The
+reference's flags and defaults, plus `--device` (default `cuda`; `cpu`
+runs the same steps eagerly) and `--nproc`.  `--mesh-shape p` or `p,q` serves on a flat mesh of ranks, one
 process per device (`launch/mesh.py`): `--nproc N` spawns N ranks (gloo
 on the CPU, NCCL on N cards), and under `torchrun` every process it
 starts is a rank; every rank serves the same stream and rank 0 prints.
-The serving tiers and the roofline choosers are later items of ROADMAP.md
+The autotuner and the roofline choosers are later items of ROADMAP.md
 queue 1; their flags raise `NotImplementedError` naming the item.
 
 Examples:
@@ -26,6 +30,9 @@ Examples:
       --arrival-rate 1.5 --slow-every 4 --slots 4
   PYTHONPATH=src python -m repro_torch.launch.msc_serve --device cpu \\
       --nproc 4 --mesh-shape 2,2 --continuous --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.msc_serve --device cpu \\
+      --continuous --priority-mix 0:0.5,1:1.5 --slo-chunks 32 \\
+      --slow-every 8 --cache-dir /tmp/msc_cache --warm-start
   PYTHONPATH=src torchrun --nproc-per-node 4 \\
       -m repro_torch.launch.msc_serve -- --mesh-shape 4 --continuous
 """
@@ -44,19 +51,9 @@ from repro_torch.core.schedule import TIERS_TODO
 from repro_torch.launch.mesh import (make_msc_mesh, mesh_dims,
                                      msc_mesh_shape, on_ranks, parse_shape,
                                      world_size)
-from repro_torch.serving import MSCContinuousEngine, MSCServeEngine
+from repro_torch.serving import (LoadShedError, MSCContinuousEngine,
+                                 MSCResultCache, MSCServeEngine)
 
-# flags of later items, with the value that leaves them off
-_LATER = (
-    ("autotune", False, TIERS_TODO), ("priority_mix", None, TIERS_TODO),
-    ("slo_chunks", None, TIERS_TODO), ("deadline_chunks", None, TIERS_TODO),
-    ("no_preempt", False, TIERS_TODO),
-    ("bucket_policy", "weighted", TIERS_TODO),
-    ("checkpoint_dir", None, TIERS_TODO), ("ckpt_every", 8, TIERS_TODO),
-    ("restore", None, TIERS_TODO), ("cache_dir", None, TIERS_TODO),
-    ("cache_max_bytes", 256 << 20, TIERS_TODO),
-    ("warm_start", False, TIERS_TODO),
-)
 
 
 def build_request_stream(sizes, n_requests: int, seed: int,
@@ -85,29 +82,41 @@ def simulate_continuous(engine: MSCContinuousEngine, tensors, *,
     Inter-arrival gaps are Exponential(1/arrival_rate) in scheduler
     ticks, drawn from `numpy.random.RandomState(seed)` as the reference
     draws them; each tick submits everything that has arrived, then
-    advances the scheduler one tick.  Per-class rates and deadlines are
-    the SLO scheduler's (ROADMAP.md queue 1 item 10).  Returns (results
-    by input index, ticks, wall seconds, shed count; nothing is shed
-    without the SLO scheduler).
+    advances the scheduler one tick.  With `priority_rates` ({class:
+    arrivals per tick}) each request draws its class in proportion to
+    the rates and the total rate is their sum; `deadline_chunks` rides
+    through to submit().  Submits the engine sheds (`LoadShedError`) are
+    dropped and counted.  Returns (results by input index, ticks, wall
+    seconds, shed count).
     """
-    if priority_rates or deadline_chunks is not None:
-        raise NotImplementedError(f"priority classes and deadlines: "
-                                  f"{TIERS_TODO}")
     rng = np.random.RandomState(seed)
+    if priority_rates:
+        classes = sorted(priority_rates)
+        rates = np.asarray([priority_rates[c] for c in classes], float)
+        arrival_rate = float(rates.sum())
+        prio = [classes[i] for i in
+                rng.choice(len(classes), size=len(tensors),
+                           p=rates / rates.sum())]
+    else:
+        prio = [0] * len(tensors)
     arrivals = np.cumsum(rng.exponential(1.0 / max(arrival_rate, 1e-9),
                                          len(tensors)))
     results, rid_of = {}, {}
-    tick, nxt = 0, 0
+    tick, nxt, shed = 0, 0, 0
     t0 = time.perf_counter()
     while nxt < len(tensors) or engine.has_work():
         while nxt < len(tensors) and arrivals[nxt] <= tick:
-            rid_of[engine.submit(tensors[nxt])] = nxt
+            try:
+                rid_of[engine.submit(tensors[nxt], priority=prio[nxt],
+                                     deadline_chunks=deadline_chunks)] = nxt
+            except LoadShedError:
+                shed += 1
             nxt += 1
         if engine.has_work():
             for rid, res in engine.step().items():
                 results[rid_of[rid]] = res
         tick += 1
-    return results, tick, time.perf_counter() - t0, 0
+    return results, tick, time.perf_counter() - t0, shed
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -142,28 +151,53 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--chunks-per-step", default="1",
                     help="gate chunks per continuous step ('auto' is "
                          "ROADMAP item 11)")
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--autotune", action="store_true",
+                    help="refused: the autotuner is ROADMAP item 10 "
+                         "(the rest)")
     ap.add_argument("--no-donate", action="store_true",
                     help="refused: the port updates the slot state in "
                          "place, so there is no donation to turn off")
     ap.add_argument("--arrival-rate", type=float, default=2.0,
                     help="mean Poisson arrivals per scheduler tick "
                          "(continuous mode)")
-    ap.add_argument("--priority-mix", default=None)
-    ap.add_argument("--slo-chunks", type=int, default=None)
-    ap.add_argument("--deadline-chunks", type=int, default=None)
-    ap.add_argument("--no-preempt", action="store_true")
+    ap.add_argument("--priority-mix", default=None,
+                    help="per-class Poisson arrival rates, e.g. "
+                         "'0:0.5,1:1.5' (class 0 most urgent); overrides "
+                         "--arrival-rate with the sum")
+    ap.add_argument("--slo-chunks", type=int, default=None,
+                    help="shed submits whose predicted queue wait "
+                         "exceeds this many chunks")
+    ap.add_argument("--deadline-chunks", type=int, default=None,
+                    help="per-request deadline in scheduler ticks "
+                         "(misses are counted)")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="turn preempt-to-host off")
     ap.add_argument("--bucket-policy", default="weighted",
-                    choices=("weighted", "all"))
+                    choices=("weighted", "all"),
+                    help="'weighted' runs one bucket a tick by queue-depth "
+                         "credit, 'all' every bucket")
     ap.add_argument("--slow-every", type=int, default=0,
                     help="every Nth request is a near-noise slow "
                          "converger (0 = homogeneous stream)")
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=8)
-    ap.add_argument("--restore", default=None, metavar="DIR")
-    ap.add_argument("--cache-dir", default=None, metavar="DIR")
-    ap.add_argument("--cache-max-bytes", type=int, default=256 << 20)
-    ap.add_argument("--warm-start", action="store_true")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="continuous mode: checkpoint the engine here every "
+                         "--ckpt-every gate chunks")
+    ap.add_argument("--ckpt-every", type=int, default=8,
+                    help="gate chunks between checkpoints")
+    ap.add_argument("--restore", default=None, metavar="DIR",
+                    help="restore the continuous engine from the newest "
+                         "checkpoint under DIR onto the live ranks, drain "
+                         "its in-flight requests, then serve the stream "
+                         "(implies --continuous)")
+    ap.add_argument("--cache-dir", default=None, metavar="DIR",
+                    help="continuous mode: a result cache persisted under "
+                         "DIR")
+    ap.add_argument("--cache-max-bytes", type=int, default=256 << 20,
+                    help="result-cache LRU payload budget")
+    ap.add_argument("--warm-start", action="store_true",
+                    help="continuous mode: a result cache (in memory "
+                         "unless --cache-dir) seeding near-duplicates from "
+                         "cached iterates")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
@@ -172,20 +206,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Raise on a flag of a later item (ROADMAP.md queue 1)."""
+    """Raise on a flag of a later item (ROADMAP.md queue 1); `--restore`
+    implies `--continuous`, as in the reference."""
     if args.epilogue == "auto":
         raise NotImplementedError(f"--epilogue auto: {AUTO_TODO}")
     if args.chunks_per_step == "auto":
         raise NotImplementedError(f"--chunks-per-step auto: {AUTO_TODO}")
+    if args.restore:
+        args.continuous = True
     if args.no_donate:
         raise ValueError("--no-donate: the port's continuous engine updates "
                          "its slot state in place (the counterpart of the "
                          "reference's donated buffers), so there is no "
                          "donation to turn off")
-    for name, off, todo in _LATER:
-        if getattr(args, name) != off:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')}: {todo}")
+    if args.autotune:
+        raise NotImplementedError(f"--autotune: {TIERS_TODO}")
 
 
 def run(args: argparse.Namespace):
@@ -311,20 +346,59 @@ def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
                    dev: torch.device, mesh=None, say=print) -> dict:
     """The stream through MSCContinuousEngine under Poisson arrivals,
     every bucket warmed off the clock first, with the reference's lines
-    (on `mesh` when given)."""
+    (on `mesh` when given): a new engine with the tier flags, or with
+    --restore one restored from a checkpoint whose in-flight requests
+    are drained first."""
     say(f"\ncontinuous decode loop: Poisson arrivals "
         f"{args.arrival_rate}/tick, slow-every={args.slow_every}")
-    ceng = MSCContinuousEngine(cfg, slots=args.slots or args.max_batch,
-                               bucket_quantum=args.bucket_quantum,
-                               chunks_per_step=int(args.chunks_per_step),
-                               device=dev, mesh=mesh)
+    rcache = None
+    if args.cache_dir or args.warm_start:
+        rcache = MSCResultCache(max_bytes=args.cache_max_bytes,
+                                persist_dir=args.cache_dir)
+        if len(rcache):
+            say(f"result cache: reloaded {len(rcache)} entr"
+                f"{'y' if len(rcache) == 1 else 'ies'} "
+                f"({rcache.nbytes >> 10} KiB) from {args.cache_dir}")
+    if args.restore:
+        from repro_torch.launch.elastic import (best_msc_shape,
+                                                restore_msc_engine)
+
+        ceng = restore_msc_engine(
+            args.restore, device=dev, device_type=dev.type,
+            checkpoint_dir=args.checkpoint_dir or args.restore,
+            ckpt_every_chunks=args.ckpt_every, result_cache=rcache,
+            warm_start=args.warm_start)
+        drained = {}
+        while ceng.has_work():
+            drained.update(ceng.step())
+        # one device: the reference's elastic mesh over one device
+        shape = (mesh_dims(ceng.mesh) if ceng.mesh is not None
+                 else dict(zip(("slice", "inner"), best_msc_shape(1))))
+        say(f"restored from {args.restore} onto mesh {shape}; drained "
+            f"{len(drained)} in-flight request(s)")
+    else:
+        ceng = MSCContinuousEngine(
+            cfg, slots=args.slots or args.max_batch,
+            bucket_quantum=args.bucket_quantum,
+            chunks_per_step=int(args.chunks_per_step),
+            checkpoint_dir=args.checkpoint_dir,
+            ckpt_every_chunks=args.ckpt_every, result_cache=rcache,
+            warm_start=args.warm_start, preempt=not args.no_preempt,
+            slo_chunks=args.slo_chunks, bucket_policy=args.bucket_policy,
+            device=dev, mesh=mesh)
     probes = {}  # warm every bucket's programs off the clock
     for t in tensors:
         probes.setdefault(ceng.bucket_of(t.shape), t)
     ceng.run(list(probes.values()))
     base = ceng.stats
+    mix = None
+    if args.priority_mix:
+        mix = {int(k): float(v) for k, v in
+               (kv.split(":") for kv in args.priority_mix.split(","))}
+        say(f"  priority mix: {mix} arrivals/tick per class")
     results, ticks, stream_s, shed = simulate_continuous(
-        ceng, tensors, arrival_rate=args.arrival_rate, seed=args.seed)
+        ceng, tensors, arrival_rate=args.arrival_rate, seed=args.seed,
+        priority_rates=mix, deadline_chunks=args.deadline_chunks)
     cs = ceng.stats.delta(base)  # the stream only, not the warm-up
     say(f"streamed {len(results)} results over {ticks} ticks in "
         f"{stream_s:.2f}s ({len(results) / stream_s:.1f} req/s)")
@@ -333,7 +407,7 @@ def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
         f"{cs.evictions} evictions, {cs.refills} refills, "
         f"mean queue wait "
         f"{cs.queue_wait_chunks / max(cs.requests, 1):.2f} chunks")
-    ss = ceng.stats  # cumulative; p50/p99 rolling
+    ss = ceng.stats  # cumulative (restores predate the base); p50/p99 rolling
     say(f"  scheduler: {ss.preemptions} preemptions, "
         f"{ss.resumes} resumes, {ss.deadline_misses} deadline "
         f"misses, {ss.slo_sheds} SLO-shed ({shed} dropped), "
@@ -350,6 +424,11 @@ def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
         f"{ss.cache_hits} cache hits / {ss.cache_misses} misses, "
         f"{ss.warm_starts} warm starts "
         f"({ss.warm_sweeps_saved} sweeps saved)")
+    if rcache is not None and args.cache_dir:
+        if ceng._rank0():
+            rcache.persist()
+        say(f"  result cache persisted: {len(rcache)} entries, "
+            f"{rcache.nbytes >> 10} KiB → {args.cache_dir}")
     if dev.type == "cuda":
         static, pools = ceng.memory_reckoning()
         say(f"  graphs: {ceng.graphs} held for {len(probes)} buckets "
@@ -357,11 +436,12 @@ def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
             f"the stream); static buffers {static} B, graph pools "
             f"{pools} B")
     for i in (0, len(tensors) - 1):
-        sw = [results[i][j].power_iters_run for j in range(3)]
-        say(f"  req {i}: sweeps={sw}")
+        if i in results:  # a shed request has no result
+            sw = [results[i][j].power_iters_run for j in range(3)]
+            say(f"  req {i}: sweeps={sw}")
     return {"engine": ceng, "results": results, "ticks": ticks,
             "stream_s": stream_s, "stats_warmup": base,
-            "stats_stream": cs}
+            "stats_stream": cs, "shed": shed, "cache": rcache}
 
 
 def main(argv=None) -> int:

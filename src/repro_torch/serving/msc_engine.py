@@ -52,26 +52,44 @@ finalized) between chunks, and freed slots refill from an admission
 queue, so a slow request no longer holds B − 1 slots to the batch's last
 chunk.  Each bucket runs two programs (`core.parallel.MSCChunkPlan`),
 captured on a card as two CUDA graphs: the chunk step and the refill.
+Its serving tiers are the reference's: a content-addressed result cache
+with warm starts (`serving/result_cache.py`), the SLO scheduler
+(priority classes, deadlines, aging, preempt-to-host, shedding) and
+fault tolerance (periodic checkpoints through `checkpoint/store.py`,
+restore onto any device or mesh, injected faults with bounded retries
+and the sequential fallback, `serving/faults.py`).  Warm, resumed and
+restored admissions all go through the same refill program.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+import os
+import time
+import warnings
 from collections import defaultdict, deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import (gc_checkpoints, load_leaves,
+                                          restorable_steps, save_checkpoint)
+from repro_torch.core.fingerprint import (cache_salt, host_array,
+                                          result_cache_key, spectral_sketch)
+from repro_torch.core.msc import msc_sequential
 from repro_torch.core.parallel import (C_OF, MSCChunkPlan, _collective_blocks,
                                        _flat_schedule, _mesh_device,
                                        batch_perm, check_relayout,
                                        collective_pads)
 from repro_torch.core.power_iter import (SolveState, _gated_loop,
-                                         compute_dtype, init_solve_state)
+                                         compute_dtype, init_solve_state,
+                                         predict_remaining_sweeps)
 from repro_torch.core.schedule import TIERS_TODO, ModeSchedule, pad_to
 from repro_torch.core.types import ModeResult, MSCConfig, MSCResult
+from repro_torch.roofline import expected_queue_wait
+from repro_torch.serving.faults import LoadShedError
 from repro_torch.serving.graphs import Step, warm_up
 
 # filler requests need >= 1 valid slice and column per mode: an all-zero
@@ -96,10 +114,16 @@ class ServeStats:
     request: their ratio is the occupancy), `queue_wait_chunks` (ticks
     requests spent queued), the rolling p50 / p99 of those waits and
     `idle_bucket_ticks` (ticks that left a slot free while the bucket's
-    queue held work).  The rest belong to the serving tiers of ROADMAP.md
-    queue 1 item 10 (fault tolerance, result cache, autotuner, SLO
-    scheduler; see `repro/serving/msc_engine.py:ServeStats`) and stay 0
-    here."""
+    queue held work), and the serving tiers' counters: fault tolerance
+    (`checkpoints_written`, `restores`, `retries`, `shed_requests`,
+    `fallback_requests`), the result cache (`cache_hits`,
+    `cache_misses`, `warm_starts`, `warm_sweeps_saved`) and the SLO
+    scheduler (`preemptions`, `resumes`, `deadline_misses`,
+    `slo_sheds`); see `repro/serving/msc_engine.py:ServeStats`.  The
+    multi-host and autotuner counters (`heartbeats_missed`,
+    `host_losses`, `reinits`, `shard_files_written`,
+    `autotune_searches`, `autotune_cache_hits`) belong to ROADMAP.md
+    queue 1 item 10 (the rest) and stay 0 here."""
 
     requests: int = 0
     dispatches: int = 0
@@ -451,11 +475,24 @@ def _trim_request(host: MSCResult, s: int, shape) -> MSCResult:
 
 # ------------------------------------------------------------ continuous
 
-def _control(perm, take_new, new_done, dims, new_dims) -> np.ndarray:
-    """The refill's host inputs as one (B, 9) int32 array: perm,
-    take_new, new_done, dims (3), new_dims (3)."""
-    return np.concatenate([np.stack([perm, take_new, new_done], axis=1),
-                           dims, new_dims], axis=1).astype(np.int32)
+def _control(perm, take_new, new_done, dims, new_dims, use_warm=None,
+             use_resume=None, resume_iters=None, resume_done=None
+             ) -> np.ndarray:
+    """The refill's host inputs as one (B, 17) int32 array (the warm and
+    resume columns zero when not given)."""
+    b = len(perm)
+    zero1, zero3 = np.zeros(b), np.zeros((b, 3))
+    cols = [np.stack([perm, take_new, new_done], axis=1), dims, new_dims,
+            np.stack([zero1 if use_warm is None else use_warm,
+                      zero1 if use_resume is None else use_resume], axis=1),
+            zero3 if resume_iters is None else resume_iters,
+            zero3 if resume_done is None else resume_done]
+    return np.concatenate(cols, axis=1).astype(np.int32)
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (the engine's boundary dtype)."""
+    return np.dtype(str(dtype).replace("torch.", ""))
 
 
 class _SlotState:
@@ -465,23 +502,35 @@ class _SlotState:
     precision policy's dtype, which the chunk step reads (the block
     itself where the dtypes agree, else a copy the refill rewrites after
     every repack: a copy taken once would go stale at the first refill);
-    the staging blocks admitted requests are written to; `ctl`, the
-    refill's host inputs (`_control`), written as one copy before each
-    refill; and `finished`, the step's per-slot verdicts.  Every tensor
-    keeps its address for the table's life, so the programs, once built
-    (`build`: captured as two CUDA graphs in one memory pool on a card,
-    called eagerly on the CPU), run on it in place.
+    the staging blocks admitted requests are written to; the warm-start
+    and resume staging (`warm`: per mode (B, m', c) iterates; `res_lam`,
+    `res_resid`: (B, m')), written in place for a warm or resumed
+    admission and zero otherwise; `ctl`, the refill's host inputs
+    (`_control`), written as one copy before each refill; and
+    `finished`, the step's per-slot verdicts.  Every tensor keeps its
+    address for the table's life, so the programs, once built (`build`:
+    captured as two CUDA graphs in one memory pool on a card, called
+    eagerly on the CPU), run on it in place: a cold, warm or resumed
+    refill, or a restored table, replays the same graph.
     """
 
     def __init__(self, plan: MSCChunkPlan, bucket, slots: int, dtype,
                  device: torch.device):
         self.plan = plan
+        self.bucket = tuple(bucket)
         self.device = device
         self.blocks, self.carries = plan.init_state(bucket, slots, dtype)
         cdt = compute_dtype(plan.sched.cfg.precision)
         self.ops = tuple(b if b.dtype == cdt else b.to(cdt)
                          for b in self.blocks)
         self.stage = tuple(torch.zeros_like(b) for b in self.blocks)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.warm = tuple(torch.zeros(sh, **f32)
+                          for sh in plan.warm_shapes(bucket, slots))
+        self.res_lam = tuple(torch.zeros(sh, **f32)
+                             for sh in plan.resume_shapes(bucket, slots))
+        self.res_resid = tuple(torch.zeros_like(t) for t in self.res_lam)
+        self.staged = False  # warm / resume rows written since zeroed
         fill = np.tile(np.int32(_FILLER_DIMS), (slots, 1))
         # neutral inputs: the warm-up before a capture changes no state
         self.ctl = torch.from_numpy(_control(
@@ -500,13 +549,18 @@ class _SlotState:
 
     def _refill(self) -> MSCResult:
         ctl = self.ctl
-        _, _, res = self._refill_prog(self.blocks, self.carries, ctl[:, 3:6],
-                                      self.stage, ctl[:, 6:9], ctl[:, 1],
-                                      ctl[:, 2], ctl[:, 0])
+        _, _, res = self._refill_prog(
+            self.blocks, self.carries, ctl[:, 3:6], self.stage, ctl[:, 6:9],
+            ctl[:, 1], ctl[:, 2], ctl[:, 0], self.warm, ctl[:, 9],
+            self.res_lam, self.res_resid, ctl[:, 11:14], ctl[:, 14:17],
+            ctl[:, 10])
+        self._sync_ops()
+        return res
+
+    def _sync_ops(self) -> None:
         for op, block in zip(self.ops, self.blocks):
             if op is not block:
                 op.copy_(block)
-        return res
 
     def build(self) -> int:
         """Build the step and refill programs; returns the compiles to
@@ -532,11 +586,49 @@ class _SlotState:
         for j, st in enumerate(self.stage):
             st[s].copy_(self.plan.local_block(j, x, st.shape[1:]))
 
-    def refill(self, perm, take_new, new_done, dims, new_dims) -> MSCResult:
+    def clear_staging(self) -> None:
+        """Zero the warm and resume staging once a refill has read it (or
+        a failed one left it written)."""
+        if self.staged:
+            for t in (*self.warm, *self.res_lam, *self.res_resid):
+                t.zero_()
+            self.staged = False
+
+    def write_warm(self, s: int, vectors) -> None:
+        """A near-hit donor's true-size (m_j, c_j) iterates into warm
+        staging row s, zero-padded."""
+        for j, v in enumerate(vectors):
+            v = torch.as_tensor(np.asarray(v, np.float32))
+            self.warm[j][s, :v.shape[0], :v.shape[1]].copy_(v)
+        self.staged = True
+
+    def import_slot(self, s: int, carries, resume_iters, resume_done
+                    ) -> None:
+        """A parked request's exported per-mode state into staging row s:
+        v into the warm staging (taken verbatim under use_resume), λ and
+        the residuals into the resume staging, the sweep counts and
+        verdicts into the host arrays `resume_iters` / `resume_done`
+        (B, 3) of the next refill.  Padded rows stay zero, as they are in
+        a slot that has run a chunk."""
+        for j, host in enumerate(carries):
+            v = torch.as_tensor(np.asarray(host.v, np.float32))
+            m = v.shape[0]
+            self.warm[j][s, :m, :v.shape[1]].copy_(v)
+            self.res_lam[j][s, :m].copy_(
+                torch.as_tensor(np.asarray(host.lam, np.float32)))
+            self.res_resid[j][s, :m].copy_(
+                torch.as_tensor(np.asarray(host.resid, np.float32)))
+            resume_iters[s, j] = int(host.iters)
+            resume_done[s, j] = bool(host.done)
+        self.staged = True
+
+    def refill(self, perm, take_new, new_done, dims, new_dims, use_warm,
+               use_resume, resume_iters, resume_done) -> MSCResult:
         """One refill: the inputs in one copy, then the program.  The
         results (device tensors) are overwritten by the next refill."""
-        self.ctl.copy_(torch.from_numpy(_control(perm, take_new, new_done,
-                                                 dims, new_dims)))
+        self.ctl.copy_(torch.from_numpy(_control(
+            perm, take_new, new_done, dims, new_dims, use_warm, use_resume,
+            resume_iters, resume_done)))
         return self.programs[1]()
 
     def step(self) -> np.ndarray:
@@ -544,9 +636,32 @@ class _SlotState:
         self.programs[0]()
         return self.finished.cpu().numpy().copy()
 
+    def load(self, blocks, carries) -> None:
+        """Write restored blocks and carries into the table's buffers (at
+        their addresses: the programs stay valid)."""
+        for dst, src in zip(self.blocks, blocks):
+            dst.copy_(src)
+        for dst, src in zip(self.carries, carries):
+            for f in dataclasses.fields(SolveState):
+                getattr(dst, f.name).copy_(getattr(src, f.name))
+        self._sync_ops()
+
+    def reset(self) -> None:
+        """Every slot inert and every buffer zero, in place."""
+        for t in (*self.blocks, *self.stage):
+            t.zero_()
+        for carry in self.carries:
+            for t in (carry.v, carry.lam, carry.resid, carry.iters):
+                t.zero_()
+            carry.done.fill_(True)
+        self.staged = True
+        self.clear_staging()
+        self._sync_ops()
+
     @property
     def static_bytes(self) -> int:
         ts = {id(t): t for t in (*self.blocks, *self.ops, *self.stage,
+                                 *self.warm, *self.res_lam, *self.res_resid,
                                  self.ctl, self.finished)}
         for carry in self.carries:
             for f in dataclasses.fields(SolveState):
@@ -566,36 +681,96 @@ class _SlotState:
 class _SlotTable:
     """Per-bucket slot table of the continuous engine: its device state
     (`_SlotState`), the host-side slot→request map and per-slot sizes,
-    the admission queues per priority class, the last chunk's finished
-    flags and the cross-bucket credit.  Only class 0 is used: priority
-    classes belong to the SLO scheduler (ROADMAP.md queue 1 item 10).
-    Pure bookkeeping; the policy lives in the engine."""
+    the per-class admission queues, the parked (preempted-to-host)
+    requests, the admitted tensors (kept where the caller put them: the
+    checkpoints, the fallback and a preemption read them), per-slot
+    scheduler state (priority, deadline tick, chunks run while
+    resident), the last chunk's finished flags, the cross-bucket credit
+    and the recovery state.  Pure bookkeeping; the policy lives in the
+    engine."""
 
     def __init__(self, bucket, slots: int, state: Optional[_SlotState]):
         self.bucket = bucket
         self.state = state
         self.slot_req: List[Optional[int]] = [None] * slots
         self.dims = np.tile(np.int32(_FILLER_DIMS), (slots, 1))
-        # per-class FIFO queues of (rid, submit_tick); class 0 most urgent
-        self.queues: Dict[int, Deque[Tuple[int, int]]] = {}
+        # per-class FIFO queues of (rid, submit_tick, deadline_tick), -1
+        # for no deadline; class 0 most urgent
+        self.queues: Dict[int, Deque[Tuple[int, int, int]]] = {}
         self.chunk = 0
         self.fin = np.zeros(slots, bool)  # the last chunk's finished flags
+        self.prio = np.zeros(slots, np.int32)
+        self.deadline = np.full(slots, -1, np.int64)
+        self.progress = np.zeros(slots, np.int64)
+        # rid → dict(arr, carries (host SolveState per mode), priority,
+        # deadline, warm_meta, progress)
+        self.parked: Dict[int, Dict] = {}
+        self.arrs: List[Optional[torch.Tensor]] = [None] * slots
+        # the donor's sweeps per mode of a warm-started slot, until its
+        # eviction settles `warm_sweeps_saved`
+        self.warm_meta: List[Optional[Tuple[int, int, int]]] = [None] * slots
         self.credit = 0.0  # cross-bucket device-time credit
+        self.retries = 0
+        self.retry_at = 0.0
 
-    def queue_for(self, priority: int) -> Deque[Tuple[int, int]]:
+    def queue_for(self, priority: int) -> Deque[Tuple[int, int, int]]:
         return self.queues.setdefault(int(priority), deque())
 
     def queue_len(self) -> int:
         return sum(len(q) for q in self.queues.values())
 
-    def pop_best(self):
-        """Pop the head of the most urgent nonempty class: (priority, rid,
-        submit_tick), or None.  (The reference ages queued classes by
-        their wait; with one class that is FIFO.)"""
+    def queued(self) -> List[Tuple[int, int, int, int]]:
+        """(priority, rid, submit_tick, deadline) in per-class pop order,
+        classes ascending."""
+        out = []
         for pr in sorted(self.queues):
-            if self.queues[pr]:
-                return (pr,) + self.queues[pr].popleft()
-        return None
+            out.extend((pr,) + e for e in self.queues[pr])
+        return out
+
+    def pop_best(self, tick: int, aging_chunks: int):
+        """Pop the head with the lowest effective priority class −
+        wait/aging_chunks (weighted aging: a queued request gains one
+        class per aging_chunks ticks waited).  FIFO within a class; the
+        more urgent class wins an exact tie.  Returns (priority, rid,
+        submit_tick, deadline) or None."""
+        best = None
+        for pr in sorted(self.queues):
+            q = self.queues[pr]
+            if not q:
+                continue
+            eff = pr - (tick - q[0][1]) / max(1, aging_chunks)
+            if best is None or eff < best[0]:
+                best = (eff, pr)
+        if best is None:
+            return None
+        pr = best[1]
+        rid, sub, dl = self.queues[pr].popleft()
+        return pr, rid, sub, dl
+
+    def snapshot(self) -> tuple:
+        """The bookkeeping a refill changes before its dispatch."""
+        return (list(self.slot_req), list(self.arrs), self.dims.copy(),
+                self.fin.copy(),
+                {pr: deque(q) for pr, q in self.queues.items()},
+                list(self.warm_meta), dict(self.parked), self.prio.copy(),
+                self.deadline.copy(), self.progress.copy())
+
+    def roll_back(self, snap: tuple) -> None:
+        (self.slot_req, self.arrs, self.dims, self.fin, self.queues,
+         self.warm_meta, self.parked, self.prio, self.deadline,
+         self.progress) = snap
+
+    def clear(self) -> None:
+        """Every slot free (the queues and parked requests stay)."""
+        slots = len(self.slot_req)
+        self.slot_req = [None] * slots
+        self.arrs = [None] * slots
+        self.dims = np.tile(np.int32(_FILLER_DIMS), (slots, 1))
+        self.fin = np.zeros(slots, bool)
+        self.warm_meta = [None] * slots
+        self.prio = np.zeros(slots, np.int32)
+        self.deadline = np.full(slots, -1, np.int64)
+        self.progress = np.zeros(slots, np.int64)
 
     @property
     def live(self) -> int:
@@ -617,44 +792,62 @@ class MSCContinuousEngine:
     Where `MSCServeEngine` runs a microbatch to completion (its slowest
     request holds all B slots, and new arrivals wait for the next
     microbatch), this engine works in gate chunks.  Each `step()` is one
-    scheduler tick on one bucket: the refill program evicts the slots
-    the last chunk finished (finalizing their results from the frozen
-    iterates), repacks the live slots and admits queued requests into the
-    freed ones; then the step program advances every slot's three modes
-    by `chunks_per_step` gate chunks.  Two programs per bucket
+    scheduler tick: the refill program evicts the slots the last chunk
+    finished (finalizing their results from the frozen iterates),
+    repacks the live slots and admits queued requests into the freed
+    ones; then the step program advances every slot's three modes by
+    `chunks_per_step` gate chunks.  Two programs per bucket
     (`MSCChunkPlan`), captured on a card as two CUDA graphs in one graph
-    pool: a warm bucket captures nothing, whatever the arrival, eviction
-    and placement sequence.  A capture that fails raises.  On the CPU,
-    which the caller asks for explicitly, the same programs run eagerly.
-    On a mesh (`mesh=`, as `MSCServeEngine`'s) each rank holds its blocks
-    of every slot's unfoldings and its rows of the carries, and makes the
-    same admission, eviction and rotation decisions as every other rank:
-    they read only the step's finished flags (from the all-reduced gate)
-    and the refill's gathered results.
+    pool: a warm bucket captures nothing, whatever the arrival,
+    eviction, placement, warm-start, preemption or restore sequence.  A
+    capture that fails raises.  On the CPU, which the caller asks for
+    explicitly, the same programs run eagerly.  On a mesh (`mesh=`, as
+    `MSCServeEngine`'s) each rank holds its blocks of every slot's
+    unfoldings and its rows of the carries, and makes the same decisions
+    as every other rank: they read only the step's finished flags (from
+    the all-reduced gate), the refill's gathered results and values
+    gathered for them (a preempted slot's carries, the cache's iterates,
+    a checkpoint's carries: every rank calls those collectives in the
+    same order); rank 0's clock times the retries' backoff.
 
-    The policy and its knobs are the reference's:
-      refill_min_free: repack only once this many slots are free (clamped
-        to `slots`), except that
-      max_queue_chunks: a request queued this many ticks of the engine's
-        clock forces a refill at the next free slot (the starvation
-        bound);
-      placement: "compact" moves live slots to the front (slot order =
-        admission order), "stable" leaves them in place;
-      chunks_per_step: gate chunks per step (an int; "auto" is the
-        roofline's, ROADMAP.md queue 1 item 11).
-    With more than one bucket holding work, each tick runs the one with
-    the most queue-depth credit (the reference's default "weighted"
-    rotation).  Results do not depend on arrival order, placement or
-    refill batching: every computation keeps the leading slot dim.
-
-    The serving tiers stay ROADMAP.md queue 1 item 10 and raise
-    `NotImplementedError` when set: priorities and deadlines,
-    preemption (the reference's default turns it on, but with one
-    priority class it never fires), shedding (`slo_chunks`),
-    `bucket_policy="all"`, the result cache and warm starts,
-    checkpointing, fault injection and autotuning.  The slot state is
-    updated in place, the counterpart of the reference's donated
-    buffers, so there is no donation switch.
+    The reference's knobs:
+      refill_min_free, max_queue_chunks (the per-class starvation bound
+        on the engine's clock), placement ("compact" | "stable"),
+        chunks_per_step (an int; "auto" is ROADMAP.md queue 1 item 11);
+      SLO scheduler: priority classes per `submit`, drained under
+        weighted aging (`aging_chunks`); `deadline_chunks` per request
+        (misses counted, results still delivered); `slo_chunks` sheds a
+        submit (`LoadShedError`) whose predicted wait
+        (`roofline.expected_queue_wait` over the measured sweep
+        histogram) exceeds it; `preempt` (default on) parks at most one
+        slot a tick on the host when a strictly more urgent request
+        waits and no slot frees: the lower-priority slot with the most
+        predicted remaining sweeps (`power_iter.predict_remaining_sweeps`),
+        if more than `preempt_min_remaining_chunks`; it is re-queued at
+        the front of its class and resumed through the refill's resume
+        inputs, bit for bit; `bucket_policy` "weighted" runs one bucket a
+        tick by queue-depth credit, "all" every bucket;
+      result cache: `result_cache` (`serving/result_cache.py`) is probed
+        in `submit` before the load-shed gate, with a key of the tensor's
+        bytes cast to the engine's dtype on the host (a device-to-host
+        copy for a tensor on a card); a hit is answered at the next
+        `step()` without touching the device.  Every request served is
+        inserted at eviction, with its frozen iterates and sketch
+        (`warm_start`), so near-duplicates (tier 2) start from them
+        through the refill's warm inputs;
+      fault tolerance: `checkpoint_dir` with `ckpt_every_chunks` and
+        `keep_checkpoints` (rank 0 writes on a mesh, the others wait at a
+        barrier), `restore()` onto any device or mesh; `fault_injector`
+        (`serving/faults.py`) around every dispatch, `max_retries`
+        consecutive retries with exponential backoff
+        (`retry_backoff_s`, `retry_backoff_max_s`), submits shed while a
+        bucket recovers, then `msc_sequential` on the engine's device
+        for every live and queued request of the bucket.  A failed
+        refill rolls back the host bookkeeping it did before its
+        dispatch.
+    `donate_buffers` is accepted for the reference's checkpoints: the
+    slot state is always updated in place.  `autotune` and
+    `autotune_cache` raise (item 10, the rest).
 
     `submit()` + `step()` are the decode loop for streaming arrivals
     (`launch/msc_serve.py --continuous`); `run(tensors)` serves a closed
@@ -667,10 +860,17 @@ class MSCContinuousEngine:
                  bucket_quantum: int = 8, dtype=torch.float32,
                  device="cuda", chunks_per_step=1, refill_min_free: int = 1,
                  max_queue_chunks: int = 8, placement: str = "compact",
-                 preempt: bool = False, slo_chunks: Optional[int] = None,
-                 bucket_policy: str = "weighted", checkpoint_dir=None,
+                 checkpoint_dir: Optional[str] = None,
+                 ckpt_every_chunks: int = 8, keep_checkpoints: int = 3,
+                 max_retries: int = 3, retry_backoff_s: float = 0.05,
+                 retry_backoff_max_s: float = 2.0, fault_injector=None,
                  result_cache=None, warm_start: bool = False,
-                 autotune: bool = False, fault_injector=None, mesh=None):
+                 autotune: bool = False, autotune_cache=None,
+                 donate_buffers: bool = True,
+                 preempt: bool = True,
+                 preempt_min_remaining_chunks: int = 2,
+                 aging_chunks: int = 16, slo_chunks: Optional[int] = None,
+                 bucket_policy: str = "weighted", mesh=None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if placement not in ("compact", "stable"):
@@ -683,15 +883,8 @@ class MSCContinuousEngine:
             raise ValueError("continuous batching needs the adaptive gate "
                              "(cfg.power_tol > 0); without it every slot "
                              "runs to the cap and eviction never helps")
-        tiers = {"preempt": preempt, "slo_chunks": slo_chunks is not None,
-                 "bucket_policy='all'": bucket_policy == "all",
-                 "checkpoint_dir": checkpoint_dir is not None,
-                 "result_cache": result_cache is not None,
-                 "warm_start": warm_start, "autotune": autotune,
-                 "fault_injector": fault_injector is not None}
-        asked = [name for name, on in tiers.items() if on]
-        if asked:
-            raise NotImplementedError(f"{', '.join(asked)}: {TIERS_TODO}")
+        if autotune or autotune_cache is not None:
+            raise NotImplementedError(f"autotune: {TIERS_TODO}")
         self.cfg = cfg
         self.mesh = mesh
         self.slots = int(slots)
@@ -701,16 +894,48 @@ class MSCContinuousEngine:
         self.refill_min_free = min(max(1, int(refill_min_free)), self.slots)
         self.max_queue_chunks = int(max_queue_chunks)
         self.placement = placement
+        self.preempt = bool(preempt)
+        self.preempt_min_remaining_chunks = int(preempt_min_remaining_chunks)
+        self.aging_chunks = max(1, int(aging_chunks))
+        self.slo_chunks = None if slo_chunks is None else int(slo_chunks)
+        self.bucket_policy = bucket_policy
         self._plan = MSCChunkPlan(cfg, chunks_per_step, device=device,
                                   mesh=mesh)
         self.device = self._plan.device
         self._quantum = _bucket_quantum(bucket_quantum, self._plan.sched)
+        self._quantum_base = int(bucket_quantum)  # mesh-independent (ckpt)
         self._tables: Dict[Tuple[int, int, int], _SlotTable] = {}
         self._pending: Dict[int, torch.Tensor] = {}
         self._next_rid = 0
         self._tick = 0  # the engine's scheduler clock
-        self._wait_hist: Deque[int] = deque(maxlen=512)  # rolling waits
+        # rolling (priority, wait) of the last 512 admissions
+        self._wait_hist: Deque[Tuple[int, int]] = deque(maxlen=512)
+        # realized max-mode sweeps of served requests (the scheduler's
+        # histogram)
+        self._sweep_hist: Deque[int] = deque(maxlen=256)
         self._stats = ServeStats()
+        # fault tolerance
+        self.checkpoint_dir = checkpoint_dir
+        self.ckpt_every_chunks = int(ckpt_every_chunks)
+        self.keep_checkpoints = int(keep_checkpoints)
+        self.max_retries = int(max_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.retry_backoff_max_s = float(retry_backoff_max_s)
+        self._faults = fault_injector
+        # what a reference engine would record (it donates unless an
+        # injector is set); the port always updates in place
+        self.donate_buffers = bool(donate_buffers) and fault_injector is None
+        self._recovering: set = set()  # buckets mid-retry (sheds load)
+        self._total_chunks = 0  # the checkpoints' step id
+        self._chunks_since_ckpt = 0
+        # result cache
+        self.result_cache = result_cache
+        self.warm_start = bool(warm_start)
+        self._salt: Optional[str] = None
+        self._ready: Dict[int, MSCResult] = {}  # tier-1 hits
+        self._req_key: Dict[int, str] = {}
+        self._req_sketch: Dict[int, np.ndarray] = {}
+        self._warm_pending: Dict[int, object] = {}  # rid → NearHit
 
     def bucket_of(self, shape: Sequence[int]) -> Tuple[int, int, int]:
         """Bucket = each dim rounded up to the engine quantum."""
@@ -730,19 +955,35 @@ class MSCContinuousEngine:
         added to the graph pools): a live engine holds no more device
         memory than the two together.  The static buffers are, per
         bucket, the blocks, the staging blocks and the operand copies
-        (under bf16_fp32) of three unfoldings of B slots, and the
-        carries; the pools hold the programs' temporaries, among them the
-        refill's gather scratch (one block)."""
+        (under bf16_fp32) of three unfoldings of B slots, the warm and
+        resume staging and the carries; the pools hold the programs'
+        temporaries, among them the refill's gather scratch (one
+        block)."""
         return (sum(tb.state.static_bytes for tb in self._tables.values()),
                 sum(tb.state.pool_bytes for tb in self._tables.values()))
 
+    def class_waits(self) -> Dict[int, Dict[str, float]]:
+        """Per priority class, the count and the p50 / p99 of the queue
+        waits (ticks) of the last 512 admissions."""
+        by: Dict[int, List[int]] = defaultdict(list)
+        for pr, w in self._wait_hist:
+            by[int(pr)].append(w)
+        return {pr: {"n": len(ws),
+                     "p50": float(np.percentile(np.asarray(ws, float), 50)),
+                     "p99": float(np.percentile(np.asarray(ws, float), 99))}
+                for pr, ws in sorted(by.items())}
+
     def close(self) -> None:
-        """Release every slot table and its graphs; queued and in-flight
-        requests are dropped."""
+        """Release every slot table and its graphs; queued, parked and
+        in-flight requests are dropped."""
         for tb in self._tables.values():
             tb.state.release()
         self._tables.clear()
         self._pending.clear()
+        self._ready.clear()
+        self._req_key.clear()
+        self._req_sketch.clear()
+        self._warm_pending.clear()
 
     def _bump(self, **deltas) -> None:
         self._stats = dataclasses.replace(
@@ -764,57 +1005,145 @@ class MSCContinuousEngine:
         else:
             self._bump(exec_cache_hits=1)
 
+    def _rank0(self) -> bool:
+        if self.mesh is None:
+            return True
+        import torch.distributed as dist
+
+        return dist.get_rank() == 0
+
+    def _clock(self) -> float:
+        """time.monotonic(); on a mesh rank 0's, so that every rank
+        decides a backoff alike."""
+        now = time.monotonic()
+        if self.mesh is None:
+            return now
+        import torch.distributed as dist
+
+        box = [now]
+        dist.broadcast_object_list(box, src=0)
+        return float(box[0])
+
     # ---- the decode loop ---------------------------------------------
     def submit(self, tensor, *, priority: int = 0,
                deadline_chunks: Optional[int] = None) -> int:
-        """Queue one request (a third-order torch tensor or array, read
-        when admitted); returns its id, the key `step()` returns its
-        result under.  Priority classes and deadlines belong to the SLO
-        scheduler (ROADMAP.md queue 1 item 10)."""
+        """Queue one request (a third-order torch tensor or array, kept
+        where it is and read when admitted); returns its id, the key
+        `step()` returns its result under.
+
+        priority: class >= 0, 0 most urgent; deadline_chunks: an SLO
+        budget in ticks (a later finish counts a deadline miss).  Raises
+        LoadShedError while a bucket recovers from a dispatch failure, or
+        when `slo_chunks` is set and the request's predicted wait exceeds
+        it.  A tier-1 cache hit is answered without the device (even
+        while recovering)."""
         if priority < 0:
             raise ValueError(f"priority must be >= 0, got {priority}")
-        if priority != 0 or deadline_chunks is not None:
-            raise NotImplementedError(f"priority classes and deadlines: "
-                                      f"{TIERS_TODO}")
+        if deadline_chunks is not None and deadline_chunks < 1:
+            raise ValueError(f"deadline_chunks must be >= 1, "
+                             f"got {deadline_chunks}")
         if not isinstance(tensor, torch.Tensor):
             tensor = torch.from_numpy(np.array(tensor))
-        tb = self._table(self.bucket_of(tuple(tensor.shape)))
+        cache = self.result_cache
+        key = arr = None
+        if cache is not None:
+            if self._salt is None:
+                self._salt = cache_salt()
+            arr = host_array(tensor, _np_dtype(self.dtype))
+            key = result_cache_key(arr, self.cfg, salt=self._salt)
+            res = cache.get(key)
+            if res is not None:
+                rid = self._next_rid
+                self._next_rid += 1
+                self._ready[rid] = res
+                self._bump(requests=1, cache_hits=1)
+                return rid
+        if self._recovering:
+            self._bump(shed_requests=1)
+            raise LoadShedError(
+                f"engine is recovering from a dispatch failure on "
+                f"bucket(s) {sorted(self._recovering)}; resubmit after "
+                f"recovery")
+        bucket = self.bucket_of(tuple(tensor.shape))
+        tb = self._table(bucket)
+        if self.slo_chunks is not None:
+            pred = self._predicted_wait(tb, int(priority))
+            if pred > self.slo_chunks:
+                self._bump(shed_requests=1, slo_sheds=1)
+                raise LoadShedError(
+                    f"predicted queue wait {pred:.1f} chunks exceeds the "
+                    f"SLO bound {self.slo_chunks} for bucket {bucket} "
+                    f"(priority {priority}); resubmit later")
         rid = self._next_rid
         self._next_rid += 1
         self._pending[rid] = tensor
-        tb.queue_for(priority).append((rid, self._tick))
+        deadline = (-1 if deadline_chunks is None
+                    else self._tick + int(deadline_chunks))
+        tb.queue_for(priority).append((rid, self._tick, deadline))
         self._bump(requests=1)
+        if cache is not None:
+            self._bump(cache_misses=1)
+            self._req_key[rid] = key
+            if self.warm_start:
+                sketch = spectral_sketch(arr, r=cache.sketch_r)
+                self._req_sketch[rid] = sketch
+                hit = cache.lookup_near(sketch, arr.shape)
+                if hit is not None:
+                    self._warm_pending[rid] = hit
         return rid
 
     def has_work(self) -> bool:
-        return any(tb.has_work() for tb in self._tables.values())
+        return bool(self._ready) or any(tb.has_work()
+                                        for tb in self._tables.values())
 
     def step(self) -> Dict[int, MSCResult]:
-        """One scheduler tick: on one bucket (the one with the most
-        accumulated queue-depth credit when several hold work), admit as
-        the policy permits, advance one step, evict finished slots.
-        Returns the requests that finished this tick; the engine keeps
-        no copy."""
+        """One scheduler tick: tier-1 hits answered; then under
+        bucket_policy "weighted" the one bucket with the most accumulated
+        queue-depth credit (among those not backing off), under "all"
+        every bucket with work: admit as the policy permits, advance one
+        step, evict finished slots; then a periodic checkpoint when due.
+        Returns the requests that finished this tick; the engine keeps no
+        copy."""
         finished: Dict[int, MSCResult] = {}
         self._tick += 1
+        if self._ready:
+            finished.update(self._ready)
+            self._ready.clear()
         ready = [tb for tb in self._tables.values() if tb.has_work()]
-        if len(ready) > 1:
+        runnable = ready
+        if any(tb.retry_at for tb in ready):
+            now = self._clock()
+            runnable = [tb for tb in ready
+                        if not tb.retry_at or now >= tb.retry_at]
+        if (self.bucket_policy == "weighted" and len(ready) > 1
+                and runnable):
             # credit grows on every bucket with work, so a skipped
             # bucket's claim grows; ties break on the bucket
             for tb in ready:
                 tb.credit += tb.live + tb.queue_len()
-            chosen = max(ready, key=lambda t: (t.credit, t.bucket))
+            chosen = max(runnable, key=lambda t: (t.credit, t.bucket))
             chosen.credit = 0.0
-            ready = [chosen]
-        for tb in ready:
-            finished.update(self._step_table(tb))
+            finished.update(self._step_table(chosen))
+        else:
+            for tb in ready:
+                finished.update(self._step_table(tb))
+        if (self.checkpoint_dir is not None and self.ckpt_every_chunks > 0
+                and self._chunks_since_ckpt >= self.ckpt_every_chunks):
+            self.checkpoint()
         return finished
 
-    def run(self, tensors: Sequence) -> List[MSCResult]:
-        """Serve a closed set of requests to completion, in order.  Do not
+    def run(self, tensors: Sequence, *,
+            priorities: Optional[Sequence[int]] = None,
+            deadline_chunks: Optional[Sequence[Optional[int]]] = None
+            ) -> List[MSCResult]:
+        """Serve a closed set of requests to completion, in order (with
+        optional per-request priorities and deadlines).  Do not
         interleave with an outside submit()/step() loop: results step()
         hands out while run() drains are collected here and dropped."""
-        rids = [self.submit(t) for t in tensors]
+        rids = [self.submit(
+            t, priority=0 if priorities is None else int(priorities[i]),
+            deadline_chunks=None if deadline_chunks is None
+            else deadline_chunks[i]) for i, t in enumerate(tensors)]
         got: Dict[int, MSCResult] = {}
         while self.has_work() and not all(r in got for r in rids):
             got.update(self.step())
@@ -831,6 +1160,48 @@ class MSCContinuousEngine:
         return any(self._tick - q[0][1] >= self.max_queue_chunks
                    for q in tb.queues.values() if q)
 
+    def _mean_chunks(self, tb: _SlotTable) -> float:
+        """Measured mean residency of a request in chunk steps (4 before
+        any request is served)."""
+        per = max(1, self.cfg.power_check_every) * self._plan.chunks_per_step
+        if not self._sweep_hist:
+            return 4.0
+        return max(1.0, float(np.mean(list(self._sweep_hist))) / per)
+
+    def _predicted_wait(self, tb: _SlotTable, priority: int) -> float:
+        """Predicted queue wait (chunks) of a new request of `priority` in
+        this bucket: `roofline.expected_queue_wait`."""
+        ahead = sum(len(q) for pr, q in tb.queues.items() if pr <= priority)
+        return expected_queue_wait(ahead, len(tb.free), self.slots,
+                                   self._mean_chunks(tb))
+
+    def _plan_preempt(self, tb: _SlotTable, n_free: int) -> List[int]:
+        """At most one slot to park this tick: only when no slot frees
+        anyway, a strictly more urgent request waits, and a less urgent
+        slot is predicted to hold its slot for more than
+        `preempt_min_remaining_chunks` chunks; among those, the one with
+        the most predicted remaining sweeps."""
+        if not self.preempt or n_free > 0:
+            return []
+        waiting = [pr for pr, q in tb.queues.items() if q]
+        if not waiting:
+            return []
+        urgent = min(waiting)
+        k = max(1, self.cfg.power_check_every)
+        per = k * self._plan.chunks_per_step
+        cap = self.cfg.power_iters
+        best = None
+        for s, rid in enumerate(tb.slot_req):
+            if rid is None or tb.fin[s] or tb.prio[s] <= urgent:
+                continue
+            cur = int(tb.progress[s]) * per
+            rem = predict_remaining_sweeps(self._sweep_hist, cur, cap=cap,
+                                           check_every=k) / per
+            if rem > self.preempt_min_remaining_chunks:
+                if best is None or rem > best[0]:
+                    best = (rem, s)
+        return [] if best is None else [best[1]]
+
     def _permutation(self, tb: _SlotTable) -> np.ndarray:
         """Slot permutation of the repack (new[s] = old[perm[s]])."""
         if self.placement == "compact":
@@ -839,44 +1210,111 @@ class MSCContinuousEngine:
             return np.asarray(order, np.int32)
         return np.arange(self.slots, dtype=np.int32)
 
-    def _refill(self, tb: _SlotTable, evict: List[int]
-                ) -> Dict[int, MSCResult]:
-        """Finalize the `evict` slots, free them, permute and admit: one
-        run of the refill program.  Returns the evicted requests'
-        results."""
+    def _refill(self, tb: _SlotTable, evict: List[int],
+                preempt: List[int]) -> Dict[int, MSCResult]:
+        """Finalize the `evict` slots, park the `preempt` slots on the
+        host (re-queued at the front of their class), free both, permute
+        and admit: one run of the refill program (cold, warm and resumed
+        admissions alike).  Returns the evicted requests' results."""
         old_dims = tb.dims.copy()
+        old_deadline = tb.deadline.copy()
+        old_warm_meta = list(tb.warm_meta)
         evicted = [(s, tb.slot_req[s]) for s in evict]
-        for s in evict:
+        cache = self.result_cache
+        state = tb.state
+        # the evicted slots' frozen iterates, read before the refill
+        # overwrites them, become tier-2 donors; preempted slots are not
+        # read (their iterates are mid-solve)
+        capture = None
+        if cache is not None and evicted:
+            capture = [h.v for h in self._plan.export_carries(
+                tb.bucket, state.carries)]
+        for s in preempt:
+            rid = tb.slot_req[s]
+            tb.parked[rid] = {
+                "arr": tb.arrs[s],
+                "carries": self._plan.export_slot(tb.bucket, state.carries,
+                                                  s),
+                "priority": int(tb.prio[s]), "deadline": int(tb.deadline[s]),
+                "warm_meta": tb.warm_meta[s], "progress": int(tb.progress[s]),
+            }
+            # the class's oldest work; its wait restarts now
+            tb.queue_for(tb.prio[s]).appendleft(
+                (rid, self._tick, int(tb.deadline[s])))
+        for s in evict + preempt:
             tb.slot_req[s] = None
+            tb.arrs[s] = None
+            tb.warm_meta[s] = None
+            tb.prio[s] = 0
+            tb.deadline[s] = -1
+            tb.progress[s] = 0
         perm = self._permutation(tb)
         tb.slot_req = [tb.slot_req[p] for p in perm]
+        tb.arrs = [tb.arrs[p] for p in perm]
         tb.dims = tb.dims[perm]
         tb.fin = tb.fin[perm]
-        new_dims = np.tile(np.int32(_FILLER_DIMS), (self.slots, 1))
-        take_new = np.zeros(self.slots, bool)
-        new_done = np.ones(self.slots, bool)
-        waits: List[int] = []
+        tb.warm_meta = [tb.warm_meta[p] for p in perm]
+        tb.prio = tb.prio[perm]
+        tb.deadline = tb.deadline[perm]
+        tb.progress = tb.progress[perm]
+        B = self.slots
+        new_dims = np.tile(np.int32(_FILLER_DIMS), (B, 1))
+        take_new = np.zeros(B, bool)
+        new_done = np.ones(B, bool)
+        use_warm = np.zeros(B, bool)
+        use_resume = np.zeros(B, bool)
+        resume_iters = np.zeros((B, 3), np.int32)
+        resume_done = np.zeros((B, 3), bool)
+        waits: List[Tuple[int, int]] = []
+        n_resumes = 0
+        state.clear_staging()
         for s in tb.free:
-            entry = tb.pop_best()
+            entry = tb.pop_best(self._tick, self.aging_chunks)
             if entry is None:
                 break
-            _, rid, submitted = entry
-            t = self._pending.pop(rid)
-            tb.state.admit_write(s, t)
-            new_dims[s] = tuple(t.shape)
+            pr, rid, submitted, deadline = entry
+            parked = tb.parked.pop(rid, None)
+            if parked is not None:
+                arr = parked["arr"]
+                state.admit_write(s, arr)
+                state.import_slot(s, parked["carries"], resume_iters,
+                                  resume_done)
+                use_resume[s] = True
+                tb.warm_meta[s] = parked["warm_meta"]
+                tb.progress[s] = parked["progress"]
+                n_resumes += 1
+            else:
+                arr = self._pending.pop(rid)
+                state.admit_write(s, arr)
+                tb.progress[s] = 0
+                hit = self._warm_pending.pop(rid, None)
+                if hit is not None:
+                    state.write_warm(s, hit.vectors)
+                    use_warm[s] = True
+                    tb.warm_meta[s] = hit.donor_iters
+                    self._bump(warm_starts=1)
+                else:
+                    tb.warm_meta[s] = None
+            new_dims[s] = tuple(arr.shape)
             take_new[s] = True
             new_done[s] = False
             tb.slot_req[s] = rid
-            tb.dims[s] = tuple(t.shape)
+            tb.arrs[s] = arr
+            tb.dims[s] = tuple(arr.shape)
             tb.fin[s] = False
-            waits.append(self._tick - submitted)
-        results = tb.state.refill(perm, take_new, new_done, old_dims,
-                                  new_dims)
+            tb.prio[s] = pr
+            tb.deadline[s] = deadline
+            waits.append((pr, self._tick - submitted))
+        results = self._invoke("refill", state.refill, perm, take_new,
+                               new_done, old_dims, new_dims, use_warm,
+                               use_resume, resume_iters, resume_done)
         self._wait_hist.extend(waits)
-        self._bump(refills=1, dispatches=1, queue_wait_chunks=sum(waits),
-                   evictions=len(evicted))
+        self._bump(refills=1, dispatches=1,
+                   queue_wait_chunks=sum(w for _, w in waits),
+                   evictions=len(evicted), preemptions=len(preempt),
+                   resumes=n_resumes)
         if waits:
-            vals = np.asarray(self._wait_hist, float)
+            vals = np.asarray([w for _, w in self._wait_hist], float)
             self._stats = dataclasses.replace(
                 self._stats,
                 queue_wait_p50_chunks=float(np.percentile(vals, 50)),
@@ -884,26 +1322,386 @@ class MSCContinuousEngine:
         if not evicted:
             return {}
         host = _to_host(results.modes)  # before the next refill reuses them
-        return {rid: _trim_request(host, s, tuple(int(x) for x in old_dims[s]))
-                for s, rid in evicted}
+        out: Dict[int, MSCResult] = {}
+        for s, rid in evicted:
+            d = old_dims[s]
+            res = _trim_request(host, s, tuple(int(x) for x in d))
+            out[rid] = res
+            if old_deadline[s] >= 0 and self._tick > old_deadline[s]:
+                self._bump(deadline_misses=1)
+            pir = [res.modes[j].power_iters_run for j in range(3)]
+            if all(x is not None for x in pir):
+                self._sweep_hist.append(max(int(x) for x in pir))
+            wm = old_warm_meta[s]
+            if wm is not None:
+                self._bump(warm_sweeps_saved=sum(
+                    max(0, int(di) - int(res.modes[j].power_iters_run))
+                    for j, di in enumerate(wm)))
+            key = self._req_key.pop(rid, None)
+            sketch = self._req_sketch.pop(rid, None)
+            if cache is not None and key is not None:
+                vecs = None
+                if capture is not None:
+                    vecs = tuple(capture[j][s, :d[j], :d[C_OF[j]]]
+                                 for j in range(3))
+                cache.put(key, res, shape=tuple(int(x) for x in d),
+                          vectors=vecs, sketch=sketch)
+        return out
 
     def _step_table(self, tb: _SlotTable) -> Dict[int, MSCResult]:
+        if tb.retry_at and self._clock() < tb.retry_at:
+            return {}  # backing off before this bucket's next retry
         self._executables(tb)
         # evict what the last chunk finished and admit queued requests:
         # one refill covers both
         evict = [s for s in range(self.slots)
                  if tb.fin[s] and tb.slot_req[s] is not None]
+        preempt = self._plan_preempt(tb, len(tb.free) + len(evict))
         out: Dict[int, MSCResult] = {}
-        if evict or self._should_admit(tb, len(tb.free) + len(evict)):
-            out = self._refill(tb, evict)
+        if (evict or preempt
+                or self._should_admit(tb, len(tb.free) + len(evict))):
+            # the refill changes host bookkeeping before its dispatch; a
+            # failed dispatch rolls it back, so the retry plans the same
+            # refill again (a fault fires before the program runs, and
+            # the staging it wrote is rewritten or cleared)
+            snap = (tb.snapshot(), dict(self._pending),
+                    dict(self._warm_pending), dict(self._req_key),
+                    dict(self._req_sketch))
+            try:
+                out = self._refill(tb, evict, preempt)
+            except Exception as e:  # noqa: BLE001 - the recovery boundary
+                tb.roll_back(snap[0])
+                (self._pending, self._warm_pending, self._req_key,
+                 self._req_sketch) = snap[1:]
+                tb.state.clear_staging()
+                return self._dispatch_failed(tb, e, out)
         if tb.live > 0:
             live = tb.live
             # refill batching can leave slots free while the bucket's
             # queue holds work
             if tb.queue_len() > 0 and len(tb.free) > 0:
                 self._bump(idle_bucket_ticks=1)
-            tb.fin = tb.state.step()
+            advanced = [s for s, r in enumerate(tb.slot_req)
+                        if r is not None and not tb.fin[s]]
+            try:
+                fin = self._invoke("chunk", tb.state.step)
+            except Exception as e:  # noqa: BLE001 - the recovery boundary
+                return self._dispatch_failed(tb, e, out)
+            tb.fin = fin
             tb.chunk += 1
+            tb.progress[advanced] += 1
+            self._total_chunks += 1
+            self._chunks_since_ckpt += 1
             self._bump(chunk_steps=1, dispatches=1, slot_chunks=self.slots,
                        busy_slot_chunks=live)
+        tb.retries = 0
+        tb.retry_at = 0.0
+        self._recovering.discard(tb.bucket)
         return out
+
+    # ---- recovery -------------------------------------------------------
+    def _invoke(self, kind: str, fn, *args):
+        """One dispatch through the fault injector's hooks."""
+        if self._faults is not None:
+            self._faults.before(kind)
+        result = fn(*args)
+        if self._faults is not None:
+            self._faults.after(kind)
+        return result
+
+    def _dispatch_failed(self, tb: _SlotTable, exc: Exception,
+                         out: Dict[int, MSCResult]) -> Dict[int, MSCResult]:
+        """Bounded retries with exponential backoff, then the sequential
+        fallback.  `out` holds results a dispatch earlier in the tick
+        already made."""
+        tb.retries += 1
+        if tb.retries > self.max_retries:
+            warnings.warn(
+                f"bucket {tb.bucket}: dispatch failed {tb.retries} "
+                f"consecutive times ({exc!r}); serving its requests "
+                f"through the sequential oracle")
+            out.update(self._fallback_table(tb))
+            return out
+        self._recovering.add(tb.bucket)
+        self._bump(retries=1)
+        backoff = min(self.retry_backoff_s * (2 ** (tb.retries - 1)),
+                      self.retry_backoff_max_s)
+        tb.retry_at = self._clock() + backoff
+        return out
+
+    def _fallback_table(self, tb: _SlotTable) -> Dict[int, MSCResult]:
+        """Serve every live and queued request of a sick bucket through
+        `msc_sequential` on the engine's device (with the engine's
+        config, kernels included), then reset the table to inert, in
+        place.  Slow, but no request is lost and the bucket comes back
+        healthy."""
+        jobs: List[Tuple[int, torch.Tensor]] = []
+        for s, rid in enumerate(tb.slot_req):
+            if rid is not None:
+                jobs.append((rid, tb.arrs[s]))
+        for pr in sorted(tb.queues):
+            q = tb.queues[pr]
+            while q:
+                rid, _, _ = q.popleft()
+                parked = tb.parked.pop(rid, None)
+                jobs.append((rid, parked["arr"] if parked is not None
+                             else self._pending.pop(rid)))
+        tb.parked.clear()
+        out: Dict[int, MSCResult] = {}
+        for rid, t in jobs:
+            res = msc_sequential(t.to(self.device, self.dtype), self.cfg,
+                                 device=self.device)
+            host = MSCResult(modes=tuple(
+                ModeResult(mask=r.mask.cpu(), d=r.d.cpu(),
+                           lambdas=r.lambdas.cpu(), n_iters=int(r.n_iters),
+                           power_iters_run=int(r.power_iters_run))
+                for r in res.modes))
+            out[rid] = host
+            # the fallback still feeds tier 1; it has no iterates to give
+            key = self._req_key.pop(rid, None)
+            self._req_sketch.pop(rid, None)
+            self._warm_pending.pop(rid, None)
+            if self.result_cache is not None and key is not None:
+                self.result_cache.put(key, host, shape=tuple(t.shape))
+        tb.state.reset()
+        tb.clear()
+        tb.retries = 0
+        tb.retry_at = 0.0
+        self._recovering.discard(tb.bucket)
+        self._bump(fallback_requests=len(out))
+        return out
+
+    # ---- checkpoint / restore -----------------------------------------
+    def checkpoint(self) -> Optional[str]:
+        """Snapshot the whole engine (every bucket's slot table, queues,
+        parked requests, stats) to `checkpoint_dir` under the chunk
+        count, atomically.  On a mesh every rank calls it (the carries
+        are gathered); rank 0 writes while the others wait at a
+        barrier."""
+        if self.checkpoint_dir is None:
+            return None
+        if self._faults is not None:
+            self._faults.before("checkpoint")
+        leaves, meta = self._export()
+        path = os.path.join(self.checkpoint_dir,
+                            f"step_{self._total_chunks:08d}")
+        if self._rank0():
+            save_checkpoint(self.checkpoint_dir, self._total_chunks, leaves,
+                            extra=meta)
+            gc_checkpoints(self.checkpoint_dir, self.keep_checkpoints)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            # the others wait for rank 0's write: a one-element all_reduce
+            # on the engine's device is the barrier
+            dist.all_reduce(torch.zeros(1, device=self.device))
+        self._chunks_since_ckpt = 0
+        self._bump(checkpoints_written=1)
+        return path
+
+    def _export(self) -> Tuple[List[np.ndarray], Dict]:
+        """Flat leaf list and JSON metadata of the whole engine, in the
+        reference's order: per bucket (sorted), each mode's carry (v,
+        λ, residuals, sweeps, verdicts: trimmed to the bucket's true
+        slice count, gathered from every rank), then the bookkeeping
+        leaves.  No device block is written: the blocks are a function
+        of the admitted tensors, which are."""
+        leaves: List[np.ndarray] = []
+        buckets_meta = []
+        for bucket in sorted(self._tables):
+            tb = self._tables[bucket]
+            for host in self._plan.export_carries(bucket, tb.state.carries):
+                leaves.extend([host.v, host.lam, host.resid, host.iters,
+                               host.done])
+            leaves.extend(self._export_sched_leaves(tb))
+            buckets_meta.append(self._bucket_meta(tb))
+        return leaves, self._export_meta(buckets_meta)
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """An admitted tensor on the host in the engine's dtype."""
+        return host_array(t.detach().to(self.dtype))
+
+    def _export_sched_leaves(self, tb: _SlotTable) -> List[np.ndarray]:
+        """One bucket's bookkeeping leaves: dims, fin, slot rids, per-slot
+        priority / deadline / progress, the queues as (N, 4) rows
+        (priority, rid, submit_tick, deadline), the live tensors, the
+        queued tensors (a parked request's from its parked copy), then
+        each parked request's carries (v, λ, residuals per mode)."""
+        queued = tb.queued()
+        leaves = [tb.dims.astype(np.int32), np.asarray(tb.fin, np.bool_),
+                  np.asarray([-1 if r is None else r for r in tb.slot_req],
+                             np.int64),
+                  tb.prio.astype(np.int64), tb.deadline.astype(np.int64),
+                  tb.progress.astype(np.int64),
+                  np.asarray(queued, np.int64).reshape(-1, 4)]
+        leaves += [self._host(tb.arrs[s]) for s, r in enumerate(tb.slot_req)
+                   if r is not None]
+        leaves += [self._host(tb.parked[rid]["arr"] if rid in tb.parked
+                              else self._pending[rid])
+                   for _, rid, _, _ in queued]
+        for _, rid, _, _ in queued:
+            if rid in tb.parked:
+                for host in tb.parked[rid]["carries"]:
+                    leaves += [np.asarray(host.v), np.asarray(host.lam),
+                               np.asarray(host.resid)]
+        return leaves
+
+    def _bucket_meta(self, tb: _SlotTable) -> Dict:
+        live = [s for s, r in enumerate(tb.slot_req) if r is not None]
+        parked_meta = []
+        for _, rid, _, _ in tb.queued():
+            p = tb.parked.get(rid)
+            if p is not None:
+                parked_meta.append({
+                    "rid": int(rid), "progress": int(p["progress"]),
+                    "iters": [int(h.iters) for h in p["carries"]],
+                    "done": [bool(h.done) for h in p["carries"]],
+                    "warm_meta": (None if p["warm_meta"] is None
+                                  else [int(x) for x in p["warm_meta"]]),
+                })
+        return {"bucket": [int(x) for x in tb.bucket], "chunk": tb.chunk,
+                "live_slots": live, "parked": parked_meta}
+
+    def _export_meta(self, buckets_meta) -> Dict:
+        from repro_torch.launch.mesh import mesh_dims
+
+        mesh = ([["slice", 1]] if self.mesh is None else
+                [[a, int(s)] for a, s in mesh_dims(self.mesh).items()])
+        return {
+            "format": 1,
+            "mesh": mesh,
+            "slots": self.slots,
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "cfg": dataclasses.asdict(self.cfg),
+            "policy": {
+                "bucket_quantum": self._quantum_base,
+                "chunks_per_step": self._plan.chunks_per_step,
+                "autotune": False,
+                "donate_buffers": self.donate_buffers,
+                "refill_min_free": self.refill_min_free,
+                "max_queue_chunks": self.max_queue_chunks,
+                "placement": self.placement,
+                "ckpt_every_chunks": self.ckpt_every_chunks,
+                "keep_checkpoints": self.keep_checkpoints,
+                "max_retries": self.max_retries,
+                "retry_backoff_s": self.retry_backoff_s,
+                "retry_backoff_max_s": self.retry_backoff_max_s,
+                "preempt": self.preempt,
+                "preempt_min_remaining_chunks":
+                    self.preempt_min_remaining_chunks,
+                "aging_chunks": self.aging_chunks,
+                "slo_chunks": self.slo_chunks,
+                "bucket_policy": self.bucket_policy,
+            },
+            "tick": self._tick,
+            "next_rid": self._next_rid,
+            "total_chunks": self._total_chunks,
+            "stats": dataclasses.asdict(self._stats),
+            "buckets": buckets_meta,
+        }
+
+    @classmethod
+    def restore(cls, directory: str, *, mesh=None, device="cuda",
+                step: Optional[int] = None, verify: bool = True,
+                fault_injector=None, checkpoint_dir: Optional[str] = None,
+                **policy_overrides) -> "MSCContinuousEngine":
+        """Rebuild an engine from the newest restorable checkpoint under
+        `directory` (the port's or the reference's, format 1) and resume
+        mid-solve, on one device (`device`) or on `mesh`, whatever mesh
+        wrote it: the carries are re-padded and each rank takes its rows;
+        the blocks are rebuilt from the stashed tensors.  A step whose
+        leaves fail their SHA check is skipped with a warning.  Keyword
+        overrides replace checkpointed policy knobs (slots and cfg come
+        from the checkpoint)."""
+        steps = ([int(step)] if step is not None
+                 else restorable_steps(directory, verify_sha=False))
+        leaves = meta = None
+        for s in steps:
+            try:
+                leaves, meta = load_leaves(directory, s, verify=verify)
+                break
+            except (IOError, OSError, ValueError) as e:
+                warnings.warn(f"checkpoint step {s} failed restore ({e}); "
+                              f"trying the previous step")
+        if meta is None:
+            raise FileNotFoundError(
+                f"no restorable engine checkpoint under {directory!r}")
+        policy = dict(meta["policy"])
+        policy.update(policy_overrides)
+        eng = cls(MSCConfig(**meta["cfg"]), slots=int(meta["slots"]),
+                  dtype=getattr(torch, meta["dtype"]), device=device,
+                  mesh=mesh, checkpoint_dir=checkpoint_dir or directory,
+                  fault_injector=fault_injector, **policy)
+        eng._import(leaves, meta)
+        return eng
+
+    def _import(self, leaves: List[np.ndarray], meta: Dict) -> None:
+        """Rebuild every slot table from an `_export` leaf list, on this
+        engine's device or mesh."""
+        it = iter(leaves)
+        np_dtype = _np_dtype(self.dtype)
+        for bmeta in meta["buckets"]:
+            bucket = tuple(int(x) for x in bmeta["bucket"])
+            host_carries = []
+            for _ in range(3):
+                v, lam, resid, iters, done = (next(it) for _ in range(5))
+                host_carries.append(SolveState(v=v, lam=lam, resid=resid,
+                                               iters=iters, done=done))
+            dims = np.asarray(next(it), np.int32)
+            fin = np.asarray(next(it), bool)
+            slot_rids = np.asarray(next(it), np.int64)
+            prio = np.asarray(next(it), np.int64).astype(np.int32)
+            deadline = np.asarray(next(it), np.int64)
+            progress = np.asarray(next(it), np.int64)
+            queue = np.asarray(next(it), np.int64).reshape(-1, 4)
+            arrs: List[Optional[torch.Tensor]] = [None] * self.slots
+            for s in bmeta["live_slots"]:
+                arrs[s] = torch.from_numpy(np.asarray(next(it), np_dtype))
+            tb = self._table(bucket)
+            tb.state.load(
+                self._plan.rebuild_blocks(bucket, self.slots, self.dtype,
+                                          arrs),
+                self._plan.import_carries(bucket, host_carries))
+            tb.slot_req = [None if r < 0 else int(r) for r in slot_rids]
+            tb.arrs = arrs
+            tb.dims = dims
+            tb.fin = fin
+            tb.chunk = int(bmeta["chunk"])
+            tb.prio = prio
+            tb.deadline = deadline
+            tb.progress = progress
+            parked_meta = {int(pm["rid"]): pm
+                           for pm in bmeta.get("parked", [])}
+            parked_arrs: Dict[int, torch.Tensor] = {}
+            for pr, rid, submitted, dl in queue:
+                tb.queue_for(int(pr)).append(
+                    (int(rid), int(submitted), int(dl)))
+                a = torch.from_numpy(np.asarray(next(it), np_dtype))
+                if int(rid) in parked_meta:
+                    parked_arrs[int(rid)] = a
+                else:
+                    self._pending[int(rid)] = a
+            for pr, rid, _, dl in queue:
+                pm = parked_meta.get(int(rid))
+                if pm is None:
+                    continue
+                carr = []
+                for j in range(3):
+                    v, lam, resid = (np.asarray(next(it)) for _ in range(3))
+                    carr.append(SolveState(
+                        v=v, lam=lam, resid=resid,
+                        iters=int(pm["iters"][j]),
+                        done=bool(pm["done"][j])))
+                tb.parked[int(rid)] = {
+                    "arr": parked_arrs[int(rid)], "carries": carr,
+                    "priority": int(pr), "deadline": int(dl),
+                    "warm_meta": (None if pm["warm_meta"] is None
+                                  else tuple(pm["warm_meta"])),
+                    "progress": int(pm["progress"]),
+                }
+        self._next_rid = int(meta["next_rid"])
+        self._stats = ServeStats(**meta["stats"])
+        self._total_chunks = int(meta["total_chunks"])
+        self._tick = int(meta.get("tick", 0))
+        self._chunks_since_ckpt = 0
+        self._bump(restores=1)

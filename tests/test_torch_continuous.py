@@ -19,13 +19,16 @@ graphs.  Held here:
 - `MSCChunkPlan`'s step and refill, from a state carried across, equal
   the reference plan's: carries, finished flags, finalized results;
 - the engine's policy units, `msc_serve --continuous` and
-  `simulate_continuous`'s arrivals, and the flags and arguments of later
-  ROADMAP items.
+  `simulate_continuous`'s arrivals (and per-class draws), each serving
+  tier knob and the scheduler's submit arguments against the reference
+  engine with the same knob (results and every counter), and the flags
+  and arguments of later ROADMAP items (autotune, "auto").
 The engine's CUDA graphs are held on the card by
 `tests/test_torch_graphs.py` (`pytest -m gpu`).
 """
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -210,9 +213,10 @@ def _same_carries(port, ref):
             _close(getattr(p, name).numpy(), getattr(r, name))
 
 
+@pytest.mark.parametrize("admission", ["cold", "warm", "resume"])
 @pytest.mark.parametrize("use_kernels", [False, True],
                          ids=["einsum", "kernels"])
-def test_plan_step_and_refill_match_reference_plan(use_kernels):
+def test_plan_step_and_refill_match_reference_plan(use_kernels, admission):
     bucket, B = (24, 24, 16), 2
     xs = [_planted(3, JSpec(shape=(18, 23, 15), cluster_sizes=(2, 3, 2),
                             gamma=60.0)),
@@ -238,15 +242,41 @@ def test_plan_step_and_refill_match_reference_plan(use_kernels):
     new_dims = np.array([[1, 1, 1], new.shape], np.int32)
     take, new_done = np.array([False, True]), np.array([True, False])
     perm = np.array([1, 0], np.int32)
-    zero = jnp.zeros((B,), bool)
+    # the new request's carry: cold, warm-started from given iterates, or
+    # resumed from a given state (iterate taken verbatim)
+    rng = np.random.RandomState(6)
+    warm_v = tuple(rng.standard_normal(sh).astype(np.float32)
+                   for sh in jplan.warm_shapes(bucket, B))
+    res_lam = tuple(rng.standard_normal(sh).astype(np.float32)
+                    for sh in jplan.resume_shapes(bucket, B))
+    res_resid = tuple(np.abs(x) for x in res_lam)
+    res_iters = np.array([[0, 0, 0], [16, 8, 24]], np.int32)
+    res_done = np.array([[False] * 3, [False, True, False]])
+    use = np.array([False, True])
+    no = np.zeros(B, bool)
+    inputs = {"cold": (tuple(np.zeros_like(w) for w in warm_v), no,
+                       tuple(np.zeros_like(x) for x in res_lam),
+                       tuple(np.zeros_like(x) for x in res_lam),
+                       np.zeros((B, 3), np.int32), np.zeros((B, 3), bool),
+                       no),
+              "warm": (warm_v, use, *jplan.zero_resume(bucket, B), no),
+              "resume": (warm_v, no, res_lam, res_resid, res_iters, res_done,
+                         use)}[admission]
     jblocks, jcarries, jres = jax.jit(jplan.build_refill())(
         jblocks, jcarries, dims, nb, new_dims, take, new_done, perm,
-        jplan.zero_warm(bucket, B), zero, *jplan.zero_resume(bucket, B),
-        zero)
+        *inputs)
+    port_inputs = [tuple(torch.from_numpy(np.array(x)) for x in a)
+                   if isinstance(a, tuple) else np.asarray(a)
+                   for a in inputs]
     blocks, carries, res = plan.build_refill()(
         blocks, carries, dims, tuple(bridge.tensor_from_numpy(b) for b in nb),
-        new_dims, take, new_done, perm)
+        new_dims, take, new_done, perm, *port_inputs)
     _same_carries(carries, jcarries)
+    if admission == "resume":  # the iterate verbatim, not re-normalized
+        for j, c in enumerate(carries):
+            m = c.v.shape[1]
+            np.testing.assert_array_equal(c.v[1].numpy(), warm_v[j][1, :m])
+            assert int(c.iters[1]) == res_iters[1, j]
     for p, r in zip(blocks, jblocks):
         np.testing.assert_array_equal(p.numpy(), np.asarray(r))
     for p, r in zip(res.modes, jres.modes):
@@ -297,16 +327,57 @@ def _engine(**kw):
     (dict(placement="shuffle"), ValueError, "placement"),
     (dict(bucket_policy="rr"), ValueError, "bucket_policy"),
     (dict(chunks_per_step="auto"), NotImplementedError, "item 11"),
-    (dict(preempt=True), NotImplementedError, "item 10"),
-    (dict(slo_chunks=64), NotImplementedError, "item 10"),
-    (dict(bucket_policy="all"), NotImplementedError, "item 10"),
-    (dict(checkpoint_dir="ckpt"), NotImplementedError, "item 10"),
-    (dict(warm_start=True), NotImplementedError, "item 10"),
     (dict(autotune=True), NotImplementedError, "item 10"),
 ])
 def test_engine_rejects(kw, exc, match):
     with pytest.raises(exc, match=match):
         _engine(**kw)
+
+
+# the tier knobs the engine takes, as the reference's; a directory knob
+# is given the test's temporary directory
+TIER_KNOBS = {
+    "preempt": dict(preempt=True, preempt_min_remaining_chunks=1),
+    "slo_chunks": dict(slo_chunks=64),
+    "bucket_policy_all": dict(bucket_policy="all"),
+    "checkpoint_dir": dict(checkpoint_dir="{tmp}", ckpt_every_chunks=1),
+    "warm_start": dict(warm_start=True),
+}
+
+
+def _knob(name, tmp, cache_cls):
+    kw = {k: (v.format(tmp=tmp) if isinstance(v, str) and "{" in v else v)
+          for k, v in TIER_KNOBS[name].items()}
+    if name == "warm_start":
+        kw["result_cache"] = cache_cls()
+    return kw
+
+
+@pytest.mark.parametrize("name", sorted(TIER_KNOBS))
+def test_engine_tier_knob_serves_as_the_reference(name, tmp_path):
+    """Each tier knob the port used to refuse: the stream's masks and
+    sweeps as the reference engine's with the same knob (d within 3e-5
+    of the largest reference entry), and every counter equal."""
+    from repro.serving import MSCResultCache as JCache
+    from repro_torch.serving import MSCResultCache
+
+    xs = [_stream()[i] for i in (0, 3, 5)]
+    jeng = JEngine(_mesh(), _jcfg(), slots=2,
+                   **_knob(name, tmp_path / "ref", JCache))
+    ref = jeng.run([jnp.asarray(x) for x in xs])
+    eng = _engine(slots=2, **_knob(name, tmp_path / "port", MSCResultCache))
+    got = eng.run(xs)
+    for r, g in zip(ref, got):
+        for j in range(3):
+            np.testing.assert_array_equal(g[j].mask.numpy(),
+                                          np.asarray(r[j].mask))
+            assert g[j].power_iters_run == int(r[j].power_iters_run)
+            _close(g[j].d.numpy(), r[j].d)
+    assert dataclasses.asdict(eng.stats) == dataclasses.asdict(jeng.stats)
+    if name == "checkpoint_dir":
+        assert eng.stats.checkpoints_written > 0
+        assert sorted(os.listdir(tmp_path / "port")) == sorted(
+            os.listdir(tmp_path / "ref"))
 
 
 @pytest.mark.parametrize("cfg_kw,match", [
@@ -318,15 +389,37 @@ def test_engine_rejects_config(cfg_kw, match):
         MSCContinuousEngine(_cfg().with_(**cfg_kw), device="cpu")
 
 
-@pytest.mark.parametrize("kw,exc", [
-    (dict(priority=1), NotImplementedError),
-    (dict(deadline_chunks=8), NotImplementedError),
-    (dict(priority=-1), ValueError),
+@pytest.mark.parametrize("kw,match", [
+    (dict(priority=-1), "priority"),
+    (dict(deadline_chunks=0), "deadline_chunks"),
 ])
-def test_submit_rejects_the_schedulers_arguments(kw, exc):
-    with pytest.raises(exc, match="item 10" if exc is NotImplementedError
-                       else "priority"):
+def test_submit_rejects_the_schedulers_arguments(kw, match):
+    with pytest.raises(ValueError, match=match):
         _engine(slots=2).submit(_stream()[0], **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(priority=1), dict(deadline_chunks=8)],
+                         ids=["priority", "deadline_chunks"])
+def test_submit_takes_the_schedulers_arguments(kw):
+    """A priority class or a deadline per request, as the reference's
+    engine takes them: the same results and counters on the stream."""
+    xs = [_stream()[i] for i in (0, 3, 5)]
+    jeng = JEngine(_mesh(), _jcfg(), slots=2)
+    eng = _engine(slots=2)
+    got = {}
+    for e, wrap in ((jeng, jnp.asarray), (eng, lambda x: x)):
+        rids = [e.submit(wrap(x), **(kw if i == 1 else {}))
+                for i, x in enumerate(xs)]
+        out = {}
+        while e.has_work():
+            out.update(e.step())
+        got[e is eng] = [out[r] for r in rids]
+    for r, g in zip(got[False], got[True]):
+        for j in range(3):
+            np.testing.assert_array_equal(g[j].mask.numpy(),
+                                          np.asarray(r[j].mask))
+            assert g[j].power_iters_run == int(r[j].power_iters_run)
+    assert dataclasses.asdict(eng.stats) == dataclasses.asdict(jeng.stats)
 
 
 def test_starvation_bound_admits_despite_refill_batching():
@@ -426,7 +519,7 @@ class _Recorder:
         self.ticks, self.submits, self.queued = 0, [], []
 
     def submit(self, tensor, priority=0, deadline_chunks=None):
-        self.submits.append(self.ticks)
+        self.submits.append((self.ticks, priority, deadline_chunks))
         self.queued.append(len(self.submits) - 1)
         return len(self.submits) - 1
 
@@ -449,6 +542,15 @@ def test_simulate_continuous_arrivals_are_the_references(rate, seed):
                                    arrival_rate=rate, seed=seed)
     assert got.submits == want.submits
     assert (p[0], p[1], p[3]) == (r[0], r[1], r[3])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        msc_serve.simulate_continuous(got, [0], arrival_rate=rate, seed=seed,
-                                      priority_rates={0: 1.0})
+    # per-class rates and a deadline: the reference's class draws
+    mix = {0: rate, 1: 2.0 * rate}
+    got, want = _Recorder(), _Recorder()
+    p = msc_serve.simulate_continuous(got, list(range(9)), arrival_rate=0.1,
+                                      seed=seed, priority_rates=mix,
+                                      deadline_chunks=5)
+    r = jserve.simulate_continuous(want, list(range(9)), arrival_rate=0.1,
+                                   seed=seed, priority_rates=mix,
+                                   deadline_chunks=5)
+    assert got.submits == want.submits
+    assert {pr for _, pr, _ in got.submits} <= {0, 1}
+    assert (p[0], p[1], p[3]) == (r[0], r[1], r[3])

@@ -13,8 +13,12 @@ eagerly: the code a card captures as CUDA graphs.  Held here:
   `build_msc_batched` on the same microbatch, and a warm bucket's second
   batch of other requests answers as a fresh engine does.
 """
+import contextlib
 import dataclasses
 import functools
+import io
+import os
+import re
 
 import numpy as np
 import pytest
@@ -178,19 +182,7 @@ def test_request_stream_follows_the_reference_rule():
     (["--mesh-shape", "4,2"], "item 9"),
     (["--epilogue", "auto"], "item 11"),
     (["--chunks-per-step", "auto"], "item 11"),
-    (["--continuous", "--priority-mix", "0:1.0"], "item 10"),
-    (["--continuous", "--no-preempt"], "item 10"),
-    (["--continuous", "--bucket-policy", "all"], "item 10"),
-    (["--continuous", "--warm-start"], "item 10"),
-    (["--autotune"], "item 10"), (["--priority-mix", "0:1.0"], "item 10"),
-    (["--slo-chunks", "64"], "item 10"),
-    (["--deadline-chunks", "96"], "item 10"), (["--no-preempt"], "item 10"),
-    (["--bucket-policy", "all"], "item 10"),
-    (["--checkpoint-dir", "ckpt"], "item 10"),
-    (["--ckpt-every", "2"], "item 10"), (["--restore", "ckpt"], "item 10"),
-    (["--cache-dir", "cache"], "item 10"),
-    (["--cache-max-bytes", "1024"], "item 10"),
-    (["--warm-start"], "item 10"),
+    (["--autotune"], "item 10"),
 ])
 def test_later_item_flags_raise_naming_their_item(flag, item):
     if item == "item 9":
@@ -201,6 +193,185 @@ def test_later_item_flags_raise_naming_their_item(flag, item):
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         msc_serve.main(["--device", "cpu", *flag])
+
+
+# the tier flags' runs: the reference's small stream, every request of
+# one bucket, through 2 slots
+TIER_ARGV = ["--sizes", "9,14", "--requests", "6", "--max-batch", "2",
+             "--slow-every", "3", "--no-loop-compare"]
+# the continuous section's lines, by their start
+TIER_LINES = ("  priority mix:", "streamed ", "  occupancy ", "  scheduler:",
+              "  fault tolerance:", "  result cache persisted:",
+              "result cache: reloaded", "restored from ")
+
+
+def _templates(text, dirs=()):
+    """The continuous section's lines with every number made '#' and
+    every directory '<dir>'."""
+    out = set()
+    for line in text.splitlines():
+        if line.startswith(TIER_LINES):
+            for d in dirs:
+                line = line.replace(str(d), "<dir>")
+            line = re.sub(r"\d+(\.\d+)?", "#", line)
+            out.add(re.sub(r"\{#: #(, #: #)*\}", "{#: #}", line))
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference_tier_lines(tmp_path_factory):
+    """The reference CLI's continuous lines with every tier flag, then
+    with --restore from its checkpoint and the cache it persisted."""
+    tmp = tmp_path_factory.mktemp("ref_tiers")
+    ck, cache = tmp / "ck", tmp / "cache"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jserve.main(TIER_ARGV + [
+            "--continuous", "--priority-mix", "0:1.0,1:0.5",
+            "--slo-chunks", "64", "--deadline-chunks", "96",
+            "--bucket-policy", "all", "--checkpoint-dir", str(ck),
+            "--ckpt-every", "2", "--cache-dir", str(cache),
+            "--cache-max-bytes", "1048576", "--warm-start"])
+        jserve.main(TIER_ARGV + ["--restore", str(ck), "--cache-dir",
+                                 str(cache)])
+    return _templates(buf.getvalue(), (ck, cache))
+
+
+def _check_priority_mix(res, out, tmp):
+    assert "  priority mix: {0: 0.5, 1: 1.5} arrivals/tick per class" in out
+    assert len(res["continuous"]["results"]) == 6
+
+
+def _check_one_class(res, out, tmp):
+    assert "  priority mix: {0: 1.0} arrivals/tick per class" in out
+    assert res["continuous"]["engine"].stats.preemptions == 0
+
+
+def _check_no_preempt(res, out, tmp):
+    eng = res["continuous"]["engine"]
+    assert not eng.preempt and eng.stats.preemptions == 0
+    assert len(res["continuous"]["results"]) == 6
+
+
+def _check_bucket_policy(policy):
+    def check(res, out, tmp):
+        eng = res["continuous"]["engine"]
+        assert eng.bucket_policy == policy and len(res["buckets"]) == 2
+        for i, r in res["continuous"]["results"].items():  # as static
+            for j in range(3):
+                assert torch.equal(r[j].mask, res["results"][i][j].mask)
+    return check
+
+
+def _check_slo(res, out, tmp):
+    cont = res["continuous"]
+    s = cont["engine"].stats
+    assert s.slo_sheds == cont["shed"] > 0 and s.shed_requests == s.slo_sheds
+    assert len(cont["results"]) == 6 - cont["shed"]
+
+
+def _check_deadline(res, out, tmp):
+    assert res["continuous"]["engine"].stats.deadline_misses > 0
+
+
+def _check_warm_start(res, out, tmp):
+    cont = res["continuous"]
+    s = cont["engine"].stats
+    assert cont["cache"] is not None and cont["cache"].persist_dir is None
+    # the warm-up served one request; the stream's repeat of it hits
+    assert s.cache_hits >= 1 and s.cache_hits + s.cache_misses == 7
+    assert "result cache persisted" not in out
+
+
+def _check_checkpoints(every):
+    def check(res, out, tmp):
+        s = res["continuous"]["engine"].stats
+        steps = [n for n in os.listdir(tmp / "ck") if n.startswith("step_")]
+        assert s.checkpoints_written >= (2 if every == 1 else 1)
+        assert 0 < len(steps) <= 3  # keep-last-3
+        assert s.checkpoints_written * every <= s.chunk_steps
+    return check
+
+
+def _check_restore(res, out, tmp):
+    assert f"restored from {tmp / 'ck'} onto mesh {{'slice': 1, 'inner': 1}}; " \
+           f"drained " in out
+    s = res["continuous"]["engine"].stats
+    assert s.restores == 1 and s.checkpoints_written >= 1
+
+
+def _check_cache_dir(res, out, tmp):
+    assert f"  result cache persisted: " in out and str(tmp / "cc") in out
+    assert "result cache: reloaded " in out  # the second run's reload
+    assert res["continuous"]["engine"].stats.cache_hits >= 6
+
+
+def _check_cache_max_bytes(res, out, tmp):
+    cache = res["continuous"]["cache"]
+    assert cache.max_bytes == 1024 and len(cache) == 1 and cache.evicted > 0
+
+
+# name: (argv after TIER_ARGV, runs before the checked one, check)
+TIER_CASES = {
+    "priority_mix": (["--continuous", "--priority-mix", "0:0.5,1:1.5"], 0,
+                     _check_priority_mix),
+    "priority_mix_one_class": (["--continuous", "--priority-mix", "0:1.0"],
+                               0, _check_one_class),
+    "no_preempt": (["--continuous", "--no-preempt", "--priority-mix",
+                    "0:1.0,1:1.0"], 0, _check_no_preempt),
+    "bucket_policy_all": (["--continuous", "--bucket-policy", "all",
+                           "--sizes", "9,21"], 0,
+                          _check_bucket_policy("all")),
+    "slo_chunks": (["--continuous", "--slo-chunks", "0"], 0, _check_slo),
+    "deadline_chunks": (["--continuous", "--deadline-chunks", "1"], 0,
+                        _check_deadline),
+    "warm_start": (["--continuous", "--warm-start"], 0, _check_warm_start),
+    "warm_start_persisted": (["--warm-start", "--continuous", "--cache-dir",
+                              "{tmp}/cc"], 1, _check_cache_dir),
+    "checkpoint_dir": (["--continuous", "--checkpoint-dir", "{tmp}/ck"], 0,
+                       _check_checkpoints(8)),
+    "ckpt_every": (["--continuous", "--checkpoint-dir", "{tmp}/ck",
+                    "--ckpt-every", "1"], 0, _check_checkpoints(1)),
+    "restore": (["--restore", "{tmp}/ck", "--ckpt-every", "1"], 0,
+                _check_restore),
+    "cache_dir": (["--continuous", "--cache-dir", "{tmp}/cc"], 1,
+                  _check_cache_dir),
+    "cache_max_bytes": (["--continuous", "--cache-dir", "{tmp}/cc",
+                         "--cache-max-bytes", "1024"], 0,
+                        _check_cache_max_bytes),
+    "no_preempt_alone": (["--continuous", "--no-preempt"], 0,
+                         _check_no_preempt),
+    "bucket_policy_weighted": (["--continuous", "--bucket-policy",
+                                "weighted", "--sizes", "9,21"], 0,
+                               _check_bucket_policy("weighted")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIER_CASES))
+def test_tier_flags_serve_and_print_the_reference_lines(
+        case, tmp_path, capsys, reference_tier_lines):
+    """Each tier flag serves on the CPU (a checkpoint for --restore made
+    by a run with --checkpoint-dir first), prints only lines the
+    reference's CLI prints (numbers and directories aside), and moves
+    the counters it should."""
+    argv, before, check = TIER_CASES[case]
+    argv = [a.format(tmp=tmp_path) for a in argv]
+    if case == "restore":
+        msc_serve.main(["--device", "cpu", *TIER_ARGV, "--continuous",
+                        "--checkpoint-dir", str(tmp_path / "ck")])
+    for _ in range(before):
+        msc_serve.main(["--device", "cpu", *TIER_ARGV, *argv])
+    capsys.readouterr()
+    res = msc_serve.run(msc_serve.parse_args(["--device", "cpu", *TIER_ARGV,
+                                              *argv]))
+    out = capsys.readouterr().out
+    try:
+        got = _templates(out, (tmp_path / "ck", tmp_path / "cc"))
+        assert got and got <= reference_tier_lines, got - reference_tier_lines
+        check(res, out, tmp_path)
+    finally:
+        res["engine"].close()
+        res["continuous"]["engine"].close()
 
 
 def test_cli_defaults_are_the_references_and_cuda():
