@@ -166,9 +166,27 @@ line):
    a corrupt newest leaf (the previous step, with a warning): every
    result bit-identical to the uninterrupted run; 0 B left after each of
    phases 11-13.
-`--only 11,12,13` runs the card and build phases and the named tier
-phases alone (a development run: no result lines, exit code 3 when
-they pass).
+14. The autotuner on phase 5c's mix (m = 200, 32 requests, 8 slots, fp32,
+   kernels) with epilogue="auto", chunks_per_step="auto" and a
+   persisted autotune cache: cold, one search per bucket (each candidate
+   route of the power kernel captured as the bucket's two graphs and
+   timed by replay; each candidate's time and the winner printed),
+   2 x candidates graphs captured, `power_iter` and `abs_rowsum`
+   launched; the memory held within the static buffers and the winner's
+   graph pool (nothing left from the losers); warm, 0 searches and 0
+   captures; a fresh engine reloading the cache, 0 searches, one hit and
+   2 captures per bucket; masks and sweeps equal the untuned engine's (d
+   within 3e-5); the mix served on every route compared with the current
+   pick's (masks, sweeps, d and λ, reported); untuned and tuned warm
+   walls in turns (reported).  Then `msc_serve --continuous --epilogue
+   auto --chunks-per-step auto --autotune` at the reference's defaults
+   on one device and on a (1,) NCCL mesh: one search per bucket, none
+   and no capture in the stream; 0 B left.
+Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
+beside their measured times (`roofline.H100`; reported, no bar).
+`--only 11,12,13,14` (any subset) runs the card and build phases and the
+named phases alone (a development run: no result lines, exit code 3
+when they pass).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -765,7 +783,9 @@ def phase_main_path(torch, checks):
         before = (f"; with the host-driven trim: {HOST_TRIM_WALL_MS[label]} "
                   "ms" if label in HOST_TRIM_WALL_MS else "")
         log(f"  solve t={rec['t'] * 1e3:.1f} ms{before} (the rest of the wall "
-            f"time is data and the sim metric), rec={rec['rec']:.3f}")
+            f"time is data and the sim metric), rec={rec['rec']:.3f}; "
+            + h100_model((M,) * 3, _sweeps(rec["result"]),
+                         dtype_bytes=2.0 if "bf16" in label else 4.0))
         if label.endswith("(recovery)") and rec["rec"] != 1.0:
             checks.failures.append(f"{label}: rec={rec['rec']:.3f} != 1.000")
         for mr in rec["result"].modes:
@@ -854,6 +874,29 @@ def phase_batched(torch, checks, singles):
 GRAPHS_PER_BUCKET = 9
 # static serving at the low end of paper Fig. 6: two buckets, B = 4
 SERVE_SIZES, SERVE_REQUESTS, SERVE_B = (200, 400), 8, 4
+
+
+def h100_model(shape, sweeps, *, B=1, p=1, q=1, relayout="gspmd",
+               dtype_bytes=4.0):
+    """The H100 roofline models' time for B requests of `shape` at
+    `sweeps` sweeps a mode, printed beside a measured time (reported, no
+    bar): `serving_model`'s work (the eigensolve and epilogue models: their
+    flops and link bytes) and `relayout_model`'s `relayout` latency (every
+    sweep also reads the block at the HBM rate)."""
+    from repro_torch.roofline import H100, relayout_model, serving_model
+
+    work = serving_model(shape, B, p, q, sweeps=sweeps, dispatch_s=0.0,
+                         dtype_bytes=dtype_bytes, hw=H100)["batched_s"]
+    floor = relayout_model(shape, p, q, B=B, sweeps=sweeps,
+                           dtype_bytes=dtype_bytes, hw=H100)[f"{relayout}_s"]
+    return (f"H100 models (reported): work {work * 1e3:.3f} ms, with the "
+            f"HBM floor {floor * 1e3:.2f} ms")
+
+
+def _sweeps(res) -> int:
+    """Mean realized sweeps over the modes of a result (the models take
+    one count)."""
+    return round(sum(int(res[j].power_iters_run) for j in range(3)) / 3)
 
 
 def _timed_s(torch, fn):
@@ -964,9 +1007,11 @@ def phase_static(torch, checks):
             t["eager"].append(_timed_s(torch, lambda: eager((m,)))[1])
             t["looped B=1"].append(_timed_s(torch, lambda: loop.run(reqs))[1])
         g = min(t["graphed"])
+        lock = max(_sweeps(got[i]) for i in idx)
         log(f"  warm m={m}, {len(idx)} requests in one dispatch: "
             + ", ".join(f"{k} {' / '.join(f'{x * 1e3:.2f}' for x in v)} ms "
-                        f"({min(v) / g:.2f}x)" for k, v in t.items()))
+                        f"({min(v) / g:.2f}x)" for k, v in t.items())
+            + "; " + h100_model((m,) * 3, lock, B=len(idx)))
     static, pools = engine.memory_reckoning()
     log(f"  {engine.graphs} graphs, static buffers {static} B, graph pools "
         f"{pools} B; launches of one warm run {counts}")
@@ -1152,6 +1197,15 @@ def phase_continuous(torch, checks, smi):
         f"{' / '.join(f'{x * 1e3:.2f}' for x in t['continuous'])} ms, "
         f"static B={CONT_B} {' / '.join(f'{x * 1e3:.2f}' for x in t['static'])}"
         f" ms; static / continuous {s_s / c_s:.3f}x ({smi})")
+    from repro_torch.roofline import H100, continuous_serving_model
+
+    pred = continuous_serving_model(
+        [max(int(r[j].power_iters_run) for j in range(3)) for r in res_c],
+        CONT_B, check_every=chunk, shape=(CONT_M,) * 3, hw=H100)
+    log(f"  H100 models (reported): continuous "
+        f"{pred['continuous_s'] * 1e3:.3f} ms, static "
+        f"{pred['static_s'] * 1e3:.3f} ms, occupancy "
+        f"{pred['occupancy_continuous']:.3f} / {pred['occupancy_static']:.3f}")
     log(f"  warm run: occupancy {warm.occupancy:.3f} "
         f"({warm.busy_slot_chunks}/{warm.slot_chunks} slot-chunks), "
         f"{warm.chunk_steps} chunk steps, {warm.refills} refills, "
@@ -1659,7 +1713,10 @@ def _mesh_run(torch, checks, label, mesh, relayout, cfg, tensor, one,
     log(f"  warm solve {t * 1e3:.1f} ms; one device in turns "
         f"{t_one * 1e3:.1f} / {t_one2 * 1e3:.1f} ms (phase 4, "
         f"{one_label}: {one_ms:.1f} ms); peak {peak:.2f} GiB, launches "
-        f"{counts}, {guard.calls} extractions with no host read")
+        f"{counts}, {guard.calls} extractions with no host read; "
+        + h100_model(tuple(tensor.shape), _sweeps(res),
+                     relayout=relayout,
+                     dtype_bytes=2.0 if cfg.precision != "fp32" else 4.0))
     if guard.calls != 3:
         checks.failures.append(f"{label}: {guard.calls} extractions, not 3")
     for n in KERNELS:
@@ -2717,15 +2774,236 @@ def _fault_runs(torch, checks, smi):
     return launches
 
 
+# phase 14: the autotuner on phase 5c's skewed mix
+AUTOTUNE_LABEL = f"autotuned continuous kernels fp32 m={CONT_M} B={CONT_B}"
+
+
+def phase_autotune(torch, checks, smi):
+    """Phase 14 (`_autotune_runs`), then 0 B left once its engines and
+    tensors are gone.  Returns {label: launch counts}."""
+    from repro_torch.serving.graphs import capture_stream
+
+    # the process's capture stream (and its cuBLAS workspace) outlives
+    # the phase: made before the baseline when this phase runs alone
+    capture_stream(DEVICE)
+    return _without_leftovers(torch, checks, "autotune", _autotune_runs, smi)
+
+
+def _skewed_mix(torch):
+    """Phase 5c's 32 requests at m = 200 (every 8th gamma = 2)."""
+    return [_planted(torch, SEED + i, CONT_M,
+                     CONT_GAMMA_SLOW if i % CONT_SLOW_EVERY == 0
+                     else CONT_GAMMA_FAST) for i in range(CONT_N)]
+
+
+def _autotune_runs(torch, checks, smi):
+    """The continuous engine with every "auto" knob and the autotuner on
+    phase 5c's mix: a cold pass searches each bucket once (each candidate
+    route captured as the bucket's two graphs and timed by replay), a warm
+    pass searches and captures nothing, a fresh engine reloading the
+    persisted cache searches nothing and captures only the winner's two
+    graphs per bucket; masks and sweeps equal the untuned engine's (d
+    within 3e-5), no bytes are left from the losing candidates, and the
+    power kernel and the epilogue kernel run inside the timed graphs.  Then
+    `msc_serve --continuous --epilogue auto --chunks-per-step auto
+    --autotune` on one device and on a (1,) NCCL mesh."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.autotune import AutotuneCache
+    from repro_torch.launch import msc_serve
+    from repro_torch.launch.mesh import join, leave
+    from repro_torch.serving import MSCContinuousEngine
+
+    label = AUTOTUNE_LABEL
+    cfg = tier_cfg()
+    tensors = _skewed_mix(torch)
+    log(f"{label}: phase 5c's mix with epilogue='auto', chunks_per_step="
+        f"'auto', autotune on; card: {smi}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    plain = MSCContinuousEngine(cfg, slots=CONT_B, device=DEVICE)
+    res_p = plain.run(tensors)
+    torch.cuda.synchronize()
+    held_plain = torch.cuda.memory_allocated() - base
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    try:
+        def tuned():
+            return MSCContinuousEngine(
+                cfg.with_(epilogue="auto"), slots=CONT_B, device=DEVICE,
+                chunks_per_step="auto",
+                autotune_cache=AutotuneCache(persist_dir=tmp))
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        mods = _reset_counts()
+        eng = tuned()
+        res_c, cold_s = _timed_s(torch, lambda: eng.run(tensors))
+        counts = _read_counts(mods)
+        cold = eng.stats
+        held = torch.cuda.memory_allocated() - base
+        static_b, pools = eng.memory_reckoning()
+        entries = eng.autotune_cache.entries()
+        n_b = len(eng._tables)
+        n_cands = sum(len(e["timings"]) for e in entries.values())
+        for key, e in entries.items():
+            times = ", ".join(
+                f"{json.loads(c)['power_route']} {t * 1e3:.3f} ms"
+                for c, t in e["timings"].items())
+            log(f"  bucket {key.split('|')[0]}: replay of step + refill "
+                f"per candidate: {times}; winner {e['power_route']} "
+                f"(epilogue {e['epilogue']}) ({smi})")
+        _gate(checks, cold.autotune_searches == n_b
+              and cold.compiles == 2 * n_cands and eng.graphs == 2 * n_b,
+              label,
+              f"cold: {cold.autotune_searches} searches for {n_b} buckets, "
+              f"{cold.compiles} graphs captured for {n_cands} candidates "
+              f"(want 2 each), {eng.graphs} held")
+        _gate(checks, counts["power_iter"] > 0 and counts["abs_rowsum"] > 0,
+              label, f"launches of the cold pass (the timed replays "
+              f"included) {counts}")
+        # a losing candidate's graphs left alive would add their
+        # allocations (~1.7 MB a candidate at this bucket) to the table's
+        _gate(checks, held <= static_b + pools
+              and held <= held_plain + (1 << 16), label,
+              f"device memory held after the search {held} B (the untuned "
+              f"engine's {held_plain} B), reckoned {static_b} B static + "
+              f"{pools} B of the winner's graph pool: nothing left from "
+              "the losing candidates")
+        with NoSyncInReplays(torch) as guard:
+            before = eng.stats
+            res_w, warm_s = _timed_s(torch, lambda: eng.run(tensors))
+            warm = eng.stats.delta(before)
+        _gate(checks, warm.autotune_searches == 0 and warm.compiles == 0
+              and warm.autotune_cache_hits == 0, label,
+              f"warm: {warm.autotune_searches} searches, {warm.compiles} "
+              f"captures; {guard.calls} replays with no host sync")
+        same = (_same_requests(res_c, res_p, d_tol=3e-5)
+                and _same_requests(res_w, res_c))
+        _gate(checks, same, label, "masks and sweeps equal the untuned "
+              "engine's, d within 3e-5")
+        # warm walls in turns: untuned, tuned, tuned, untuned
+        t = {"untuned": [], "tuned": []}
+        for name in ("untuned", "tuned", "tuned", "untuned"):
+            e = plain if name == "untuned" else eng
+            t[name].append(_timed_s(torch, lambda: e.run(tensors))[1])
+        log(f"  warm {CONT_N} requests (reported): untuned "
+            f"{' / '.join(f'{x * 1e3:.2f}' for x in t['untuned'])} ms, "
+            f"tuned {' / '.join(f'{x * 1e3:.2f}' for x in t['tuned'])} ms; "
+            f"cold tuned pass {cold_s * 1e3:.1f} ms ({smi})")
+        eng.close()
+        del eng
+        again = tuned()
+        res_r = again.run(tensors)
+        st = again.stats
+        _gate(checks, st.autotune_searches == 0
+              and st.autotune_cache_hits == n_b
+              and st.compiles == 2 * n_b and _same_requests(res_r, res_c),
+              label, f"reloaded cache: {st.autotune_searches} searches, "
+              f"{st.autotune_cache_hits} hits, {st.compiles} graphs "
+              "captured (the winners' 2 per bucket), results as the cold "
+              "pass's")
+        again.close()
+        plain.close()
+        del again, plain
+        _across_routes(torch, cfg, tensors, entries, res_c, smi)
+
+        for mesh_shape in (None, "1"):
+            argv = ["--device", DEVICE, "--continuous", "--epilogue", "auto",
+                    "--chunks-per-step", "auto", "--autotune"]
+            where = "one device"
+            if mesh_shape:
+                argv += ["--mesh-shape", mesh_shape]
+                where = "a (1,) NCCL mesh"
+            log(f"{label}: msc_serve {' '.join(argv[2:])} on {where}")
+            try:
+                if mesh_shape:
+                    dev = join("cuda", rank=0, world_size=1,
+                               store_file=os.path.join(tmp, "store"))
+                    with NoSyncInReplays(torch) as guard:
+                        res = msc_serve._serve(msc_serve.parse_args(argv),
+                                               dev)
+                else:
+                    with NoSyncInReplays(torch) as guard:
+                        res = msc_serve.run(msc_serve.parse_args(argv))
+                cont, nb = res["continuous"], len(res["buckets"])
+                cs = cont["engine"].stats
+                ok = (len(cont["results"]) == 9
+                      and cs.autotune_searches == nb
+                      and cont["stats_stream"].compiles == 0
+                      and cont["engine"].graphs == 2 * nb)
+                _gate(checks, ok, f"{label} msc_serve ({where})",
+                      f"9 results; {cs.autotune_searches} searches for {nb} "
+                      f"buckets, {cont['stats_warmup'].compiles} graphs "
+                      f"captured warming up, "
+                      f"{cont['stats_stream'].compiles} in the stream, "
+                      f"{cont['engine'].graphs} held; {guard.calls} replays "
+                      "with no host sync")
+                msc_serve._close(res)
+                del res, cont
+            finally:
+                if mesh_shape:
+                    leave()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {label: counts}
+
+
+def _across_routes(torch, cfg, tensors, entries, res_c, smi):
+    """The mix served on each candidate route in turn (the cold pass's
+    winners with the route replaced, through a cache that hits): masks,
+    sweeps, d and λ against the current pick's (`power_iter.route`, the
+    first candidate), reported."""
+    from repro_torch.core.autotune import AutotuneCache
+    from repro_torch.serving import MSCContinuousEngine
+
+    routes = []
+    for e in entries.values():
+        for c in e["timings"]:
+            r = tuple(json.loads(c)["power_route"])
+            if r not in routes:
+                routes.append(r)
+    got = {}
+    for r in routes:
+        ac = AutotuneCache()
+        for key, e in entries.items():
+            ac.put(key, dict(e, power_route=list(r)))
+        e = MSCContinuousEngine(cfg.with_(epilogue="auto"), slots=CONT_B,
+                                device=DEVICE, chunks_per_step="auto",
+                                autotune_cache=ac)
+        got[r] = e.run(tensors)
+        e.close()
+    ref = got[routes[0]]
+    for r in routes[1:]:
+        same = _same_requests(got[r], ref)
+        bits = _same_requests(got[r], ref, d_tol=0.0) and all(
+            x[j].lambdas.cpu().equal(y[j].lambdas.cpu())
+            for x, y in zip(got[r], ref) for j in range(3))
+
+        def rel(f):
+            return max(float((getattr(x[j], f).cpu().double()
+                              - getattr(y[j], f).cpu().double()).abs().max()
+                             / getattr(y[j], f).cpu().double().abs().max())
+                       for x, y in zip(got[r], ref) for j in range(3))
+
+        log(f"  route {r} against {routes[0]} (reported): masks and sweeps "
+            f"equal {same}, bits equal {bits}, d max rel diff "
+            f"{rel('d'):.3e}, λ max rel diff {rel('lambdas'):.3e} ({smi})")
+    win = tuple(next(iter(entries.values()))["power_route"])
+    log(f"  the tuned engine's bits equal those of the route it won on "
+        f"({win}): {_same_requests(res_c, got[win], d_tol=0.0)}")
+
+
 def _only_phases():
-    """`--only 11,12,13`: the tier phases to run alone (development runs
-    only; with no arguments every phase runs)."""
+    """`--only 11,12,13,14`: the tier phases to run alone (development
+    runs only; with no arguments every phase runs)."""
     if "--only" not in sys.argv:
         return []
     names = sys.argv[sys.argv.index("--only") + 1].split(",")
-    bad = [n for n in names if n not in ("11", "12", "13")]
+    bad = [n for n in names if n not in ("11", "12", "13", "14")]
     if bad:
-        raise SystemExit(f"chip_smoke: --only takes 11, 12, 13; got {bad}")
+        raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14; got "
+                         f"{bad}")
     return names
 
 
@@ -2753,7 +3031,7 @@ def main() -> int:
     if only:
         # a development run of the named tier phases: no result lines
         tiers = {"11": phase_cache, "12": phase_scheduler,
-                 "13": phase_faults}
+                 "13": phase_faults, "14": phase_autotune}
         for name in only:
             tiers[name](torch, checks, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s (phases "
@@ -2774,6 +3052,7 @@ def main() -> int:
     launches.update(phase_cache(torch, checks, smi))
     launches.update(phase_scheduler(torch, checks, smi))
     launches.update(phase_faults(torch, checks, smi))
+    launches.update(phase_autotune(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

@@ -21,7 +21,7 @@ reference writes them, so each package reads the other's checkpoints.
 Not here: the multi-process format 2 (`begin_sharded_checkpoint`,
 `write_process_shards`, `commit_sharded_checkpoint`, and reading its
 shard files) belongs to the multi-host control plane,
-`launch/distributed.py` (ROADMAP.md queue 1 item 10, the rest); a
+`launch/distributed.py` (ROADMAP.md queue 1 item 10b); a
 format-2 step fails validation here and is skipped.  `CheckpointManager`
 and `restore_checkpoint`, used only by training, are item 12.
 """

@@ -44,6 +44,7 @@ from .power_iter import (
     power_iteration_gram,
     power_iteration_matrix_free,
     power_iteration_on_gram,
+    rayleigh_residual,
     top_eigenpairs,
 )
 from .integration import (

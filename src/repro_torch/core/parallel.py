@@ -27,8 +27,11 @@ Collectives (paper → here): MPI_Allgatherv(V) → all_gather_into_tensor
 over the slice group, or the ring of send/receive steps;
 MPI_Allreduce(λ, MAX) → all_reduce MAX; the inner-dim partial sums →
 all_reduce SUM; MPI_Gatherv(d) → an all_gather of d and λ, the
-extraction then on every rank.  The "auto" relayout and epilogue
-choosers are ROADMAP.md queue 1 item 11.
+extraction then on every rank.
+
+relayout="auto" and cfg.epilogue="auto" resolve per tensor shape from
+the roofline choosers (`_resolve_auto`), on the spec of the device the
+function runs on (`roofline.target_hw`), each resolution built once.
 """
 from __future__ import annotations
 
@@ -46,9 +49,6 @@ from .types import MSCConfig, MSCResult, resolve_device
 
 RELAYOUTS = ("gspmd", "collective", "collective_stream")
 
-AUTO_TODO = ("the 'auto' choosers (relayout, epilogue, chunks per step) are "
-             "not ported yet: ROADMAP.md, queue 1 item 11 (roofline)")
-
 # column dim of modes 1/2 is m3, of mode 3 is m2 (see MODE_PERMS)
 C_OF = (2, 2, 1)
 
@@ -58,13 +58,70 @@ def batch_perm(mode: int) -> tuple:
     return (0,) + tuple(a + 1 for a in MODE_PERMS[mode])
 
 
-def check_relayout(relayout: str, epilogue: str = "allgather") -> None:
-    """Raise on a relayout (or epilogue) the port cannot run."""
-    if relayout == "auto" or epilogue == "auto":
-        raise NotImplementedError(AUTO_TODO)
-    if relayout not in RELAYOUTS:
+def check_relayout(relayout: str) -> None:
+    """Raise on a relayout the port does not know ("auto" resolves per
+    shape)."""
+    if relayout not in RELAYOUTS + ("auto",):
         raise ValueError(f"unknown relayout {relayout!r}; "
-                         f"expected one of {RELAYOUTS}")
+                         f"expected one of {RELAYOUTS + ('auto',)}")
+
+
+def agreed(mesh, value):
+    """`value` (a choice every rank makes alone), checked to be the same on
+    every rank of `mesh`'s world; one device has nothing to check.  Every
+    rank calls it in the same order."""
+    if mesh is None:
+        return value
+    import torch.distributed as dist
+
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, value)
+    if any(v != value for v in seen):
+        raise RuntimeError(f"ranks resolved differently: {seen}")
+    return value
+
+
+def _resolve_auto(cfg: MSCConfig, shape, relayout: str, mesh=None,
+                  B: int = 1, device=None):
+    """(cfg, relayout) for one tensor shape, "auto" resolved by the
+    roofline choosers on `device`'s spec (`roofline.target_hw`: V5E, the
+    reference's, on the CPU); a knob that is not "auto" passes through.
+    On a mesh every rank must resolve alike: the models are deterministic,
+    and `agreed` checks it."""
+    from repro_torch.roofline import (choose_epilogue, choose_relayout,
+                                      target_hw)
+
+    hw = target_hw(_mesh_device(mesh, device))
+    sched = _flat_schedule(cfg, mesh)
+    p, q = sched.slice_shards, sched.inner_shards
+    if relayout == "auto":
+        relayout = choose_relayout(shape, p, q, B=B,
+                                   sweeps=max(cfg.power_check_every, 1),
+                                   hw=hw)
+    if cfg.epilogue == "auto":
+        m1, _, m3 = shape
+        # mode 1 dominates the epilogue bytes on cubes; the schedules take
+        # one policy for all three modes
+        cfg = cfg.with_(epilogue=choose_epilogue(m1, m3, p, hw=hw))
+    agreed(mesh, (cfg.epilogue, relayout))
+    return cfg, relayout
+
+
+def _per_shape(build, cfg: MSCConfig, relayout: str, mesh, device, batched):
+    """A runner that resolves "auto" per input shape and builds (once per
+    shape) `build(cfg, relayout)` for it."""
+    built = {}
+
+    def run(tensor, *rest):
+        shape = tuple(np.shape(tensor))
+        if shape not in built:
+            rcfg, rlay = _resolve_auto(
+                cfg, shape[1:] if batched else shape, relayout, mesh,
+                B=shape[0] if batched else 1, device=device)
+            built[shape] = build(rcfg, rlay)
+        return built[shape](tensor, *rest)
+
+    return run
 
 
 def _mesh_device(mesh, device):
@@ -177,8 +234,13 @@ def build_msc_parallel_flat(cfg: MSCConfig, mesh=None,
                             relayout: str = "gspmd", device=None):
     """tensor → MSCResult, flat schedule: on one device (mesh=None, on
     `device`, default "cuda"), or over a DeviceMesh (every rank calls it
-    on the same tensor and gets the same result)."""
+    on the same tensor and gets the same result).  relayout="auto" or
+    cfg.epilogue="auto" resolve per tensor shape (`_resolve_auto`)."""
     check_relayout(relayout)
+    if relayout == "auto" or cfg.epilogue == "auto":
+        return _per_shape(
+            lambda c, r: build_msc_parallel_flat(c, mesh, r, device), cfg,
+            relayout, mesh, device, batched=False)
     dev = _mesh_device(mesh, device)
     sched = _flat_schedule(cfg, mesh)
     if mesh is not None and relayout != "gspmd":
@@ -284,9 +346,14 @@ def build_msc_batched(cfg: MSCConfig, mesh=None, relayout: str = "gspmd",
     the request dim).  Each request gates on its own (per-request
     `power_iters_run`); every field of the ModeResults carries the leading
     B dim at the padded size, and callers slice `[i, :dims[i, j]]` per
-    request (MSCServeEngine does).
+    request (MSCServeEngine does).  relayout="auto" or cfg.epilogue="auto"
+    resolve per batch shape (`_resolve_auto`, with B the batch's).
     """
-    check_relayout(relayout, cfg.epilogue)
+    check_relayout(relayout)
+    if relayout == "auto" or cfg.epilogue == "auto":
+        return _per_shape(
+            lambda c, r: build_msc_batched(c, mesh, r, device), cfg,
+            relayout, mesh, device, batched=True)
     dev = _mesh_device(mesh, device)
     sched = _flat_schedule(cfg, mesh)
     stream = relayout == "collective_stream"
@@ -352,20 +419,23 @@ class MSCChunkPlan:
     """
 
     def __init__(self, cfg: MSCConfig, chunks_per_step=1, device="cuda",
-                 mesh=None):
+                 mesh=None, power_route=None):
         if not cfg.matrix_free:
             raise ValueError("the continuous engine requires "
                              "matrix_free=True (see power_iter."
                              "build_chunk_fn)")
-        if chunks_per_step == "auto":
-            raise NotImplementedError(f"chunks_per_step='auto': {AUTO_TODO}")
-        check_relayout("gspmd", cfg.epilogue)
+        if chunks_per_step == "auto" or cfg.epilogue == "auto":
+            raise ValueError("a chunk plan takes concrete knobs: "
+                             "MSCContinuousEngine resolves 'auto' per bucket")
         self.chunks_per_step = int(chunks_per_step)
         if self.chunks_per_step < 1:
             raise ValueError(f"chunks_per_step must be >= 1, got "
                              f"{chunks_per_step}")
         self.sched = _flat_schedule(cfg, mesh)
         self.device = _mesh_device(mesh, device)
+        # the power kernel's route per mode (`kernels/power_iter.py:routes`),
+        # or None for its own pick: what the engine's autotuner searches
+        self.power_route = None if power_route is None else tuple(power_route)
 
     # ---- shapes and state ---------------------------------------------
     def padded_shapes(self, bucket, B: int):
@@ -470,7 +540,8 @@ class MSCChunkPlan:
 
         One scheduler tick: every slot's three modes advance
         `chunks_per_step` gate chunks (finished modes pass through
-        frozen); the carries are updated in place.  A slot is finished
+        frozen), with the kernel on `power_route`; the carries are updated
+        in place.  A slot is finished
         once all three of its modes are converged or capped; the flags
         are the same on every rank.  The blocks may be given in the
         precision policy's dtype (the engine's operand copies), so that
@@ -479,11 +550,13 @@ class MSCChunkPlan:
         sched = self.sched
         cap = sched.cfg.power_iters
         steps = self.chunks_per_step
+        routes = self.power_route or (None,) * 3
 
         def step(blocks, carries):
             finished = None
-            for block, carry in zip(blocks, carries):
-                new = sched.chunk_local(block, carry, steps=steps)
+            for block, carry, route in zip(blocks, carries, routes):
+                new = sched.chunk_local(block, carry, steps=steps,
+                                        route=route)
                 for f in dataclasses.fields(SolveState):
                     getattr(carry, f.name).copy_(getattr(new, f.name))
                 fin = carry.done | (carry.iters >= cap)

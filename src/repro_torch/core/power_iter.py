@@ -316,10 +316,11 @@ def rayleigh_fp32(slices: torch.Tensor, v: torch.Tensor,
     return _psum_inner(torch.sum(tv * tv, dim=-1), inner_group)
 
 
-def build_chunk_fn(slices: torch.Tensor, cfg, inner_group=None):
+def build_chunk_fn(slices: torch.Tensor, cfg, inner_group=None, route=None):
     """(chunk_fn, k): the gate-chunk body `step_chunk` advances, chosen by
     cfg.use_kernels (the CUDA kernel: one fused launch per chunk, or one
-    `power_matvec` per sweep with an inner group) or the einsum probe."""
+    `power_matvec` per sweep with an inner group, on `route` if given) or
+    the einsum probe."""
     if not cfg.matrix_free:
         raise ValueError("chunk-resumable solves require matrix_free=True "
                          "(the explicit gram has no persistent-operand "
@@ -329,7 +330,7 @@ def build_chunk_fn(slices: torch.Tensor, cfg, inner_group=None):
         from repro_torch.kernels import ops as kops
 
         return kops.build_chunk_fn(slices, k, precision=cfg.precision,
-                                   inner_group=inner_group), k
+                                   inner_group=inner_group, route=route), k
     return make_chunk_probe(matvec_matrix_free(
         slices, cfg.precision, inner_group, overlap=cfg.inner_overlap), k), k
 
@@ -449,3 +450,13 @@ def top_eigenpairs(slices: torch.Tensor, cfg, c_valid=None,
     """Returns (lambdas (..., b), vectors (..., b, c), iters per request)."""
     return plan_eigensolve(slices, cfg, c_valid, slice_group,
                            inner_group).run()
+
+
+def rayleigh_residual(slices: torch.Tensor, lam: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """‖C v − λ v‖ / max(λ, 1) per slice, C = TᵀT applied matrix-free: the
+    convergence diagnostic the tests read (`repro.core.power_iter`'s)."""
+    tv = torch.einsum("brc,bc->br", slices, v)
+    cv = torch.einsum("brc,br->bc", slices, tv)
+    resid = torch.linalg.vector_norm(cv - lam[:, None] * v, dim=-1)
+    return resid / torch.clamp(lam, min=1.0)

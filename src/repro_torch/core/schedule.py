@@ -53,8 +53,8 @@ from .types import ModeResult, MSCConfig
 
 EPILOGUES = ("allgather", "ring")
 
-TIERS_TODO = ("the autotuner and the multi-host control plane are not "
-              "ported yet: ROADMAP.md, queue 1 item 10 (the rest)")
+TIERS_TODO = ("the multi-host control plane (launch/distributed.py, format-2 "
+              "checkpoints) is not ported yet: ROADMAP.md, queue 1 item 10b")
 
 
 def pad_to(n: int, mult: int) -> int:
@@ -498,7 +498,7 @@ class ModeSchedule:
                           done=done.clone())
 
     def chunk_local(self, block: torch.Tensor, carry: SolveState,
-                    steps: int = 1) -> SolveState:
+                    steps: int = 1, route=None) -> SolveState:
         """`steps` gate chunks of one mode over this rank's carry: the
         resumable form of `mode_local`'s eigensolve.
 
@@ -511,10 +511,12 @@ class ModeSchedule:
         partials are summed over the inner group and the gate reduces over
         the slice group, so every rank's verdicts agree.  Padding slices
         are zero and hold the gate open nowhere, so no validity mask is
-        needed.
+        needed.  `route` forces the power kernel's route (with kernels on a
+        card; see `kernels/power_iter.py`).
         """
         cfg = self.cfg
-        chunk_fn, k = build_chunk_fn(block, cfg, inner_group=self.inner_group)
+        chunk_fn, k = build_chunk_fn(block, cfg, inner_group=self.inner_group,
+                                     route=route)
         for _ in range(steps):
             carry = step_chunk(chunk_fn, carry, k=k, n_iters=cfg.power_iters,
                                tol=cfg.power_tol,

@@ -46,34 +46,36 @@ def abs_rowsum(a: torch.Tensor, b: torch.Tensor, acc=None, *,
     return _ring.abs_rowsum(a, b, acc, block_i=block_i, block_j=block_j)
 
 
-def _summed_matvec(s: torch.Tensor, inner_group, block_r: int):
+def _summed_matvec(s: torch.Tensor, inner_group, block_r: int, route=None):
     """matvec(v) = one `power_matvec` launch on this rank's rows of the
     slices, all-reduced over the inner group."""
     from repro_torch.core.power_iter import _psum_inner
 
     def matvec(v):
-        return _psum_inner(_pi.power_matvec(s, v, block_r=block_r),
-                           inner_group)
+        return _psum_inner(_pi.power_matvec(s, v, block_r=block_r,
+                                            route=route), inner_group)
 
     return matvec
 
 
 def build_chunk_fn(slices: torch.Tensor, k: int, *, precision: str = "fp32",
-                   inner_group=None, block_r: int = 256):
+                   inner_group=None, block_r: int = 256, route=None):
     """chunk_fn(v) -> (v_new, lam, resid): k fused sweeps and the gate
     probe in one kernel launch — the kernel form of
     `core.power_iter.make_chunk_probe`.  With an inner group (slices
     sharded by rows) no sweep can be fused: each needs the all_reduce of
     the partial w = Tᵀ(T v) before it normalizes, so the chunk drops to
-    one `power_matvec` launch per sweep plus the all_reduce."""
+    one `power_matvec` launch per sweep plus the all_reduce.  `route`
+    forces the kernel's route (None: its own pick)."""
     from repro_torch.core.power_iter import compute_dtype, make_chunk_probe
 
     s = slices.to(compute_dtype(precision)).contiguous()
     if inner_group is not None:
-        return make_chunk_probe(_summed_matvec(s, inner_group, block_r), k)
+        return make_chunk_probe(_summed_matvec(s, inner_group, block_r, route),
+                                k)
 
     def chunk_fn(v):
-        return _pi.power_iterate_chunk(s, v, k, block_r=block_r)
+        return _pi.power_iterate_chunk(s, v, k, block_r=block_r, route=route)
 
     return chunk_fn
 

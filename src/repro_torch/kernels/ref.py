@@ -70,6 +70,43 @@ def power_iterate_chunk(slices: torch.Tensor, v: torch.Tensor, k: int):
     return v_new, lam, resid
 
 
+def power_iterate_adaptive(slices: torch.Tensor, v0: torch.Tensor,
+                           n_iters: int, tol: float, check_every: int = 6):
+    """The convergence-gated power iteration as a host-side oracle (the
+    reference's `kernels/ref.py:power_iterate_adaptive`).
+
+    Runs check_every-sweep chunks in fp32; each chunk's last matvec is the
+    probe: with w = C v at the pre-normalization iterate, λ = vᵀw and
+    resid = ‖w − λv‖, and the loop stops once
+    max_i resid_i/max(λ_i, 1)·λ_i ≤ tol · max(λ_max, 1e-30).  The cap
+    rounds up to a multiple of check_every.  Returns (lam (b,), v (b, c),
+    iters int), λ re-measured as ‖T v‖² at the final v.
+    """
+    s = slices.float()
+    v = v0.float()
+    k = max(1, min(check_every, n_iters))
+    it = 0
+
+    def matvec(x):
+        return torch.einsum("brc,br->bc", s, torch.einsum("brc,bc->br", s, x))
+
+    while it < n_iters:
+        for _ in range(k - 1):
+            w = matvec(v)
+            v = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-30)
+        w = matvec(v)
+        lam = torch.sum(w * v, dim=-1)
+        resid = torch.linalg.vector_norm(w - lam[:, None] * v, dim=-1)
+        v = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-30)
+        it += k
+        weighted = torch.max(resid / torch.clamp(lam, min=1.0) * lam)
+        if float(weighted) <= tol * float(torch.clamp(torch.max(lam),
+                                                      min=1e-30)):
+            break
+    tv = torch.einsum("brc,bc->br", s, v)
+    return torch.sum(tv * tv, dim=-1), v, it
+
+
 def power_matvec(slices: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """One unnormalized sweep: w = Tᵀ(T v) in fp32."""
     _, _, _, w = power_sweeps(slices, v, 1, lambda_pass=False,

@@ -8,7 +8,7 @@ true bucket size, blocks rebuilt from the stashed tensors), so a solve
 checkpointed on 2 ranks finishes on 1, and the reverse.
 
 `restore_after_host_loss` waits for the multi-host control plane
-(`launch/distributed.py`, ROADMAP.md queue 1 item 10, the rest), and
+(`launch/distributed.py`, ROADMAP.md queue 1 item 10b), and
 `ElasticTrainer` for the training side (item 12).
 """
 from __future__ import annotations

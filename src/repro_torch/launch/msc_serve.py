@@ -13,14 +13,16 @@ counters are reported; the serving tiers' flags attach the result
 cache and warm starts (`--cache-dir`, `--cache-max-bytes`,
 `--warm-start`), the SLO scheduler (`--priority-mix`, `--slo-chunks`,
 `--deadline-chunks`, `--no-preempt`, `--bucket-policy`) and
-checkpoints (`--checkpoint-dir`, `--ckpt-every`, `--restore`).  The
+checkpoints (`--checkpoint-dir`, `--ckpt-every`, `--restore`).
+`--epilogue auto` and `--chunks-per-step auto` resolve per bucket from
+the roofline models on the device's spec; `--autotune` times the power
+kernel's routes and the models' proposals per bucket as captured graphs,
+winners persisted under `<--checkpoint-dir>/autotune`.  The
 reference's flags and defaults, plus `--device` (default `cuda`; `cpu`
 runs the same steps eagerly) and `--nproc`.  `--mesh-shape p` or `p,q` serves on a flat mesh of ranks, one
 process per device (`launch/mesh.py`): `--nproc N` spawns N ranks (gloo
 on the CPU, NCCL on N cards), and under `torchrun` every process it
 starts is a rank; every rank serves the same stream and rank 0 prints.
-The autotuner and the roofline choosers are later items of ROADMAP.md
-queue 1; their flags raise `NotImplementedError` naming the item.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.msc_serve
@@ -28,6 +30,8 @@ Examples:
       --sizes 14,19 --requests 6 --max-batch 2
   PYTHONPATH=src python -m repro_torch.launch.msc_serve --continuous \\
       --arrival-rate 1.5 --slow-every 4 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.msc_serve --continuous \\
+      --epilogue auto --chunks-per-step auto --autotune
   PYTHONPATH=src python -m repro_torch.launch.msc_serve --device cpu \\
       --nproc 4 --mesh-shape 2,2 --continuous --slots 4
   PYTHONPATH=src python -m repro_torch.launch.msc_serve --device cpu \\
@@ -46,8 +50,6 @@ import torch
 
 from repro_torch.core import (MSCConfig, PlantedSpec, make_planted_tensor,
                               planted_masks, recovery_rate)
-from repro_torch.core.parallel import AUTO_TODO
-from repro_torch.core.schedule import TIERS_TODO
 from repro_torch.launch.mesh import (make_msc_mesh, mesh_dims,
                                      msc_mesh_shape, on_ranks, parse_shape,
                                      world_size)
@@ -137,7 +139,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the CPU, NCCL on the cards); torchrun's "
                          "processes join without it")
     ap.add_argument("--epilogue", default="allgather",
-                    choices=("allgather", "ring", "auto"))
+                    choices=("allgather", "ring", "auto"),
+                    help="'auto' resolves per bucket from the roofline "
+                         "models")
     ap.add_argument("--precision", default="fp32",
                     choices=("fp32", "bf16_fp32"))
     ap.add_argument("--power-tol", type=float, default=1e-2)
@@ -149,11 +153,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--slots", type=int, default=None,
                     help="continuous slot-table size (default: max-batch)")
     ap.add_argument("--chunks-per-step", default="1",
-                    help="gate chunks per continuous step ('auto' is "
-                         "ROADMAP item 11)")
+                    help="gate chunks per continuous step, or 'auto' (the "
+                         "roofline pick from the measured sweep histogram)")
     ap.add_argument("--autotune", action="store_true",
-                    help="refused: the autotuner is ROADMAP item 10 "
-                         "(the rest)")
+                    help="continuous mode: time the power kernel's routes "
+                         "and the models' proposals per bucket as captured "
+                         "graphs; winners persist under "
+                         "<--checkpoint-dir>/autotune")
     ap.add_argument("--no-donate", action="store_true",
                     help="refused: the port updates the slot state in "
                          "place, so there is no donation to turn off")
@@ -206,12 +212,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Raise on a flag of a later item (ROADMAP.md queue 1); `--restore`
-    implies `--continuous`, as in the reference."""
-    if args.epilogue == "auto":
-        raise NotImplementedError(f"--epilogue auto: {AUTO_TODO}")
-    if args.chunks_per_step == "auto":
-        raise NotImplementedError(f"--chunks-per-step auto: {AUTO_TODO}")
+    """Raise on `--no-donate`; `--restore` implies `--continuous`, as in
+    the reference."""
     if args.restore:
         args.continuous = True
     if args.no_donate:
@@ -219,8 +221,6 @@ def check_args(args: argparse.Namespace) -> None:
                          "its slot state in place (the counterpart of the "
                          "reference's donated buffers), so there is no "
                          "donation to turn off")
-    if args.autotune:
-        raise NotImplementedError(f"--autotune: {TIERS_TODO}")
 
 
 def run(args: argparse.Namespace):
@@ -380,10 +380,13 @@ def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
         ceng = MSCContinuousEngine(
             cfg, slots=args.slots or args.max_batch,
             bucket_quantum=args.bucket_quantum,
-            chunks_per_step=int(args.chunks_per_step),
+            chunks_per_step=(args.chunks_per_step
+                             if args.chunks_per_step == "auto"
+                             else int(args.chunks_per_step)),
             checkpoint_dir=args.checkpoint_dir,
             ckpt_every_chunks=args.ckpt_every, result_cache=rcache,
-            warm_start=args.warm_start, preempt=not args.no_preempt,
+            warm_start=args.warm_start, autotune=args.autotune,
+            preempt=not args.no_preempt,
             slo_chunks=args.slo_chunks, bucket_policy=args.bucket_policy,
             device=dev, mesh=mesh)
     probes = {}  # warm every bucket's programs off the clock
@@ -424,6 +427,9 @@ def run_continuous(args: argparse.Namespace, cfg: MSCConfig, tensors,
         f"{ss.cache_hits} cache hits / {ss.cache_misses} misses, "
         f"{ss.warm_starts} warm starts "
         f"({ss.warm_sweeps_saved} sweeps saved)")
+    if args.autotune:
+        say(f"  autotune: {ss.autotune_searches} searches, "
+            f"{ss.autotune_cache_hits} cache hits")
     if rcache is not None and args.cache_dir:
         if ceng._rank0():
             rcache.persist()

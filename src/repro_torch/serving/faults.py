@@ -20,7 +20,7 @@ what a `FaultPlan` schedules:
 `LoadShedError` is the engine's refusal of a submit while a bucket
 recovers (or under its SLO bound).  The multi-host layer's
 `DistKillPlan` and `corrupt_checkpoint_shard` wait with
-`launch/distributed.py` (ROADMAP.md queue 1 item 10, the rest).
+`launch/distributed.py` (ROADMAP.md queue 1 item 10b).
 """
 from __future__ import annotations
 

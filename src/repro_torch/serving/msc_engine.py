@@ -76,13 +76,14 @@ import torch
 
 from repro_torch.checkpoint.store import (gc_checkpoints, load_leaves,
                                           restorable_steps, save_checkpoint)
+from repro_torch.core.autotune import AutotuneCache
 from repro_torch.core.fingerprint import (cache_salt, host_array,
                                           result_cache_key, spectral_sketch)
 from repro_torch.core.msc import msc_sequential
 from repro_torch.core.parallel import (C_OF, MSCChunkPlan, _collective_blocks,
                                        _flat_schedule, _mesh_device,
-                                       batch_perm, check_relayout,
-                                       collective_pads)
+                                       _resolve_auto, agreed, batch_perm,
+                                       check_relayout, collective_pads)
 from repro_torch.core.power_iter import (SolveState, _gated_loop,
                                          compute_dtype, init_solve_state,
                                          predict_remaining_sweeps)
@@ -119,11 +120,12 @@ class ServeStats:
     `fallback_requests`), the result cache (`cache_hits`,
     `cache_misses`, `warm_starts`, `warm_sweeps_saved`) and the SLO
     scheduler (`preemptions`, `resumes`, `deadline_misses`,
-    `slo_sheds`); see `repro/serving/msc_engine.py:ServeStats`.  The
-    multi-host and autotuner counters (`heartbeats_missed`,
-    `host_losses`, `reinits`, `shard_files_written`,
-    `autotune_searches`, `autotune_cache_hits`) belong to ROADMAP.md
-    queue 1 item 10 (the rest) and stay 0 here."""
+    `slo_sheds`) and the autotuner (`autotune_searches`: resolutions
+    that ran a live search, `autotune_cache_hits`: resolutions served
+    from the autotune cache); see `repro/serving/msc_engine.py:ServeStats`.
+    The multi-host counters (`heartbeats_missed`, `host_losses`,
+    `reinits`, `shard_files_written`) belong to ROADMAP.md queue 1 item
+    10b and stay 0 here."""
 
     requests: int = 0
     dispatches: int = 0
@@ -355,7 +357,9 @@ class MSCServeEngine:
       default, through CUDA graphs; `cpu` runs the same steps eagerly,
       with the kernels' plain versions); on a mesh, the rank's.
     relayout: one of core.parallel.RELAYOUTS (all one local transpose on
-      one device); "auto" is not ported.
+      one device), or "auto": per bucket, `roofline.choose_relayout` on
+      the device's spec; cfg.epilogue="auto" resolves alongside
+      (`core.parallel._resolve_auto`, at the bucket's first dispatch).
     mesh: a flat-schedule DeviceMesh (`launch/mesh.py:make_msc_mesh`, or
       any mesh whose dims other than "inner" make a composite slice
       role), or None for one device.
@@ -370,7 +374,7 @@ class MSCServeEngine:
                  device="cuda", relayout: str = "gspmd", mesh=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        check_relayout(relayout, cfg.epilogue)
+        check_relayout(relayout)
         self.cfg = cfg
         self.mesh = mesh
         self.max_batch = int(max_batch)
@@ -378,6 +382,8 @@ class MSCServeEngine:
         self.relayout = relayout
         self.device = _mesh_device(mesh, device)
         self._sched = _flat_schedule(cfg, mesh)
+        # "auto" anywhere: each bucket resolves its own (cfg, relayout) once
+        self._auto = relayout == "auto" or cfg.epilogue == "auto"
         self._quantum = _bucket_quantum(bucket_quantum, self._sched)
         self._programs: Dict[Tuple[int, int, int], _BucketProgram] = {}
         self._stats = ServeStats()
@@ -430,9 +436,15 @@ class MSCServeEngine:
     def _dispatch(self, bucket, chunk, tensors, results):
         prog = self._programs.get(bucket)
         if prog is None:
+            sched, relayout = self._sched, self.relayout
+            if self._auto:
+                cfg, relayout = _resolve_auto(self.cfg, bucket, relayout,
+                                              self.mesh, B=self.max_batch,
+                                              device=self.device)
+                sched = _flat_schedule(cfg, self.mesh)
             prog = self._programs[bucket] = _BucketProgram(
-                self._sched, bucket, self.max_batch, self.dtype, self.device,
-                self.relayout)
+                sched, bucket, self.max_batch, self.dtype, self.device,
+                relayout)
         compiles = prog.compiles
         dims = prog.load([tensors[i] for i in chunk])
         modes = prog.run()
@@ -511,7 +523,10 @@ class _SlotState:
     address for the table's life, so the programs, once built (`build`:
     captured as two CUDA graphs in one memory pool on a card, called
     eagerly on the CPU), run on it in place: a cold, warm or resumed
-    refill, or a restored table, replays the same graph.
+    refill, or a restored table, replays the same graph.  The autotuner
+    builds each candidate plan's programs on one state in turn (`bind`,
+    `build`, `replay_seconds`), each in a graph pool of its own, and binds
+    the winner's back: the table then captures nothing.
     """
 
     def __init__(self, plan: MSCChunkPlan, bucket, slots: int, dtype,
@@ -537,11 +552,22 @@ class _SlotState:
             np.arange(slots), np.zeros(slots), np.ones(slots), fill,
             fill)).to(device)
         self.finished = torch.zeros(slots, dtype=torch.bool, device=device)
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if device.type == "cuda" else None)
+        self.bind(plan)
+
+    def bind(self, plan: MSCChunkPlan, programs=None, pool=None) -> None:
+        """Run `plan`'s two programs on this state: `programs` already built
+        for it on this state (in `pool`), or, without, the ones the next
+        `build` makes in a new pool.  The autotuner binds each candidate
+        plan in turn and the winner's programs back; every plan of a
+        bucket has the same state shapes."""
+        self.plan = plan
         self._step_prog = plan.build_step()
         self._refill_prog = plan.build_refill()
-        self.programs: Optional[Tuple[Step, Step]] = None
+        self.programs: Optional[Tuple[Step, Step]] = programs
+        if programs is None:
+            pool = (torch.cuda.graph_pool_handle()
+                    if self.device.type == "cuda" else None)
+        self.pool = pool
 
     def _step(self) -> None:
         _, fin = self._step_prog(self.ops, self.carries)
@@ -577,6 +603,33 @@ class _SlotState:
         """Drop the programs and their graphs: the pool's memory goes back
         now, not when the engine is dropped."""
         self.programs = None
+
+    def replay_seconds(self, reps: int = 3) -> float:
+        """Seconds of one step and one refill, as the engine runs them on
+        this state: one warm-up, then the median of `reps` (CUDA events
+        around the two replays on a card, the host clock on the CPU).  The
+        refill's inputs stay neutral (`ctl`: no admission, every slot
+        kept), so the state is left as it was."""
+        step, refill = self.programs
+        step()
+        refill()
+        secs = []
+        for _ in range(reps):
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step()
+                refill()
+                end.record()
+                end.synchronize()
+                secs.append(start.elapsed_time(end) / 1e3)
+            else:
+                t0 = time.perf_counter()
+                step()
+                refill()
+                secs.append(time.perf_counter() - t0)
+        return sorted(secs)[len(secs) // 2]
 
     def admit_write(self, s: int, tensor: torch.Tensor) -> None:
         """Write this rank's block of one admitted request's three
@@ -813,7 +866,25 @@ class MSCContinuousEngine:
     The reference's knobs:
       refill_min_free, max_queue_chunks (the per-class starvation bound
         on the engine's clock), placement ("compact" | "stable"),
-        chunks_per_step (an int; "auto" is ROADMAP.md queue 1 item 11);
+        chunks_per_step (an int, or "auto": per bucket,
+        `roofline.choose_chunk_steps` over the measured sweep histogram);
+      "auto" config: cfg.epilogue="auto" resolves per bucket
+        (`roofline.choose_epilogue`), on the device's spec
+        (`roofline.target_hw`: H100 on a card, the reference's V5E on the
+        CPU);
+      autotune (or an `autotune_cache`, `core/autotune.py:AutotuneCache`;
+        by default persisted under `<checkpoint_dir>/autotune` when
+        checkpointing is on): per bucket, at its table's creation, the
+        power kernel's routes (`autotune.route_candidates`) and the
+        models' proposals (a non-default epilogue; `inner_overlap` on an
+        inner dim) are each built as the bucket's two programs on the
+        table's state and timed by replay (one warm-up, the median of 3);
+        the default wins near-ties, each loser's graphs are dropped as
+        soon as it cannot win, and the winner's are the table's, so a
+        searched bucket captures nothing more.  On a mesh rank 0's times
+        decide for every rank.  `autotune_searches` and
+        `autotune_cache_hits` count the resolutions; a search counts
+        2 x candidates `compiles`;
       SLO scheduler: priority classes per `submit`, drained under
         weighted aging (`aging_chunks`); `deadline_chunks` per request
         (misses counted, results still delivered); `slo_chunks` sheds a
@@ -846,8 +917,9 @@ class MSCContinuousEngine:
         refill rolls back the host bookkeeping it did before its
         dispatch.
     `donate_buffers` is accepted for the reference's checkpoints: the
-    slot state is always updated in place.  `autotune` and
-    `autotune_cache` raise (item 10, the rest).
+    slot state is always updated in place.  `replicate_outputs` (the
+    reference's multi-process outputs) raises: the multi-host control
+    plane is ROADMAP.md queue 1 item 10b.
 
     `submit()` + `step()` are the decode loop for streaming arrivals
     (`launch/msc_serve.py --continuous`); `run(tensors)` serves a closed
@@ -870,7 +942,8 @@ class MSCContinuousEngine:
                  preempt: bool = True,
                  preempt_min_remaining_chunks: int = 2,
                  aging_chunks: int = 16, slo_chunks: Optional[int] = None,
-                 bucket_policy: str = "weighted", mesh=None):
+                 bucket_policy: str = "weighted", mesh=None,
+                 replicate_outputs: bool = False):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if placement not in ("compact", "stable"):
@@ -883,8 +956,8 @@ class MSCContinuousEngine:
             raise ValueError("continuous batching needs the adaptive gate "
                              "(cfg.power_tol > 0); without it every slot "
                              "runs to the cap and eviction never helps")
-        if autotune or autotune_cache is not None:
-            raise NotImplementedError(f"autotune: {TIERS_TODO}")
+        if replicate_outputs:
+            raise NotImplementedError(f"replicate_outputs: {TIERS_TODO}")
         self.cfg = cfg
         self.mesh = mesh
         self.slots = int(slots)
@@ -899,8 +972,15 @@ class MSCContinuousEngine:
         self.aging_chunks = max(1, int(aging_chunks))
         self.slo_chunks = None if slo_chunks is None else int(slo_chunks)
         self.bucket_policy = bucket_policy
-        self._plan = MSCChunkPlan(cfg, chunks_per_step, device=device,
-                                  mesh=mesh)
+        # the default plan takes concrete knobs: "auto" resolves per bucket
+        # (`_plan_for`); the base config stands where no bucket is in
+        # scope (the fallback oracle)
+        self._base_cfg = (cfg.with_(epilogue="allgather")
+                          if cfg.epilogue == "auto" else cfg)
+        self._chunks_param = chunks_per_step
+        self._plan = MSCChunkPlan(
+            self._base_cfg, 1 if chunks_per_step == "auto" else
+            chunks_per_step, device=device, mesh=mesh)
         self.device = self._plan.device
         self._quantum = _bucket_quantum(bucket_quantum, self._plan.sched)
         self._quantum_base = int(bucket_quantum)  # mesh-independent (ckpt)
@@ -936,6 +1016,18 @@ class MSCContinuousEngine:
         self._req_key: Dict[int, str] = {}
         self._req_sketch: Dict[int, np.ndarray] = {}
         self._warm_pending: Dict[int, object] = {}  # rid → NearHit
+        # autotune and "auto" config
+        self.autotune_cache = autotune_cache
+        if autotune and autotune_cache is None:
+            self.autotune_cache = AutotuneCache(
+                persist_dir=os.path.join(checkpoint_dir, "autotune")
+                if checkpoint_dir else None)
+        self._autotune = self.autotune_cache is not None
+        self._bucket_plans: Dict[Tuple[int, int, int], MSCChunkPlan] = {}
+        # the state a search built the winner's programs on, until the
+        # bucket's table takes it; the tables whose programs a search built
+        self._tuned: Dict[Tuple[int, int, int], _SlotState] = {}
+        self._tuned_fresh: set = set()
 
     def bucket_of(self, shape: Sequence[int]) -> Tuple[int, int, int]:
         """Bucket = each dim rounded up to the engine quantum."""
@@ -993,17 +1085,172 @@ class MSCContinuousEngine:
     def _table(self, bucket) -> _SlotTable:
         tb = self._tables.get(bucket)
         if tb is None:
-            tb = self._tables[bucket] = _SlotTable(
-                bucket, self.slots, _SlotState(self._plan, bucket, self.slots,
-                                               self.dtype, self.device))
+            plan = self._plan_for(bucket)
+            state = self._tuned.pop(bucket, None)
+            if state is None:
+                state = _SlotState(plan, bucket, self.slots, self.dtype,
+                                   self.device)
+            tb = self._tables[bucket] = _SlotTable(bucket, self.slots, state)
         return tb
 
     def _executables(self, tb: _SlotTable) -> None:
-        """The bucket's two programs, built on its first tick."""
+        """The bucket's two programs, built on its first tick (a search
+        built and counted them already)."""
         if tb.state.programs is None:
             self._bump(compiles=tb.state.build())
+        elif tb.bucket in self._tuned_fresh:
+            self._tuned_fresh.discard(tb.bucket)
         else:
             self._bump(exec_cache_hits=1)
+
+    # ---- per-bucket "auto" config and the autotuner ---------------------
+    def _resolve_bucket(self, bucket) -> Tuple[MSCConfig, int]:
+        """(cfg, chunks_per_step) of one bucket: the roofline choosers, on
+        the device's spec, fill the knobs left on "auto"; the others pass
+        through."""
+        from repro_torch.roofline import (choose_chunk_steps,
+                                          choose_epilogue, eigensolve_model,
+                                          target_hw)
+
+        hw = target_hw(self.device)
+        cfg = self._base_cfg
+        p = self._plan.sched.slice_shards
+        q = self._plan.sched.inner_shards
+        check = max(cfg.power_check_every, 1)
+        if self.cfg.epilogue == "auto":
+            # mode 1 dominates the epilogue bytes on near-cube buckets;
+            # the schedules take one policy
+            cfg = cfg.with_(epilogue=choose_epilogue(bucket[0], bucket[2], p,
+                                                     hw=hw))
+        if self._autotune and q > 1 and not cfg.inner_overlap:
+            m, r, c = bucket
+            plain = eigensolve_model(m, r, c, p, q, sweeps=check, hw=hw)
+            both = eigensolve_model(m, r, c, p, q, sweeps=check,
+                                    overlap=True, hw=hw)
+            if both["latency_s"] < plain["latency_s"]:
+                cfg = cfg.with_(inner_overlap=True)
+        chunks = self._plan.chunks_per_step
+        if self._chunks_param == "auto":
+            hist = list(self._sweep_hist) or [4 * check]
+            chunks = choose_chunk_steps(hist, self.slots, check_every=check,
+                                        shape=bucket, p=p, q=q,
+                                        epilogue=cfg.epilogue, hw=hw)
+        return agreed(self.mesh, (cfg, chunks))
+
+    def _make_plan(self, cfg: MSCConfig, chunks: int,
+                   power_route=None) -> MSCChunkPlan:
+        if (cfg == self._base_cfg and chunks == self._plan.chunks_per_step
+                and power_route is None):
+            return self._plan
+        return MSCChunkPlan(cfg, chunks, device=self.device, mesh=self.mesh,
+                            power_route=power_route)
+
+    def _mesh_items(self) -> Tuple[Tuple[str, int], ...]:
+        """The mesh's (dim, size) items, (("slice", 1),) on one device."""
+        from repro_torch.launch.mesh import mesh_dims
+
+        if self.mesh is None:
+            return (("slice", 1),)
+        return tuple((a, int(s)) for a, s in mesh_dims(self.mesh).items())
+
+    def _tune_blocks(self, bucket, cfg: MSCConfig, chunks: int):
+        """Resolve the bucket's power-kernel route, and validate the
+        models' proposals, through the autotune cache.  Returns (cfg,
+        power_route, state): the tuned config, the winning route (None:
+        the kernel's own pick) and, after a live search, the state the
+        winner's programs were built on (the table takes it).
+
+        A live search builds each candidate as the bucket's two programs
+        (captured as two CUDA graphs on a card) on one scratch state and
+        times them by replay (`_SlotState.replay_seconds`).  When
+        `_resolve_bucket` proposed a non-default epilogue or
+        inner_overlap, both variants are candidates, the base first: the
+        model proposes, the measurement disposes, and the default wins
+        near-ties (`VALIDATE_MARGIN`).  Block knobs the caller pinned with
+        no proposal to validate leave nothing to search, as in the
+        reference."""
+        from repro_torch.core import autotune as at
+
+        base = self._base_cfg
+        variants = [cfg]
+        if (cfg.epilogue != base.epilogue
+                or cfg.inner_overlap != base.inner_overlap):
+            variants = [cfg.with_(epilogue=base.epilogue,
+                                  inner_overlap=base.inner_overlap), cfg]
+        pinned = (cfg.block_r is not None and cfg.block_i is not None
+                  and cfg.block_j is not None)
+        if pinned and len(variants) == 1:
+            return cfg, None, None
+        ac = self.autotune_cache
+        key = at.autotune_key(bucket + (self.slots,), self._mesh_items(),
+                              _np_dtype(self.dtype), cfg, salt=ac.salt)
+        blocks = {k: v if getattr(cfg, k) is None else getattr(cfg, k)
+                  for k, v in at.DEFAULT_BLOCKS.items()}
+        routes = at.route_candidates(
+            bucket, compute_dtype(cfg.precision),
+            cfg.use_kernels and self.device.type == "cuda")
+        cands = [dict(r, **blocks, epilogue=v.epilogue,
+                      inner_overlap=v.inner_overlap)
+                 for v in variants for r in routes]
+        searches0 = ac.searches
+        state: Optional[_SlotState] = None
+        built = 0
+
+        def measure(cand):
+            nonlocal state, built
+            plan = self._make_plan(
+                cfg.with_(**{k: v for k, v in cand.items()
+                             if k != "power_route"}), chunks,
+                cand["power_route"])
+            if state is None:
+                state = _SlotState(plan, bucket, self.slots, self.dtype,
+                                   self.device)
+            else:
+                state.bind(plan)
+            built += state.build()
+            secs = state.replay_seconds()
+            if self.mesh is not None:
+                import torch.distributed as dist
+
+                box = [secs]  # rank 0's times decide on every rank
+                dist.broadcast_object_list(box, src=0)
+                secs = float(box[0])
+            return secs, (plan, state.programs, state.pool)
+
+        margin = (at.VALIDATE_MARGIN if len(variants) > 1
+                  else at.DEFAULT_MARGIN)
+        agreed(self.mesh, key in ac)  # every rank searches, or none
+        knobs, payload = ac.resolve(key, cands, measure, margin=margin)
+        route = knobs.pop("power_route", None)
+        tuned = cfg.with_(**knobs)
+        if ac.searches == searches0:
+            self._bump(autotune_cache_hits=1)
+            return tuned, route, None
+        self._bump(autotune_searches=1, compiles=built)
+        if self._rank0():
+            ac.persist()
+        state.bind(*payload)  # the winner's programs; the losers' are gone
+        state.reset()
+        self._tuned_fresh.add(bucket)
+        return tuned, route, state
+
+    def _plan_for(self, bucket) -> MSCChunkPlan:
+        """The bucket's resolved chunk plan (cached): the base plan when
+        nothing resolves differently, else one built from the bucket's
+        "auto" config and autotuned route."""
+        plan = self._bucket_plans.get(bucket)
+        if plan is None:
+            cfg, chunks = self._resolve_bucket(bucket)
+            route = None
+            if self._autotune:
+                cfg, route, state = self._tune_blocks(bucket, cfg, chunks)
+                if state is not None:
+                    self._tuned[bucket] = state
+                    plan = state.plan
+            if plan is None:
+                plan = self._make_plan(cfg, chunks, route)
+            self._bucket_plans[bucket] = plan
+        return plan
 
     def _rank0(self) -> bool:
         if self.mesh is None:
@@ -1163,7 +1410,8 @@ class MSCContinuousEngine:
     def _mean_chunks(self, tb: _SlotTable) -> float:
         """Measured mean residency of a request in chunk steps (4 before
         any request is served)."""
-        per = max(1, self.cfg.power_check_every) * self._plan.chunks_per_step
+        per = (max(1, self.cfg.power_check_every)
+               * self._plan_for(tb.bucket).chunks_per_step)
         if not self._sweep_hist:
             return 4.0
         return max(1.0, float(np.mean(list(self._sweep_hist))) / per)
@@ -1188,7 +1436,7 @@ class MSCContinuousEngine:
             return []
         urgent = min(waiting)
         k = max(1, self.cfg.power_check_every)
-        per = k * self._plan.chunks_per_step
+        per = k * self._plan_for(tb.bucket).chunks_per_step
         cap = self.cfg.power_iters
         best = None
         for s, rid in enumerate(tb.slot_req):
@@ -1449,8 +1697,10 @@ class MSCContinuousEngine:
         tb.parked.clear()
         out: Dict[int, MSCResult] = {}
         for rid, t in jobs:
-            res = msc_sequential(t.to(self.device, self.dtype), self.cfg,
-                                 device=self.device)
+            # the base config: the oracle takes a concrete epilogue (one
+            # device ignores it)
+            res = msc_sequential(t.to(self.device, self.dtype),
+                                 self._base_cfg, device=self.device)
             host = MSCResult(modes=tuple(
                 ModeResult(mask=r.mask.cpu(), d=r.d.cpu(),
                            lambdas=r.lambdas.cpu(), n_iters=int(r.n_iters),
@@ -1575,8 +1825,8 @@ class MSCContinuousEngine:
             "cfg": dataclasses.asdict(self.cfg),
             "policy": {
                 "bucket_quantum": self._quantum_base,
-                "chunks_per_step": self._plan.chunks_per_step,
-                "autotune": False,
+                "chunks_per_step": self._chunks_param,
+                "autotune": self._autotune,
                 "donate_buffers": self.donate_buffers,
                 "refill_min_free": self.refill_min_free,
                 "max_queue_chunks": self.max_queue_chunks,
@@ -1637,7 +1887,9 @@ class MSCContinuousEngine:
 
     def _import(self, leaves: List[np.ndarray], meta: Dict) -> None:
         """Rebuild every slot table from an `_export` leaf list, on this
-        engine's device or mesh."""
+        engine's device or mesh.  The counters come first: a bucket's
+        autotune resolution (a cache hit, or a search) counts on top."""
+        self._stats = ServeStats(**meta["stats"])
         it = iter(leaves)
         np_dtype = _np_dtype(self.dtype)
         for bmeta in meta["buckets"]:
@@ -1700,7 +1952,6 @@ class MSCContinuousEngine:
                     "progress": int(pm["progress"]),
                 }
         self._next_rid = int(meta["next_rid"])
-        self._stats = ServeStats(**meta["stats"])
         self._total_chunks = int(meta["total_chunks"])
         self._tick = int(meta.get("tick", 0))
         self._chunks_since_ckpt = 0

@@ -22,7 +22,7 @@ graphs.  Held here:
   `simulate_continuous`'s arrivals (and per-class draws), each serving
   tier knob and the scheduler's submit arguments against the reference
   engine with the same knob (results and every counter), and the flags
-  and arguments of later ROADMAP items (autotune, "auto").
+  and arguments the engine refuses (multi-host outputs, bad knobs).
 The engine's CUDA graphs are held on the card by
 `tests/test_torch_graphs.py` (`pytest -m gpu`).
 """
@@ -326,8 +326,8 @@ def _engine(**kw):
     (dict(slots=0), ValueError, "slots"),
     (dict(placement="shuffle"), ValueError, "placement"),
     (dict(bucket_policy="rr"), ValueError, "bucket_policy"),
-    (dict(chunks_per_step="auto"), NotImplementedError, "item 11"),
-    (dict(autotune=True), NotImplementedError, "item 10"),
+    (dict(chunks_per_step=0), ValueError, "chunks_per_step"),
+    (dict(replicate_outputs=True), NotImplementedError, "item 10b"),
 ])
 def test_engine_rejects(kw, exc, match):
     with pytest.raises(exc, match=match):
@@ -504,7 +504,7 @@ def test_msc_serve_continuous_prints_the_reference_lines(capsys):
 
 @pytest.mark.parametrize("flag,exc,match", [
     (["--no-donate"], ValueError, "in place"),
-    (["--chunks-per-step", "auto"], NotImplementedError, "item 11"),
+    (["--chunks-per-step", "0"], ValueError, "chunks_per_step"),
 ])
 def test_msc_serve_continuous_refuses(flag, exc, match):
     with pytest.raises(exc, match=match):

@@ -156,8 +156,8 @@ def test_unported_schedules_raise():
     # (tests/test_torch_parallel.py runs it over gloo ranks)
     with pytest.raises(ValueError, match="mesh"):
         build_msc_parallel(cfg, schedule="grouped", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_msc_parallel(cfg, device="cpu", relayout="auto")
+    # "auto" resolves per shape (tests/test_torch_autotune.py)
+    assert callable(build_msc_parallel(cfg, device="cpu", relayout="auto"))
     with pytest.raises(ValueError, match="epilogue"):
         epilogue_rowsum(torch.zeros(4, 3), cfg=cfg.with_(epilogue="tree"))
     with pytest.raises(ValueError, match="relayout"):

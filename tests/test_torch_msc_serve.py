@@ -2,9 +2,10 @@
 
 On the CPU the engine runs its per-bucket steps (head, gate chunk, tail)
 eagerly: the code a card captures as CUDA graphs.  Held here:
-- the CLI prints the reference's lines, and every flag of a later
-  ROADMAP item raises naming that item (the continuous mode's own lines
-  are held in `tests/test_torch_continuous.py`);
+- the CLI prints the reference's lines, and the flags of later ROADMAP
+  items serve (the "auto" knobs and `--autotune` give the default's
+  results; the continuous mode's own lines are held in
+  `tests/test_torch_continuous.py`);
 - on the reference's request stream (built by `repro.launch.msc_serve`
   and carried across as numpy arrays), the port's engine answers as the
   reference's engine does: masks and sweeps identical, d and λ within
@@ -184,15 +185,39 @@ def test_request_stream_follows_the_reference_rule():
     (["--chunks-per-step", "auto"], "item 11"),
     (["--autotune"], "item 10"),
 ])
-def test_later_item_flags_raise_naming_their_item(flag, item):
+def test_later_item_flags_raise_naming_their_item(flag, item, capsys):
+    """The flags of items closed since they raised: item 9's --mesh-shape
+    serves on a mesh of ranks, and a shape that one rank cannot fill
+    raises the reference's error; items 11 and 10a's "auto" knobs and
+    --autotune serve the stream with the default run's masks and sweeps
+    (static and continuous), --autotune printing the reference's line
+    (one search for the one bucket)."""
     if item == "item 9":
-        # item 9 is closed: --mesh-shape serves on a mesh of ranks, and a
-        # shape that one rank cannot fill raises the reference's error
         with pytest.raises(ValueError, match="8 devices but 1 are"):
             msc_serve.main(["--device", "cpu", *flag])
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        msc_serve.main(["--device", "cpu", *flag])
+    argv = ["--device", "cpu", *TIER_ARGV, "--continuous"]
+    runs = [msc_serve.run(msc_serve.parse_args(a))
+            for a in (argv, argv + flag)]
+    out = capsys.readouterr().out
+    try:
+        base, got = runs
+        for a, b in zip(base["results"], got["results"]):
+            for j in range(3):
+                assert torch.equal(a[j].mask, b[j].mask)
+                assert a[j].power_iters_run == b[j].power_iters_run
+        cb, cg = base["continuous"]["results"], got["continuous"]["results"]
+        assert sorted(cb) == sorted(cg)
+        for i in cb:
+            for j in range(3):
+                assert torch.equal(cb[i][j].mask, cg[i][j].mask)
+                assert cb[i][j].power_iters_run == cg[i][j].power_iters_run
+        tuned = "  autotune: 1 searches, 0 cache hits" in out
+        assert tuned == (flag == ["--autotune"])
+        assert got["continuous"]["engine"].stats.autotune_searches == tuned
+    finally:
+        for r in runs:
+            msc_serve._close(r)
 
 
 # the tier flags' runs: the reference's small stream, every request of

@@ -134,3 +134,42 @@ def test_top_eigenpairs_dispatch():
         torch.testing.assert_close(lam_g, want[0], rtol=3e-5, atol=0)
     with pytest.raises(ValueError):
         tpi.compute_dtype("fp16")
+
+
+@pytest.mark.parametrize("n_iters", [3, 300], ids=["early", "converged"])
+def test_rayleigh_residual_is_the_references(n_iters):
+    """`tests/test_msc_core.py:53`'s case: after 300 sweeps the residual is
+    below 1e-3 in both packages (fp32 round-off there: its bits are not
+    compared); after 3 it equals the reference's within 3e-5."""
+    x = np.random.default_rng(2).normal(size=(6, 30, 25)).astype(np.float32)
+    lam, v, _ = jpi.power_iteration_matrix_free(jnp.asarray(x),
+                                                n_iters=n_iters)
+    want = jpi.rayleigh_residual(jnp.asarray(x), lam, v)
+    got = tpi.rayleigh_residual(torch.from_numpy(x),
+                                torch.from_numpy(np.array(lam)),
+                                torch.from_numpy(np.array(v)))
+    if n_iters == 300:
+        assert float(got.max()) < 1e-3 and float(jnp.max(want)) < 1e-3
+    else:
+        _close(got, want, "fp32")
+
+
+@pytest.mark.parametrize("tol,n_iters", [(1e-2, 60), (0.0, 20)],
+                         ids=["gated", "to_the_cap"])
+def test_power_iterate_adaptive_oracle_is_the_references(tol, n_iters):
+    """`tests/test_power_adaptive.py:179`'s oracle on planted slices: the
+    same realized sweeps (the cap rounded up to the chunk), λ and v."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref as tref
+
+    x = _slices(b=10, r=24, c=24, gamma=30.0, seed=3)
+    v0 = np.random.default_rng(4).normal(size=(10, 24)).astype(np.float32)
+    v0 /= np.linalg.norm(v0, axis=-1, keepdims=True)
+    lam_j, v_j, it_j = jref.power_iterate_adaptive(
+        jnp.asarray(x), jnp.asarray(v0), n_iters, tol, 6)
+    lam_t, v_t, it_t = tref.power_iterate_adaptive(
+        torch.from_numpy(x), torch.from_numpy(v0), n_iters, tol, 6)
+    assert it_t == it_j and (tol > 0 or it_t == 24)
+    _close(lam_t, lam_j, "fp32")
+    _close(v_t, v_j, "fp32")
+
