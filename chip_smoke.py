@@ -182,10 +182,34 @@ line):
    auto --chunks-per-step auto --autotune` at the reference's defaults
    on one device and on a (1,) NCCL mesh: one search per bucket, none
    and no capture in the stream; 0 B left.
+15. The multi-host control plane (`launch/distributed.py`) on phase 5c's
+   mix (m = 200, 32 requests, 8 slots, fp32, kernels).  15a:
+   `MSCDistributedServer` with one process against the bare engine:
+   every request's mask, d and sweeps bit for bit and every `ServeStats`
+   counter equal, cold and warm; the server's warm run launches
+   `power_iter` and `abs_rowsum`; warm walls in turns (reported).  15b:
+   a format-2 step of the engine after 3 ticks (`_export_split`, then
+   `begin_sharded_checkpoint` / `write_process_shards` /
+   `commit_sharded_checkpoint`), its bytes and write time beside a
+   format-1 checkpoint of the same state (reported); a step missing a
+   process record refuses to commit and is never selected;
+   `restore_after_host_loss` onto the card finishes the mix bit for bit
+   as the uninterrupted run, launching both kernels; a shard corrupted by
+   `corrupt_checkpoint_shard` is rejected under SHA.  15c, where
+   `torch.cuda.device_count() >= 2`: `python -m
+   repro_torch.launch.distributed --num-processes 2 --spawn-workers
+   --device cuda` on the mix, clean and with a worker SIGKILLed at
+   step:3 (`--ckpt-dir`, `--ckpt-every 2`): masks and sweeps of 15a's
+   one-device run (d within 3e-5), host losses / restores / reinits 0 /
+   0 / 0 and 1 / 1 / 1, the master ending on its own card and launching
+   both kernels; the control plane's ms a tick in broadcast and acks,
+   wire bytes a tick, recovery_s and the cold wall beside 15a's
+   (reported).  With one card 15c prints that it needs two and runs
+   nothing.
 Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
 beside their measured times (`roofline.H100`; reported, no bar).
-`--only 11,12,13,14` (any subset) runs the card and build phases and the
-named phases alone (a development run: no result lines, exit code 3
+`--only 11,12,13,14,15` (any subset) runs the card and build phases and
+the named phases alone (a development run: no result lines, exit code 3
 when they pass).
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -2994,16 +3018,287 @@ def _across_routes(torch, cfg, tensors, entries, res_c, smi):
         f"({win}): {_same_requests(res_c, got[win], d_tol=0.0)}")
 
 
+# phase 15: the multi-host control plane on phase 5c's mix (m = 200, 32
+# requests, 8 slots, fp32, kernels, tol 3e-3, a probe every 8 sweeps,
+# cap 240)
+MH_MID_TICKS = 3
+MH_CLI_TIMEOUT = 600
+
+
+def phase_multihost(torch, checks, smi):
+    """Phase 15 (`_multihost_runs`), then 0 B left once its engines are
+    gone.  Returns {label: launch counts}."""
+    from repro_torch.serving.graphs import capture_stream
+
+    # the process's capture stream (and its cuBLAS workspace) outlives
+    # the phase: made before the baseline when this phase runs alone
+    capture_stream(DEVICE)
+    return _without_leftovers(torch, checks, "multi-host control plane",
+                              _multihost_runs, smi)
+
+
+def _step_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _multihost_runs(torch, checks, smi):
+    """15a: `MSCDistributedServer` with one process against the bare
+    engine (results bit for bit, every counter equal; warm walls in
+    turns).  15b: a format-2 step of a mid-solve engine (`_export_split`
+    and the store's two phases), timed beside a format-1 checkpoint of
+    the same state; a torn step never selected; the step restored by
+    `restore_after_host_loss` on the card, the mix finished bit for bit;
+    a corrupted shard rejected under SHA.  15c: the two-process CLI on
+    two cards, clean and with a worker SIGKILLed at step:3, against 15a
+    (needs two cards; with one it says so and runs nothing).  Returns
+    {label: launch counts}."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.checkpoint.store import (begin_sharded_checkpoint,
+                                              commit_sharded_checkpoint,
+                                              load_leaves, restorable_steps,
+                                              save_checkpoint,
+                                              write_process_shards)
+    from repro_torch.launch.distributed import (DistributedSpec,
+                                                MSCDistributedServer)
+    from repro_torch.launch.elastic import restore_after_host_loss
+    from repro_torch.serving import MSCContinuousEngine
+    from repro_torch.serving.faults import corrupt_checkpoint_shard
+
+    cfg = tier_cfg()
+    tensors = _skewed_mix(torch)
+    launches = {}
+
+    # ---- 15a: one process, against the bare engine
+    label = f"multi-host 1 process m={CONT_M} B={CONT_B}"
+    log(f"{label}: phase 5c's mix ({CONT_N} requests) through "
+        f"MSCDistributedServer(num_processes=1) and the bare engine; card: "
+        f"{smi}")
+    bare = MSCContinuousEngine(cfg, slots=CONT_B, device=DEVICE)
+    server = MSCDistributedServer(DistributedSpec(num_processes=1), cfg,
+                                  slots=CONT_B, device=DEVICE)
+    ref, cold_bare = _timed_s(torch, lambda: bare.run(tensors))
+    via, cold_srv = _timed_s(torch, lambda: server.serve(tensors))
+    same = all(_bits(a, b) for a, b in zip(via, ref))
+    stats_eq = dataclasses.astuple(bare.stats) == dataclasses.astuple(
+        server.stats)
+    _gate(checks, same and stats_eq, label,
+          f"cold: every request's mask, d and sweeps bit for bit: {same}; "
+          f"every ServeStats counter equal: {stats_eq} "
+          f"({server.stats.compiles} graphs captured each)")
+    t = {"engine": [], "server": []}
+    for name in ("engine", "server", "server", "engine"):
+        if name == "server":
+            mods = _reset_counts()
+            out, s = _timed_s(torch, lambda: server.serve(tensors))
+            launches[label] = counts = _read_counts(mods)
+            same = same and all(_bits(a, b) for a, b in zip(out, ref))
+        else:
+            out, s = _timed_s(torch, lambda: bare.run(tensors))
+        t[name].append(s)
+    stats_eq = dataclasses.astuple(bare.stats) == dataclasses.astuple(
+        server.stats)
+    _gate(checks, same and stats_eq and counts["power_iter"] > 0
+          and counts["abs_rowsum"] > 0, label,
+          f"warm: bits and counters still equal ({same}, {stats_eq}); the "
+          f"server's warm run launched {counts}")
+    e_s, s_s = min(t["engine"]), min(t["server"])
+    log(f"  warm walls in turns: engine "
+        f"{' / '.join(f'{x * 1e3:.2f}' for x in t['engine'])} ms, server "
+        f"{' / '.join(f'{x * 1e3:.2f}' for x in t['server'])} ms; server / "
+        f"engine {s_s / e_s:.4f}x; cold {cold_bare * 1e3:.1f} / "
+        f"{cold_srv * 1e3:.1f} ms ({smi})")
+    server.engine.close()
+    bare.close()
+    del server, bare
+
+    # ---- 15b: format 2 on the card
+    label = f"multi-host format 2 m={CONT_M} B={CONT_B}"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fmt2_")
+    try:
+        eng = MSCContinuousEngine(cfg, slots=CONT_B, device=DEVICE)
+        rids = [eng.submit(x) for x in tensors]
+        got = {}
+        for _ in range(MH_MID_TICKS):
+            got.update(eng.step())
+        step = eng._total_chunks
+        d2, d1 = os.path.join(tmp, "fmt2"), os.path.join(tmp, "fmt1")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        device, host, meta = eng._export_split()
+        stage = begin_sharded_checkpoint(d2, step)
+        n_files = write_process_shards(stage, 0, device)
+        commit_sharded_checkpoint(d2, step, num_processes=1,
+                                  full_leaves=host, extra=meta)
+        w2 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        leaves, meta1 = eng._export()
+        save_checkpoint(d1, step, leaves, extra=meta1)
+        w1 = time.perf_counter() - t0
+        b2 = _step_bytes(os.path.join(d2, f"step_{step:08d}"))
+        b1 = _step_bytes(os.path.join(d1, f"step_{step:08d}"))
+        shard_b = sum(os.path.getsize(os.path.join(d2, f"step_{step:08d}",
+                                                   f"leaf_{i:05d}_p000_s000"
+                                                   ".npy"))
+                      for i, *_ in device)
+        log(f"  after {MH_MID_TICKS} ticks ({len(got)} done): format 2 "
+            f"{b2} B ({n_files} shard files, {shard_b} B of them) in "
+            f"{w2 * 1e3:.1f} ms; format 1 of the same state {b1} B in "
+            f"{w1 * 1e3:.1f} ms ({smi})")
+        # a torn step: process 1's record never came
+        stage = begin_sharded_checkpoint(d2, step + 1)
+        write_process_shards(stage, 0, device)
+        try:
+            commit_sharded_checkpoint(d2, step + 1, num_processes=2,
+                                      full_leaves=host, extra=meta)
+            refused = False
+        except IOError:
+            refused = True
+        selected = restorable_steps(d2, verify_sha=True)
+        _gate(checks, refused and selected == [step], label,
+              f"a step missing a process record refuses to commit "
+              f"({refused}) and stays .tmp; restorable steps {selected}")
+        eng.close()
+        del eng, device, host, leaves
+        mods = _reset_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            re = restore_after_host_loss(d2, device=DEVICE,
+                                         checkpoint_dir=d2,
+                                         ckpt_every_chunks=0)
+        on_card = re.device.type == "cuda" and re.mesh is None
+        _drain(re, got)
+        counts = _read_counts(mods)
+        launches[label] = counts
+        same = sorted(got) == sorted(rids) and all(
+            _bits(got[r], ref[i]) for i, r in enumerate(rids))
+        _gate(checks, same and on_card and re.stats.restores == 1
+              and counts["power_iter"] > 0 and counts["abs_rowsum"] > 0,
+              label,
+              f"restore_after_host_loss on {re.device} (no mesh): the mix "
+              f"finished bit for bit as the uninterrupted run: {same}; "
+              f"launches {counts}")
+        re.close()
+        del re
+        corrupt_checkpoint_shard(d2, step)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rejected = restorable_steps(d2, verify_sha=True) == []
+        try:
+            load_leaves(d2, step, verify=True)
+            raised = False
+        except IOError:
+            raised = True
+        _gate(checks, rejected and raised, label,
+              f"a corrupted shard: the step rejected under SHA "
+              f"({rejected}), load_leaves raises ({raised})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 15c: two processes, one card each
+    label = f"multi-host 2 processes m={CONT_M} B={CONT_B}"
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"{label}: needs two cards (one rank per card), sees {n_cards}; "
+            "not run (the 2-process path is held on gloo by "
+            "tests/test_torch_distributed.py)")
+        return launches
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_2p_")
+    try:
+        runs = {}
+        for name, extra in (("clean", []),
+                            ("kill", ["--ckpt-dir", os.path.join(tmp, "ck"),
+                                      "--ckpt-every", "2",
+                                      "--worker-kill-at", "step:3"])):
+            out = os.path.join(tmp, name)
+            cmd = [sys.executable, "-m", "repro_torch.launch.distributed",
+                   "--num-processes", "2", "--spawn-workers",
+                   "--device", "cuda", "--requests", str(CONT_N),
+                   "--sizes", str(CONT_M), "--slots", str(CONT_B),
+                   "--slow-every", str(CONT_SLOW_EVERY),
+                   "--gamma", repr(CONT_GAMMA_FAST),
+                   "--power-tol", repr(cfg.power_tol),
+                   "--power-iters", str(cfg.power_iters),
+                   "--check-every", str(cfg.power_check_every),
+                   "--kernels", "--seed", str(SEED), "--outdir", out,
+                   "--heartbeat-timeout", "120", *extra]
+            env = dict(os.environ, PYTHONPATH=SRC)
+            env.pop("MSC_DIST_KILL", None)
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=MH_CLI_TIMEOUT, env=env, cwd=HERE)
+            wall = time.perf_counter() - t0
+            ok = proc.returncode == 0
+            _gate(checks, ok, label,
+                  f"{name}: the CLI exits {proc.returncode} in {wall:.1f} s")
+            if not ok:
+                log(proc.stdout[-4000:])
+                log(proc.stderr[-4000:])
+                continue
+            with np.load(os.path.join(out, "results.npz")) as z:
+                res = [[_NpzMode(z, i, j) for j in range(3)]
+                       for i in range(CONT_N)]
+            with open(os.path.join(out, "stats.json")) as f:
+                runs[name] = (res, json.load(f))
+        for name, (res, st) in runs.items():
+            same = _same_requests(res, ref, d_tol=3e-5)
+            ft = (st["host_losses"], st["restores"], st["reinits"])
+            want_ft = (1, 1, 1) if name == "kill" else (0, 0, 0)
+            on_card = st["device"].startswith("cuda")
+            c = st["control"]
+            launches[f"{label} {name} (master)"] = {
+                "power_iter": st["launches"]["power_iter"],
+                "abs_rowsum": st["launches"]["abs_rowsum"],
+                "batched_gram": 0, "flash_attention": 0}
+            _gate(checks, same and ft == want_ft and on_card
+                  and st["n_results"] == CONT_N
+                  and st["launches"]["power_iter"] > 0
+                  and st["launches"]["abs_rowsum"] > 0, label,
+                  f"{name}: masks and sweeps of the one-device run (d "
+                  f"within 3e-5): {same}; host losses / restores / reinits "
+                  f"{ft} (want {want_ft}); the master ends on {st['device']}"
+                  f"; mesh {st['mesh']}")
+            log(f"  {name}: {c['ticks']} lockstep ticks, broadcast "
+                f"{c['broadcast_s'] * 1e3 / max(c['ticks'], 1):.3f} ms and "
+                f"acks {c['ack_s'] * 1e3 / max(c['ticks'], 1):.3f} ms a "
+                f"tick, {c['wire_bytes'] / max(c['ticks'], 1):.0f} wire "
+                f"bytes a tick; serve {st['serve_s'] * 1e3:.1f} ms cold "
+                f"(15a cold: {cold_srv * 1e3:.1f} ms); recovery_s "
+                f"{st['recovery_s']}; restored step {st['restored_step']}; "
+                f"master launches {st['launches']} ({smi})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+class _NpzMode:
+    """One mode of a result read back from the distributed CLI's
+    results.npz."""
+
+    def __init__(self, z, i, j):
+        import torch
+
+        self.mask = torch.from_numpy(z[f"mask_{i}_{j}"])
+        self.d = torch.from_numpy(z[f"d_{i}_{j}"])
+        self.power_iters_run = int(z[f"iters_{i}"][j])
+
+
 def _only_phases():
-    """`--only 11,12,13,14`: the tier phases to run alone (development
-    runs only; with no arguments every phase runs)."""
+    """`--only 11,12,13,14,15`: the later phases to run alone
+    (development runs only; with no arguments every phase runs)."""
     if "--only" not in sys.argv:
         return []
     names = sys.argv[sys.argv.index("--only") + 1].split(",")
-    bad = [n for n in names if n not in ("11", "12", "13", "14")]
+    bad = [n for n in names if n not in ("11", "12", "13", "14", "15")]
     if bad:
-        raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14; got "
-                         f"{bad}")
+        raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14, 15; "
+                         f"got {bad}")
     return names
 
 
@@ -3031,7 +3326,8 @@ def main() -> int:
     if only:
         # a development run of the named tier phases: no result lines
         tiers = {"11": phase_cache, "12": phase_scheduler,
-                 "13": phase_faults, "14": phase_autotune}
+                 "13": phase_faults, "14": phase_autotune,
+                 "15": phase_multihost}
         for name in only:
             tiers[name](torch, checks, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s (phases "
@@ -3053,6 +3349,7 @@ def main() -> int:
     launches.update(phase_scheduler(torch, checks, smi))
     launches.update(phase_faults(torch, checks, smi))
     launches.update(phase_autotune(torch, checks, smi))
+    launches.update(phase_multihost(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

@@ -1,4 +1,5 @@
-"""Checkpoint store, format 1 — counterpart of `repro/checkpoint/store.py`.
+"""Checkpoint store, formats 1 and 2 — counterpart of
+`repro/checkpoint/store.py`.
 
 Layout: <dir>/step_<k>/ {manifest.json, leaf_<i>.npy…}.  Leaves are
 numpy arrays in `.npy` files and the manifest is JSON, as the
@@ -15,15 +16,21 @@ reference writes them, so each package reads the other's checkpoints.
     falls back to the previous step.
   * Self-describing: `load_leaves` rebuilds the flat leaf list from the
     manifest alone (shapes and dtypes are in the .npy headers).
+  * Multi-process steps (format 2, the control plane of
+    `launch/distributed.py`): each process writes its own rows of a
+    sharded leaf straight from its device (`write_process_shards`, no
+    gather) plus its vote record `shards_p<proc>.json`; the master alone
+    writes the manifest (`commit_sharded_checkpoint`) and renames the
+    step into place.  A host dying in between leaves a `.tmp` step that
+    no restore selects; `load_leaves` reassembles a sharded leaf from
+    its shards' index ranges.  File names, records, manifest and
+    digests are the reference's, so each package reads the other's
+    steps.
   * Keep-last-k GC, which also reaps `.tmp` step directories and shard
     files no manifest references.
 
-Not here: the multi-process format 2 (`begin_sharded_checkpoint`,
-`write_process_shards`, `commit_sharded_checkpoint`, and reading its
-shard files) belongs to the multi-host control plane,
-`launch/distributed.py` (ROADMAP.md queue 1 item 10b); a
-format-2 step fails validation here and is skipped.  `CheckpointManager`
-and `restore_checkpoint`, used only by training, are item 12.
+Not here: `CheckpointManager` and `restore_checkpoint`, used only by
+training, are item 12.
 """
 from __future__ import annotations
 
@@ -96,10 +103,15 @@ def save_checkpoint(directory: str, step: int, leaves: Sequence,
         })
     _write_atomic(os.path.join(tmp, "manifest.json"),
                   lambda f: f.write(json.dumps(manifest).encode()))
+    _commit_rename(directory, tmp, final)
+    return final
+
+
+def _commit_rename(directory: str, tmp: str, final: str) -> None:
+    """Rename a finished step into place, parking a live step of the same
+    id under a .tmp name (invisible to a restore) until then."""
     fsync_dir(tmp)
     if os.path.exists(final):
-        # park the live step under a .tmp name (invisible to a restore)
-        # until its replacement is in place
         old = final + ".old.tmp"
         if os.path.exists(old):
             shutil.rmtree(old)
@@ -109,13 +121,131 @@ def save_checkpoint(directory: str, step: int, leaves: Sequence,
     else:
         os.rename(tmp, final)
     fsync_dir(directory)
-    return final
 
 
 def shard_filename(leaf_i: int, process: int, shard: int) -> str:
-    """A format-2 per-process shard file's name (the GC reaps those no
-    manifest references)."""
+    """A format-2 per-process shard file's name, keyed by (process,
+    shard index)."""
     return f"leaf_{leaf_i:05d}_p{process:03d}_s{shard:03d}.npy"
+
+
+def _shard_record_path(tmp_dir: str, process: int) -> str:
+    return os.path.join(tmp_dir, f"shards_p{process:03d}.json")
+
+
+def begin_sharded_checkpoint(directory: str, step: int) -> str:
+    """Phase 0 (master only): the staging directory every process writes
+    its shards into.  It stays `.tmp`, invisible to a restore, until
+    `commit_sharded_checkpoint` renames it."""
+    os.makedirs(directory, exist_ok=True)
+    tmp = os.path.join(directory, f"step_{step:08d}.tmp")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    fsync_dir(directory)
+    return tmp
+
+
+def write_process_shards(tmp_dir: str, process: int,
+                         indexed_leaves) -> int:
+    """Phase 1 (every process): write this process's part of each sharded
+    leaf.
+
+    indexed_leaves: [(leaf_i, tensor, index)]: leaf_i is the leaf's place
+    in the manifest's flat list, `tensor` this process's block (on any
+    device; it is copied to the host here, with no gather), and `index`
+    its (start, stop) per dim in the leaf's global shape.  A fourth
+    element gives that global shape; without it the block must be the
+    whole leaf.  One `shard_filename` .npy per distinct range (numbered
+    in range order, as the reference numbers them), then the vote record
+    `shards_p<proc>.json` (fsynced) listing them with ranges and SHA-256.
+    Returns the number of shard files."""
+    blocks: Dict[int, Dict] = {}
+    shapes: Dict[int, Tuple[int, ...]] = {}
+    for item in indexed_leaves:
+        leaf_i, tensor, index = int(item[0]), item[1], item[2]
+        idx = tuple((int(a), int(b)) for a, b in index)
+        shape = (tuple(int(n) for n in item[3]) if len(item) > 3
+                 else tuple(int(n) for n in tensor.shape))
+        if len(idx) != tensor.ndim or len(shape) != tensor.ndim or any(
+                b - a != n or a < 0 or b > g
+                for (a, b), n, g in zip(idx, tensor.shape, shape)):
+            raise ValueError(f"leaf {leaf_i}: index {idx} does not place a "
+                             f"block of shape {tuple(tensor.shape)} in a "
+                             f"leaf of shape {shape}")
+        shapes[leaf_i] = shape
+        blocks.setdefault(leaf_i, {}).setdefault(idx, tensor)
+    entries = []
+    for leaf_i, by_idx in blocks.items():
+        for s, idx in enumerate(sorted(by_idx)):
+            data = host_array(by_idx[idx])
+            fname = shard_filename(leaf_i, process, s)
+            _write_atomic(os.path.join(tmp_dir, fname),
+                          lambda f, a=data: np.save(f, a), fsync=False)
+            entries.append({
+                "leaf": leaf_i, "shard": s, "file": fname,
+                "index": [list(ab) for ab in idx],
+                "shape": list(shapes[leaf_i]), "dtype": str(data.dtype),
+                "sha256": _sha(data),
+            })
+    _write_atomic(_shard_record_path(tmp_dir, process),
+                  lambda f: f.write(json.dumps(
+                      {"process": int(process),
+                       "entries": entries}).encode()))
+    fsync_dir(tmp_dir)
+    return len(entries)
+
+
+def commit_sharded_checkpoint(directory: str, step: int, *,
+                              num_processes: int, full_leaves,
+                              extra: Optional[Dict] = None) -> str:
+    """Phase 2 (master only): read every process's vote record, write the
+    leaves the master holds whole, then the manifest (the one commit
+    record), fsync, and rename the step into place.
+
+    full_leaves: [(leaf_i, array)]; every other leaf index must be
+    covered by the shard records.  Raises IOError when a process's record
+    is missing (a host died in phase 1): the step stays `.tmp`."""
+    tmp = os.path.join(directory, f"step_{step:08d}.tmp")
+    final = os.path.join(directory, f"step_{step:08d}")
+    sharded: Dict[int, List[Dict]] = {}
+    for p in range(num_processes):
+        rec_path = _shard_record_path(tmp, p)
+        if not os.path.isfile(rec_path):
+            raise IOError(
+                f"checkpoint step {step}: missing shard record for "
+                f"process {p} — refusing to commit a torn step")
+        with open(rec_path) as f:
+            for e in json.load(f)["entries"]:
+                sharded.setdefault(int(e["leaf"]), []).append(e)
+    leaves_meta = []
+    for i, arr in full_leaves:
+        if i in sharded:
+            raise ValueError(f"leaf {i} is both full and sharded")
+        arr = host_array(arr)
+        _write_atomic(os.path.join(tmp, f"leaf_{i:05d}.npy"),
+                      lambda f, a=arr: np.save(f, a), fsync=False)
+        leaves_meta.append({"i": int(i), "kind": "full",
+                            "shape": list(arr.shape),
+                            "dtype": str(arr.dtype), "sha256": _sha(arr)})
+    for i, ents in sharded.items():
+        leaves_meta.append({
+            "i": int(i), "kind": "sharded", "shape": ents[0]["shape"],
+            "dtype": ents[0]["dtype"],
+            "shards": [{"file": e["file"], "index": e["index"],
+                        "sha256": e["sha256"]} for e in ents]})
+    leaves_meta.sort(key=lambda e: e["i"])
+    if [e["i"] for e in leaves_meta] != list(range(len(leaves_meta))):
+        raise ValueError(
+            f"leaf indices {[e['i'] for e in leaves_meta]} do not form a "
+            f"contiguous flat list")
+    manifest = {"format": 2, "step": int(step),
+                "processes": int(num_processes),
+                "extra": extra or {}, "leaves": leaves_meta}
+    _write_atomic(os.path.join(tmp, "manifest.json"),
+                  lambda f: f.write(json.dumps(manifest).encode()))
+    _commit_rename(directory, tmp, final)
+    return final
 
 
 def _valid(path: str, verify_sha: bool = False) -> bool:
@@ -126,6 +256,14 @@ def _valid(path: str, verify_sha: bool = False) -> bool:
         with open(man) as f:
             m = json.load(f)
         for e in m["leaves"]:
+            if e.get("kind", "full") == "sharded":
+                for srec in e["shards"]:
+                    shard = os.path.join(path, srec["file"])
+                    if not os.path.isfile(shard):
+                        return False
+                    if verify_sha and _sha(np.load(shard)) != srec["sha256"]:
+                        return False
+                continue
             leaf = os.path.join(path, f"leaf_{e['i']:05d}.npy")
             if not os.path.isfile(leaf):
                 return False
@@ -190,6 +328,19 @@ def load_leaves(directory: str, step: int,
         manifest = json.load(f)
     leaves = []
     for e in manifest["leaves"]:
+        if e.get("kind", "full") == "sharded":
+            # format 2: the global leaf from its shards' index ranges
+            # (replicated shards overwrite with identical bytes)
+            arr = np.zeros(tuple(e["shape"]), np.dtype(e["dtype"]))
+            for srec in e["shards"]:
+                data = np.load(os.path.join(path, srec["file"]))
+                if verify and _sha(data) != srec["sha256"]:
+                    raise IOError(
+                        f"checkpoint leaf {e['i']} shard {srec['file']} "
+                        f"of step {step} failed integrity check")
+                arr[tuple(slice(a, b) for a, b in srec["index"])] = data
+            leaves.append(arr)
+            continue
         arr = np.load(os.path.join(path, f"leaf_{e['i']:05d}.npy"))
         if verify and _sha(arr) != e["sha256"]:
             raise IOError(f"checkpoint leaf {e['i']} of step {step} failed "

@@ -416,10 +416,12 @@ class MSCChunkPlan:
     the port's counterpart of the reference's donated buffers; on a card
     the engine captures each as a CUDA graph (`serving/msc_engine.py`),
     with the collectives inside.  Matrix-free only, as in the reference.
+    `replicate_outputs` records the reference's flag for a mesh that
+    spans processes; the programs are the same either way.
     """
 
     def __init__(self, cfg: MSCConfig, chunks_per_step=1, device="cuda",
-                 mesh=None, power_route=None):
+                 mesh=None, power_route=None, replicate_outputs=False):
         if not cfg.matrix_free:
             raise ValueError("the continuous engine requires "
                              "matrix_free=True (see power_iter."
@@ -436,6 +438,7 @@ class MSCChunkPlan:
         # the power kernel's route per mode (`kernels/power_iter.py:routes`),
         # or None for its own pick: what the engine's autotuner searches
         self.power_route = None if power_route is None else tuple(power_route)
+        self.replicate_outputs = bool(replicate_outputs)
 
     # ---- shapes and state ---------------------------------------------
     def padded_shapes(self, bucket, B: int):

@@ -53,9 +53,6 @@ from .types import ModeResult, MSCConfig
 
 EPILOGUES = ("allgather", "ring")
 
-TIERS_TODO = ("the multi-host control plane (launch/distributed.py, format-2 "
-              "checkpoints) is not ported yet: ROADMAP.md, queue 1 item 10b")
-
 
 def pad_to(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult

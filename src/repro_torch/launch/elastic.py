@@ -7,9 +7,9 @@ the engine's checkpoints are mesh-independent (carries trimmed to the
 true bucket size, blocks rebuilt from the stashed tensors), so a solve
 checkpointed on 2 ranks finishes on 1, and the reverse.
 
-`restore_after_host_loss` waits for the multi-host control plane
-(`launch/distributed.py`, ROADMAP.md queue 1 item 10b), and
-`ElasticTrainer` for the training side (item 12).
+`restore_after_host_loss` is the survivor's side of the multi-host
+control plane (`launch/distributed.py`).  `ElasticTrainer` waits for the
+training side (item 12).
 """
 from __future__ import annotations
 
@@ -76,4 +76,19 @@ def restore_msc_engine(directory: str, *, device="cuda",
             prefer_inner = int(size)
     mesh = make_elastic_msc_mesh(prefer_inner, device_type)
     return MSCContinuousEngine.restore(directory, mesh=mesh, device=device,
+                                       **restore_kwargs)
+
+
+def restore_after_host_loss(directory: str, *, device="cuda",
+                            **restore_kwargs):
+    """The master's restore after a worker of the control plane died:
+    the newest committed checkpoint (format 2, or 1) onto the master's
+    own device, with no mesh.  The process group still exists with the
+    dead peer in it, so this never goes through `make_elastic_msc_mesh`
+    (which would build a mesh over the whole world) nor touches the
+    group.  The step's device-layout carries are trimmed on import, so
+    masks and sweeps resume bit for bit."""
+    from repro_torch.serving.msc_engine import MSCContinuousEngine
+
+    return MSCContinuousEngine.restore(directory, mesh=None, device=device,
                                        **restore_kwargs)

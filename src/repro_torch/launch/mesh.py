@@ -7,10 +7,12 @@ dim names: ("slice",) or ("slice", "inner") for the flat schedule,
 ("mode", "slice"[, "inner"]) for the grouped one.  gloo joins ranks on
 the CPU, NCCL on the card (rank r on cuda:{local rank}).
 
-Ranks join in one of two ways (`join`):
+Ranks join in one of three ways (`join`):
   * under `torchrun`, from its environment (`env://`);
   * from a FileStore that every rank opens, when this package spawns its
-    own ranks (`spawn`: `msc_run --nproc N` and the tests).
+    own ranks (`spawn`: `msc_run --nproc N` and the tests);
+  * from a TCPStore at host:port that rank 0 hosts (the multi-host
+    control plane, `launch/distributed.py`).
 
 The LM meshes are ("data", "model") over every rank (`make_local_mesh`)
 and the reference's production shapes (`make_production_mesh`: 16 x 16,
@@ -102,20 +104,23 @@ def launched_by_torchrun() -> bool:
 
 
 def join(device_type: str = "cuda", *, rank=None, world_size=None,
-         store_file=None, timeout=DEFAULT_TIMEOUT) -> torch.device:
+         store_file=None, address=None,
+         timeout=DEFAULT_TIMEOUT) -> torch.device:
     """Join this process to the default process group and return its
     device: gloo and `cpu` for device_type "cpu", NCCL and
     cuda:{local rank} for "cuda".
 
-    With `store_file`, the ranks meet in a FileStore at that path
-    (rank and world_size given); without it, in torchrun's environment
-    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT).  A
-    collective that waits longer than `timeout` raises in every rank
-    that waits.  More ranks on a node than its cards raises ValueError.
+    With `store_file`, the ranks meet in a FileStore at that path; with
+    `address` ("host:port"), in a TCPStore there that rank 0 hosts
+    (rank and world_size given in both); with neither, in torchrun's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT).  A collective that waits longer than `timeout` raises
+    in every rank that waits.  More ranks on a node than its cards
+    raises ValueError.
     """
     import torch.distributed as dist
 
-    if store_file is None:
+    if store_file is None and address is None:
         rank = int(os.environ["RANK"])
         world_size = int(os.environ["WORLD_SIZE"])
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
@@ -140,12 +145,17 @@ def join(device_type: str = "cuda", *, rank=None, world_size=None,
     kw = dict(backend=backend, timeout=timeout)
     if device_type == "cuda":
         kw["device_id"] = device
-    if store_file is None:
-        dist.init_process_group(init_method="env://", **kw)
-    else:
+    if address is not None:
+        host, _, port = str(address).rpartition(":")
+        store = dist.TCPStore(host or "localhost", int(port), world_size,
+                              is_master=rank == 0, timeout=timeout)
+    elif store_file is not None:
         store = dist.FileStore(str(store_file), world_size)
-        dist.init_process_group(store=store, rank=rank,
-                                world_size=world_size, **kw)
+    else:
+        dist.init_process_group(init_method="env://", **kw)
+        return device
+    dist.init_process_group(store=store, rank=rank, world_size=world_size,
+                            **kw)
     return device
 
 

@@ -60,16 +60,17 @@ from repro_torch.serving import (LoadShedError, MSCContinuousEngine,
 
 def build_request_stream(sizes, n_requests: int, seed: int,
                          slow_every: int = 0, gamma_slow: float = 2.0,
-                         device="cpu"):
+                         device="cpu", gamma_fast=None):
     """n_requests planted cubes cycling through `sizes` (mixed buckets),
     request i from a generator seeded with seed + i on `device`; with
     slow_every > 0, every slow_every-th request is a near-noise slow
-    converger (γ = gamma_slow; the others γ = max(m, 40))."""
+    converger (γ = gamma_slow; the others γ = gamma_fast, by default
+    max(m, 40))."""
     specs, tensors = [], []
     for i in range(n_requests):
         m = sizes[i % len(sizes)]
         gamma = gamma_slow if slow_every and i % slow_every == 0 \
-            else float(max(m, 40))
+            else float(max(m, 40) if gamma_fast is None else gamma_fast)
         specs.append(PlantedSpec.paper(m, gamma=gamma))
         gen = torch.Generator(device=device).manual_seed(seed + i)
         tensors.append(make_planted_tensor(gen, specs[-1]))

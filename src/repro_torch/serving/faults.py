@@ -15,16 +15,18 @@ what a `FaultPlan` schedules:
     no cleanup, as a preempted node dies;
   * a corrupt checkpoint leaf: `corrupt_checkpoint_leaf` flips bytes of
     a committed leaf and leaves its manifest SHA, so a restore must skip
-    to the previous step.
+    to the previous step (`corrupt_checkpoint_shard`: the same for a
+    per-process shard of a format-2 step).
 
 `LoadShedError` is the engine's refusal of a submit while a bucket
-recovers (or under its SLO bound).  The multi-host layer's
-`DistKillPlan` and `corrupt_checkpoint_shard` wait with
-`launch/distributed.py` (ROADMAP.md queue 1 item 10b).
+recovers (or under its SLO bound).  `DistKillPlan` is the worker-side
+injection of the multi-host control plane (`launch/distributed.py`):
+it SIGKILLs a worker at a named point, set by `MSC_DIST_KILL`.
 """
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 import signal
 from typing import Optional, Tuple
@@ -95,12 +97,50 @@ class FaultInjector:
             _sigkill()
 
 
-def corrupt_checkpoint_leaf(directory: str, step: int, leaf_i: int = 0,
-                            offset: int = 128, nbytes: int = 8) -> str:
-    """Flip `nbytes` bytes of one committed leaf file in place, past its
-    .npy header, leaving the manifest: the leaf fails its SHA check."""
-    path = os.path.join(directory, f"step_{step:08d}",
-                        f"leaf_{leaf_i:05d}.npy")
+class DistKillPlan:
+    """SIGKILL this process at the k-th occurrence of a named point of
+    the multi-host control plane (`launch/distributed.py`).
+
+    Points (0-based counts per point over the worker's life):
+      "tick"  — on receiving tick #k, before the ready ack (the master
+                sees the loss before any collective is entered);
+      "step"  — after chunk step #k, before the done ack (mid-solve);
+      "shard" — on checkpoint command #k, before any shard file is
+                written (a torn step: it stays .tmp and is never
+                selected by `restorable_steps`).
+
+    `from_env` parses MSC_DIST_KILL="point:k" (None when unset), so a
+    spawned worker needs no argument for it.
+    """
+
+    POINTS = ("tick", "step", "shard")
+
+    def __init__(self, point: str, index: int):
+        if point not in self.POINTS:
+            raise ValueError(f"unknown kill point {point!r}; "
+                             f"expected one of {self.POINTS}")
+        self.point = point
+        self.index = int(index)
+        self._counts = {p: 0 for p in self.POINTS}
+
+    @classmethod
+    def from_env(cls, var: str = "MSC_DIST_KILL") -> Optional["DistKillPlan"]:
+        val = os.environ.get(var)
+        if not val:
+            return None
+        point, _, idx = val.partition(":")
+        return cls(point, int(idx or 0))
+
+    def hit(self, point: str) -> None:
+        """Count one occurrence of `point`; kill if it is the planned one.
+        No cleanup runs, as on a preempted host."""
+        i = self._counts[point]
+        self._counts[point] = i + 1
+        if point == self.point and i == self.index:
+            _sigkill()
+
+
+def _flip_bytes(path: str, offset: int, nbytes: int) -> str:
     size = os.path.getsize(path)
     offset = min(offset, max(0, size - nbytes))
     with open(path, "r+b") as f:
@@ -109,6 +149,28 @@ def corrupt_checkpoint_leaf(directory: str, step: int, leaf_i: int = 0,
         f.seek(offset)
         f.write(bytes(b ^ 0xFF for b in data))
     return path
+
+
+def corrupt_checkpoint_shard(directory: str, step: int,
+                             offset: int = 128, nbytes: int = 8) -> str:
+    """Flip bytes of the first per-process shard file of a committed
+    format-2 step, leaving the manifest: `restorable_steps(verify_sha=True)`
+    must reject the step."""
+    shards = sorted(glob.glob(os.path.join(
+        directory, f"step_{step:08d}", "leaf_*_p*_s*.npy")))
+    if not shards:
+        raise FileNotFoundError(
+            f"no shard files under step {step} of {directory!r}")
+    return _flip_bytes(shards[0], offset, nbytes)
+
+
+def corrupt_checkpoint_leaf(directory: str, step: int, leaf_i: int = 0,
+                            offset: int = 128, nbytes: int = 8) -> str:
+    """Flip `nbytes` bytes of one committed leaf file in place, past its
+    .npy header, leaving the manifest: the leaf fails its SHA check."""
+    return _flip_bytes(os.path.join(directory, f"step_{step:08d}",
+                                    f"leaf_{leaf_i:05d}.npy"),
+                       offset, nbytes)
 
 
 def fail_all_from(start: int, horizon: int = 10_000) -> Tuple[int, ...]:

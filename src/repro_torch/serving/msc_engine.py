@@ -79,7 +79,7 @@ from repro_torch.checkpoint.store import (gc_checkpoints, load_leaves,
 from repro_torch.core.autotune import AutotuneCache
 from repro_torch.core.fingerprint import (cache_salt, host_array,
                                           result_cache_key, spectral_sketch)
-from repro_torch.core.msc import msc_sequential
+from repro_torch.core.msc import MODE_PERMS, msc_sequential
 from repro_torch.core.parallel import (C_OF, MSCChunkPlan, _collective_blocks,
                                        _flat_schedule, _mesh_device,
                                        _resolve_auto, agreed, batch_perm,
@@ -87,7 +87,7 @@ from repro_torch.core.parallel import (C_OF, MSCChunkPlan, _collective_blocks,
 from repro_torch.core.power_iter import (SolveState, _gated_loop,
                                          compute_dtype, init_solve_state,
                                          predict_remaining_sweeps)
-from repro_torch.core.schedule import TIERS_TODO, ModeSchedule, pad_to
+from repro_torch.core.schedule import ModeSchedule, pad_to
 from repro_torch.core.types import ModeResult, MSCConfig, MSCResult
 from repro_torch.roofline import expected_queue_wait
 from repro_torch.serving.faults import LoadShedError
@@ -124,8 +124,8 @@ class ServeStats:
     that ran a live search, `autotune_cache_hits`: resolutions served
     from the autotune cache); see `repro/serving/msc_engine.py:ServeStats`.
     The multi-host counters (`heartbeats_missed`, `host_losses`,
-    `reinits`, `shard_files_written`) belong to ROADMAP.md queue 1 item
-    10b and stay 0 here."""
+    `reinits`, `shard_files_written`) are bumped by the control plane
+    (`launch/distributed.py`, through `note_ft_event`)."""
 
     requests: int = 0
     dispatches: int = 0
@@ -917,9 +917,15 @@ class MSCContinuousEngine:
         refill rolls back the host bookkeeping it did before its
         dispatch.
     `donate_buffers` is accepted for the reference's checkpoints: the
-    slot state is always updated in place.  `replicate_outputs` (the
-    reference's multi-process outputs) raises: the multi-host control
-    plane is ROADMAP.md queue 1 item 10b.
+    slot state is always updated in place.  `replicate_outputs` is the
+    reference's flag for a mesh that spans processes (the multi-host
+    control plane, `launch/distributed.py`, sets it).  Here every rank is
+    a process of its own, so what the host reads is the same on every
+    rank already; the flag carries the reference's policy: `preempt` is
+    forced off, the evicted slots' iterates are not captured for warm
+    starts, and the plan records it.  `_export_split` gives the
+    control plane's two-phase checkpoint its payload: each rank's rows of
+    the carries, straight from its device.
 
     `submit()` + `step()` are the decode loop for streaming arrivals
     (`launch/msc_serve.py --continuous`); `run(tensors)` serves a closed
@@ -956,8 +962,6 @@ class MSCContinuousEngine:
             raise ValueError("continuous batching needs the adaptive gate "
                              "(cfg.power_tol > 0); without it every slot "
                              "runs to the cap and eviction never helps")
-        if replicate_outputs:
-            raise NotImplementedError(f"replicate_outputs: {TIERS_TODO}")
         self.cfg = cfg
         self.mesh = mesh
         self.slots = int(slots)
@@ -967,7 +971,9 @@ class MSCContinuousEngine:
         self.refill_min_free = min(max(1, int(refill_min_free)), self.slots)
         self.max_queue_chunks = int(max_queue_chunks)
         self.placement = placement
-        self.preempt = bool(preempt)
+        # preempt-to-host parks a slot's carries on the host: off on a
+        # mesh that spans processes, as in the reference
+        self.preempt = bool(preempt) and not replicate_outputs
         self.preempt_min_remaining_chunks = int(preempt_min_remaining_chunks)
         self.aging_chunks = max(1, int(aging_chunks))
         self.slo_chunks = None if slo_chunks is None else int(slo_chunks)
@@ -980,7 +986,8 @@ class MSCContinuousEngine:
         self._chunks_param = chunks_per_step
         self._plan = MSCChunkPlan(
             self._base_cfg, 1 if chunks_per_step == "auto" else
-            chunks_per_step, device=device, mesh=mesh)
+            chunks_per_step, device=device, mesh=mesh,
+            replicate_outputs=replicate_outputs)
         self.device = self._plan.device
         self._quantum = _bucket_quantum(bucket_quantum, self._plan.sched)
         self._quantum_base = int(bucket_quantum)  # mesh-independent (ckpt)
@@ -1082,6 +1089,12 @@ class MSCContinuousEngine:
             self._stats, **{k: getattr(self._stats, k) + v
                             for k, v in deltas.items()})
 
+    def note_ft_event(self, **deltas) -> None:
+        """Bump fault-tolerance counters an outer control plane owns (the
+        multi-host driver, `launch/distributed.py`: heartbeats missed,
+        host losses, reinits, shard files written)."""
+        self._bump(**deltas)
+
     def _table(self, bucket) -> _SlotTable:
         tb = self._tables.get(bucket)
         if tb is None:
@@ -1143,7 +1156,8 @@ class MSCContinuousEngine:
                 and power_route is None):
             return self._plan
         return MSCChunkPlan(cfg, chunks, device=self.device, mesh=self.mesh,
-                            power_route=power_route)
+                            power_route=power_route,
+                            replicate_outputs=self._plan.replicate_outputs)
 
     def _mesh_items(self) -> Tuple[Tuple[str, int], ...]:
         """The mesh's (dim, size) items, (("slice", 1),) on one device."""
@@ -1472,9 +1486,10 @@ class MSCContinuousEngine:
         state = tb.state
         # the evicted slots' frozen iterates, read before the refill
         # overwrites them, become tier-2 donors; preempted slots are not
-        # read (their iterates are mid-solve)
+        # read (their iterates are mid-solve), nor is anything on a mesh
+        # that spans processes (the reference's policy)
         capture = None
-        if cache is not None and evicted:
+        if cache is not None and evicted and not self._plan.replicate_outputs:
             capture = [h.v for h in self._plan.export_carries(
                 tb.bucket, state.carries)]
         for s in preempt:
@@ -1812,12 +1827,12 @@ class MSCContinuousEngine:
         return {"bucket": [int(x) for x in tb.bucket], "chunk": tb.chunk,
                 "live_slots": live, "parked": parked_meta}
 
-    def _export_meta(self, buckets_meta) -> Dict:
+    def _export_meta(self, buckets_meta, **over) -> Dict:
         from repro_torch.launch.mesh import mesh_dims
 
         mesh = ([["slice", 1]] if self.mesh is None else
                 [[a, int(s)] for a, s in mesh_dims(self.mesh).items()])
-        return {
+        meta = {
             "format": 1,
             "mesh": mesh,
             "slots": self.slots,
@@ -1849,6 +1864,51 @@ class MSCContinuousEngine:
             "stats": dataclasses.asdict(self._stats),
             "buckets": buckets_meta,
         }
+        meta.update(over)
+        return meta
+
+    def _export_split(self):
+        """(device, host, meta): the payload of the control plane's
+        two-phase checkpoint (`checkpoint/store.py`, format 2).
+
+        The leaf order of `_export`, but the 15 carry leaves of a bucket
+        stay this rank's rows on its device, in the reference's padded
+        device layout: `device` is [(leaf_i, tensor, index, shape)] for
+        `store.write_process_shards`, with v (B, m', c), λ and the
+        residuals (B, m') at rows [k·m'/S, (k+1)·m'/S) of slice rank k,
+        and the sweeps and verdicts (B, S) at column k (the reference's
+        per-slice-shard copies).  Ranks that differ only on the inner dim
+        write the same ranges, whose bytes agree.  `host` is [(leaf_i,
+        array)], the bookkeeping the master writes whole.  `meta` says
+        carry_layout="device", so `_import` trims the padding and takes
+        one column at restore; the step is then as mesh-independent as
+        `_export`'s."""
+        sched = self._plan.sched
+        S, k = sched.slice_shards, sched.slice_index
+        dev: List[Tuple] = []
+        hst: List[Tuple[int, np.ndarray]] = []
+        buckets_meta = []
+        i = 0
+        for bucket in sorted(self._tables):
+            tb = self._tables[bucket]
+            for carry in tb.state.carries:
+                B, b, c = carry.v.shape
+                rows = (k * b, (k + 1) * b)
+                col = (k, k + 1)
+                for leaf, index, shape in (
+                        (carry.v, ((0, B), rows, (0, c)), (B, S * b, c)),
+                        (carry.lam, ((0, B), rows), (B, S * b)),
+                        (carry.resid, ((0, B), rows), (B, S * b)),
+                        (carry.iters.reshape(B, 1), ((0, B), col), (B, S)),
+                        (carry.done.reshape(B, 1), ((0, B), col), (B, S))):
+                    dev.append((i, leaf, index, shape))
+                    i += 1
+            for leaf in self._export_sched_leaves(tb):
+                hst.append((i, leaf))
+                i += 1
+            buckets_meta.append(self._bucket_meta(tb))
+        return dev, hst, self._export_meta(buckets_meta,
+                                           carry_layout="device")
 
     @classmethod
     def restore(cls, directory: str, *, mesh=None, device="cuda",
@@ -1888,15 +1948,25 @@ class MSCContinuousEngine:
     def _import(self, leaves: List[np.ndarray], meta: Dict) -> None:
         """Rebuild every slot table from an `_export` leaf list, on this
         engine's device or mesh.  The counters come first: a bucket's
-        autotune resolution (a cache hit, or a search) counts on top."""
+        autotune resolution (a cache hit, or a search) counts on top.
+        A format-2 step (`_export_split`, either package's) holds the
+        carries in the padded device layout: each mode's slice dim is
+        trimmed to the bucket's size and the per-shard sweeps and
+        verdicts give their first column, after which the import is
+        format 1's."""
         self._stats = ServeStats(**meta["stats"])
+        device_layout = meta.get("carry_layout") == "device"
         it = iter(leaves)
         np_dtype = _np_dtype(self.dtype)
         for bmeta in meta["buckets"]:
             bucket = tuple(int(x) for x in bmeta["bucket"])
             host_carries = []
-            for _ in range(3):
+            for j in range(3):
                 v, lam, resid, iters, done = (next(it) for _ in range(5))
+                if device_layout:
+                    m = bucket[MODE_PERMS[j][0]]
+                    v, lam, resid = v[:, :m], lam[:, :m], resid[:, :m]
+                    iters, done = iters[:, 0], done[:, 0]
                 host_carries.append(SolveState(v=v, lam=lam, resid=resid,
                                                iters=iters, done=done))
             dims = np.asarray(next(it), np.int32)

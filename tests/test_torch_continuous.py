@@ -327,11 +327,19 @@ def _engine(**kw):
     (dict(placement="shuffle"), ValueError, "placement"),
     (dict(bucket_policy="rr"), ValueError, "bucket_policy"),
     (dict(chunks_per_step=0), ValueError, "chunks_per_step"),
-    (dict(replicate_outputs=True), NotImplementedError, "item 10b"),
+    (dict(bucket_quantum=0), ValueError, "bucket_quantum"),
 ])
 def test_engine_rejects(kw, exc, match):
     with pytest.raises(exc, match=match):
         _engine(**kw)
+
+
+def test_engine_takes_replicate_outputs():
+    """The reference's flag for a mesh across processes: preemption
+    forced off, and recorded in the plan."""
+    eng = _engine(replicate_outputs=True, preempt=True)
+    assert eng.preempt is False and eng._plan.replicate_outputs is True
+    assert _engine().preempt is True
 
 
 # the tier knobs the engine takes, as the reference's; a directory knob
