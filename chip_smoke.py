@@ -206,9 +206,29 @@ line):
    wire bytes a tick, recovery_s and the cold wall beside 15a's
    (reported).  With one card 15c prints that it needs two and runs
    nothing.
+16. The MoE, SSM and hybrid archs at their published widths (random
+   weights from seed 0): granite-moe-1b-a400m, mamba2-2.7b,
+   recurrentgemma-2b and, last, qwen2-moe-a2.7b (~57 GB of fp32 master
+   weights).  Each: `launch/serve.py --arch A --batch 16 --prompt-len 32
+   --gen 16 --attn-impl pallas` in bf16 (no kernel launched: every
+   self-attention has a KV cache), its prefill ms, decode ms per token,
+   tokens/s and peak memory; the engine's decode graph in bf16 and fp32
+   against an eager loop of `decode_step` (phase 7's check): captured
+   once cold and never warm, no host sync in a replay, the last step's
+   logits within 2e-2 / 1e-4 of max |logit| and in fp32 the same tokens,
+   both warm times reported; the fp32
+   prefill's last logits against the no-cache `forward` at (2, 300)
+   within 2e-4 (the recurrences step by step against the chunked SSD and
+   the log-depth RG-LRU scan; MoE with capacity_factor = E / k, so no
+   side drops a token).  recurrentgemma-2b's no-cache forward at (1,
+   4096) through `flash_attention` (attn_impl="pallas") against the
+   chunked route on the same weights: hidden states within 1e-4 (fp32)
+   and 2e-2 (bf16; or the chunked route's own bf16-to-fp32 distance
+   where larger, both printed) of max |h|, exactly one launch per local
+   layer (8), both times.  0 B left after each arch.
 Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
 beside their measured times (`roofline.H100`; reported, no bar).
-`--only 11,12,13,14,15` (any subset) runs the card and build phases and
+`--only 11,12,13,14,15,16` (any subset) runs the card and build phases and
 the named phases alone (a development run: no result lines, exit code 3
 when they pass).
 
@@ -1506,17 +1526,21 @@ def eager_decode(torch, model, params, batch, n, max_len):
     return torch.cat(outs, dim=1), start.elapsed_time(end) / n
 
 
-def graphed_decode(torch, checks, model, params, batch, cdt, tol):
+def graphed_decode(torch, checks, model, params, batch, cdt, tol,
+                   label=""):
     """The engine's captured decode step against the eager loop on the
-    same model, weights and prompt: fp32 tokens identical, the last
-    step's logits within `tol` of the eager ones fed the same tokens, no
-    host sync in the replays; decode ms per token of both."""
+    same model, weights and prompt: one capture cold and none warm, fp32
+    tokens identical, the last step's logits within `tol` of the eager
+    ones fed the same tokens, no host sync in the replays; decode ms per
+    token of both.  The engine is closed after."""
     from repro_torch.serving.engine import ServeEngine
 
     max_len = LM_PROMPT + 2 * LM_GEN  # room for LM_GEN more replays
     engine = ServeEngine(model, params, LM_B, max_len)
     engine.generate(batch, LM_GEN)  # cold: one eager step, the capture
+    step = engine._decode
     toks = engine.generate(batch, LM_GEN)  # warm: replays only
+    once = engine.captures == 1 and engine._decode is step
     g_ms = engine.timings["decode_ms"] / LM_GEN
     last = engine.logits.clone()
     try:
@@ -1529,21 +1553,24 @@ def graphed_decode(torch, checks, model, params, batch, cdt, tol):
     except RuntimeError as e:
         torch.cuda.set_sync_debug_mode("default")
         synced = str(e).splitlines()[0]
+    engine.close()
     eager_decode(torch, model, params, batch, LM_GEN, max_len)  # warm-up
     e_toks, e_ms = eager_decode(torch, model, params, batch, LM_GEN, max_len)
     want = teacher_forced(torch, model, params, batch, toks, max_len)[-1]
     rel = ((last - want).abs().max() / want.abs().max()).item()
     same = torch.equal(toks, e_toks)
-    ok = (rel <= tol and not synced and engine.captures == 1
+    ok = (rel <= tol and not synced and once
           and (same or cdt != "float32"))
-    log(f"  {'ok  ' if ok else 'FAIL'} {cdt} decode from one CUDA graph per "
-        f"step: {g_ms:.3f} ms per token (eager loop {e_ms:.3f} ms, "
+    log(f"  {'ok  ' if ok else 'FAIL'} {label}{cdt} decode from one CUDA "
+        f"graph per step (captured once cold, none warm: {once}): "
+        f"{g_ms:.3f} ms per token (eager loop {e_ms:.3f} ms, "
         f"{e_ms / g_ms:.2f}x); tokens == eager loop's {same}; last logits "
         f"rel diff {rel:.3e} (tol {tol:g}); host sync in {LM_GEN} replays: "
         f"{synced or 'none'}")
     if not ok:
-        checks.failures.append(f"graphed decode {cdt}: tokens same {same}, "
-                               f"logits rel {rel:.3e}, sync {synced}")
+        checks.failures.append(f"{label}graphed decode {cdt}: tokens same "
+                               f"{same}, logits rel {rel:.3e}, sync "
+                               f"{synced}, captured once {once}")
     return {"graphed_ms_per_token": g_ms, "eager_ms_per_token": e_ms}
 
 
@@ -3289,16 +3316,184 @@ class _NpzMode:
         self.power_iters_run = int(z[f"iters_{i}"][j])
 
 
+# ------------------------------------------------------------ phase 16 --
+# the MoE, SSM and hybrid archs at their published widths (random weights
+# from seed 0), qwen2-moe-a2.7b last: ~57 GB of fp32 master weights
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "mamba2-2.7b", "recurrentgemma-2b",
+                "qwen2-moe-a2.7b")
+# the prefill against the no-cache forward: 300 tokens are two of
+# mamba2's 256-token SSD chunks, the second padded
+TWO_B, TWO_S = 2, 300
+# recurrentgemma's no-cache forward through the kernel: two 2048 windows
+RG_S = 4096
+
+
+def phase_families(torch, checks, smi):
+    """Phase 16: each of FAMILY_ARCHS served, its graphed decode against
+    the eager loop, its prefill against its no-cache forward, and on
+    recurrentgemma-2b the kernel route of that forward; 0 B left after
+    each arch.  Returns {label: launch counts}."""
+    import gc
+
+    from repro_torch.serving.graphs import capture_stream
+
+    t0 = time.perf_counter()
+    log(f"MoE, SSM and hybrid archs at their published widths; card: {smi}")
+    # what outlives the phase when it runs alone, made before the
+    # baselines: the capture stream's and the default stream's cuBLAS
+    # workspaces
+    capture_stream(DEVICE)
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.ones((8, 8), dtype=dt, device=DEVICE)
+        a @ a
+    del a
+    launches = {}
+    for arch in FAMILY_ARCHS:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        launches.update(_family_runs(torch, checks, smi, arch))
+        _freed(torch, checks, f"phase 16 {arch}", base)
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _family_runs(torch, checks, smi, arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.models import build_model, forward
+    from repro_torch.models.transformer import logits_last
+
+    label = f"lm serve {arch} pallas"
+    out, counts = drive_lm(torch, label, [
+        "--arch", arch, "--batch", str(LM_B), "--prompt-len", str(LM_PROMPT),
+        "--gen", str(LM_GEN), "--device", DEVICE, "--attn-impl", "pallas"])
+    peak = torch.cuda.max_memory_allocated()
+    _gate(checks, not any(counts.values())
+          and tuple(out["tokens"].shape) == (LM_B, LM_GEN), label,
+          f"{arch} served in bf16: tokens {tuple(out['tokens'].shape)}, "
+          f"kernel launches {counts} (want none: every self-attention here "
+          f"has a KV cache), peak {peak} B ({peak / 2**30:.2f} GiB); {smi}")
+    launches = {label: counts}
+    del out
+
+    cfg = get_config(arch)
+    dev = torch.device(DEVICE)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    for cdt, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+        model = build_model(dataclasses.replace(cfg, compute_dtype=cdt))
+        batch = make_batch(model.cfg, LM_B, LM_PROMPT, kind="serve",
+                           device=dev)
+        graphed_decode(torch, checks, model, params, batch, cdt, tol,
+                       label=f"{arch} ")
+
+    # two algorithms, one function: the prefill (the recurrences step by
+    # step, the SSD decode loop) against the no-cache forward (the chunked
+    # SSD, the log-depth RG-LRU scan), fp32; MoE with a capacity no side
+    # can overflow
+    two = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.n_experts:
+        two = dataclasses.replace(
+            two, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    model = build_model(two)
+    batch = make_batch(two, TWO_B, TWO_S, seed=1, kind="serve", device=dev)
+    t = time.perf_counter()
+    got, _ = model.prefill(params, batch, max_len=TWO_S + 1)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.no_grad():
+        hidden, _, aux = forward(params, batch["tokens"], two)
+        want = logits_last(params, hidden, two)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    _gate(checks, bool(torch.isfinite(got).all()) and rel <= 2e-4,
+          f"{arch} prefill vs forward",
+          f"{arch} fp32 prefill's last logits against the no-cache forward "
+          f"at ({TWO_B}, {TWO_S}): max rel diff {rel:.3e} (tol 2e-4); "
+          f"prefill {t_pre * 1e3:.1f} ms, forward {t_fwd * 1e3:.1f} ms, "
+          f"aux {aux.item():.6f}")
+    del got, want, hidden, model, batch
+    if arch == "recurrentgemma-2b":
+        launches.update(_rg_kernel_route(torch, checks, smi, cfg, params))
+    return launches
+
+
+def _rg_kernel_route(torch, checks, smi, cfg, params):
+    """recurrentgemma-2b's no-cache forward at B = 1, S = RG_S: its local
+    layers through `flash_attention` (attn_impl="pallas") against the
+    chunked route, fp32 then bf16: exactly one launch per local layer,
+    both times, hidden states within 1e-4 of max |h| in fp32; in bf16
+    within 2e-2, or within the chunked route's own bf16-to-fp32 distance
+    where that is larger (26 layers over 4096 tokens carry a rounding
+    flip far; that distance and the kernel route's are printed)."""
+    import dataclasses
+
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.models import forward
+
+    n_local = cfg.layer_kinds().count("local")
+    tokens = make_batch(cfg, 1, RG_S, seed=2, kind="serve",
+                        device=DEVICE)["tokens"]
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    launches, h32 = {}, None
+    for cdt in ("float32", "bfloat16"):
+        res = {}
+        for impl in ("chunked", "pallas"):
+            c = dataclasses.replace(cfg, compute_dtype=cdt, attn_impl=impl)
+            with torch.no_grad():
+                forward(params, tokens, c)  # warm
+                mods = _reset_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                h, _, _ = forward(params, tokens, c)
+                end.record()
+                end.synchronize()
+            res[impl] = (h.float(), start.elapsed_time(end),
+                         _read_counts(mods))
+        (hp, ms_p, n_p), (hc, ms_c, n_c) = res["pallas"], res["chunked"]
+        diff = rel(hp, hc)
+        if cdt == "float32":
+            h32, tol, text = hc, 1e-4, ""
+        else:
+            floor, own = rel(hc, h32), rel(hp, h32)
+            tol = max(2e-2, floor)
+            text = (f"; bf16 rounding alone: chunked bf16 vs chunked fp32 "
+                    f"{floor:.3e}, kernel bf16 vs chunked fp32 {own:.3e}")
+        label = f"recurrentgemma-2b forward S={RG_S} pallas {cdt}"
+        launches[label] = n_p
+        _gate(checks, bool(torch.isfinite(hp).all()) and diff <= tol
+              and n_p["flash_attention"] == n_local
+              and not any(n_c.values()), label,
+              f"recurrentgemma-2b {cdt} no-cache forward at (1, {RG_S}), "
+              f"kernel route against chunked: hidden max rel diff "
+              f"{diff:.3e} (tol {tol:.3g}){text}; flash_attention launches "
+              f"{n_p['flash_attention']} (want {n_local}, one per local "
+              f"layer); forward {ms_p:.2f} ms (kernel) / {ms_c:.2f} ms "
+              f"(chunked); {smi}")
+        del res, hp, hc
+    return launches
+
+
 def _only_phases():
-    """`--only 11,12,13,14,15`: the later phases to run alone
+    """`--only 11,12,13,14,15,16`: the later phases to run alone
     (development runs only; with no arguments every phase runs)."""
     if "--only" not in sys.argv:
         return []
     names = sys.argv[sys.argv.index("--only") + 1].split(",")
-    bad = [n for n in names if n not in ("11", "12", "13", "14", "15")]
+    bad = [n for n in names
+           if n not in ("11", "12", "13", "14", "15", "16")]
     if bad:
-        raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14, 15; "
-                         f"got {bad}")
+        raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14, 15, "
+                         f"16; got {bad}")
     return names
 
 
@@ -3327,7 +3522,7 @@ def main() -> int:
         # a development run of the named tier phases: no result lines
         tiers = {"11": phase_cache, "12": phase_scheduler,
                  "13": phase_faults, "14": phase_autotune,
-                 "15": phase_multihost}
+                 "15": phase_multihost, "16": phase_families}
         for name in only:
             tiers[name](torch, checks, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s (phases "
@@ -3350,6 +3545,7 @@ def main() -> int:
     launches.update(phase_faults(torch, checks, smi))
     launches.update(phase_autotune(torch, checks, smi))
     launches.update(phase_multihost(torch, checks, smi))
+    launches.update(phase_families(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

@@ -76,7 +76,10 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", mesh=None):
     pytree (nested dicts and tuples of numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`).  The reference's stacked
     `layers` / `enc_layers` (a leading layer dim) become one module per
-    layer; every shape must match the port's defs.
+    layer, the `tail` tuple one module per entry; every leaf crosses
+    as it is (the stacked expert weights (E, d, f), the `shared` MLP,
+    the SSM and RG-LRU leaves among them) and every shape must match the
+    port's defs.
 
     With `mesh` (an LM serving mesh, `launch/mesh.py:make_local_mesh`)
     each rank gets only its shards under the serve rules' `param_specs`,

@@ -30,7 +30,7 @@ reference writes them, so each package reads the other's checkpoints.
     files no manifest references.
 
 Not here: `CheckpointManager` and `restore_checkpoint`, used only by
-training, are item 12.
+training, are item 12 (b).
 """
 from __future__ import annotations
 

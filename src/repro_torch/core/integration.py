@@ -8,10 +8,11 @@ Two tensors a training framework produces anyway:
 * MoE routing tensors (layers × experts × feature bins): triclusters
   expose expert groups with correlated routing.
 
-Both go through the same MSC entry points as the paper's CLI.  The
-reference feeds `routing_tensor` from its MoE router, which the port has
-not yet (ROADMAP.md, queue 1 item 12): here it takes router
-probabilities from any source.
+Both go through the same MSC entry points as the paper's CLI.
+`routing_tensor` takes per-layer router probabilities from the caller,
+as in the reference, which has no caller that feeds it from its own MoE
+router; neither has the port (`models/layers.py:moe_route` gives a
+layer's probabilities).
 """
 from __future__ import annotations
 

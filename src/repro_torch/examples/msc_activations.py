@@ -32,7 +32,7 @@ def layer_activations(dev) -> list:
                            device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
     with torch.no_grad():
-        h, _ = forward(params, tokens, cfg)
+        h, _, _ = forward(params, tokens, cfg)
         emb = params["embed"][tokens.long()].to(h.dtype)[0]
     noise = 0.01 * torch.randn(h[0].shape, device=dev,
                                generator=torch.Generator(device=dev)

@@ -1,11 +1,14 @@
 """Serve a small LM with batched requests: prefill and greedy decode —
 counterpart of `examples/serve_lm.py`.
 
-Any dense arch id of `repro_torch.configs` works; the config is reduced
-(the CPU's size).  Random weights from seed 0.
+Any of the ten arch ids of `repro_torch.configs` works (dense, MoE, SSM,
+hybrid, VLM and encoder–decoder); the config is reduced (the CPU's
+size).  Random weights from seed 0.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch gemma2-27b
   PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu
+  PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu \
+      --arch recurrentgemma-2b
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ checkpointed on 2 ranks finishes on 1, and the reverse.
 
 `restore_after_host_loss` is the survivor's side of the multi-host
 control plane (`launch/distributed.py`).  `ElasticTrainer` waits for the
-training side (item 12).
+training side (item 12 (b)).
 """
 from __future__ import annotations
 

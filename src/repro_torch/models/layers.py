@@ -21,9 +21,14 @@ reference's three conditions (`attention` below):
             (with an int position offset) and the cross-attention of an
             encoder–decoder model; on the CPU the kernel's plain
             version.
+
+`moe` is the reference's grouped top-k MoE with capacity, on one device
+(the expert-parallel combine over "model" is not ported: a mesh with an
+MoE model raises, `serving/engine.py`).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -37,10 +42,6 @@ from .config import ModelConfig
 from .params import ParamDef
 
 _NEG = -1e30
-
-# moe is not on the port's serving path yet
-MOE_TODO = ("mixture-of-experts layers are not ported yet: ROADMAP.md, "
-            "queue 1 item 12")
 
 
 # ---------------------------------------------------------------- norms ----
@@ -412,9 +413,119 @@ def mlp(p, x, cfg: ModelConfig):
 
 
 # ------------------------------------------------------------------ moe ----
+def padded_experts(cfg: ModelConfig) -> int:
+    """Expert count including EP padding (cfg.expert_pad; router-masked)."""
+    return max(cfg.n_experts, cfg.expert_pad or 0)
+
+
 def moe_defs(cfg: ModelConfig):
-    raise NotImplementedError(MOE_TODO)
+    d, f = cfg.d_model, cfg.d_expert
+    e = padded_experts(cfg)
+    defs = {
+        "router": ParamDef((d, e), ("embed", "experts")),
+        "w1": ParamDef((e, d, f), ("experts", "embed", "expert_ffn")),
+        "w2": ParamDef((e, f, d), ("experts", "expert_ffn", "embed")),
+        "w3": ParamDef((e, d, f), ("experts", "embed", "expert_ffn")),
+    }
+    if cfg.n_shared_experts:
+        defs["shared"] = mlp_defs(cfg,
+                                  d_ff=cfg.n_shared_experts * cfg.d_expert)
+    return defs
+
+
+def moe_groups(n: int, cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(groups, group size, capacity) for n tokens: the group size is the
+    largest divisor of n that fits cfg.moe_group_size; the capacity is
+    sized by the REAL expert count (padded experts receive no tokens and
+    must not dilute it), at least 4, a multiple of 4 and at most the
+    group size."""
+    gs = min(cfg.moe_group_size, n)
+    while n % gs:
+        gs -= 1
+    cap = int(math.ceil(gs * cfg.experts_per_token * cfg.capacity_factor
+                        / cfg.n_experts))
+    cap = min(max(4, -(-cap // 4) * 4), gs)
+    return n // gs, gs, cap
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """fp32 one-hot of integer-valued `idx` by comparison with an arange
+    (`F.one_hot` reads its indices back to check them, which a captured
+    step cannot do); an index outside [0, n) gives a zero row, as
+    `jax.nn.one_hot`."""
+    return (idx[..., None] == torch.arange(n, device=idx.device,
+                                           dtype=idx.dtype)).float()
+
+
+def moe_route(p, xt: torch.Tensor, cfg: ModelConfig, cap: int) -> dict:
+    """The routing of grouped tokens xt (g, gs, D), as the reference
+    routes them: router logits in the compute dtype, padded experts
+    masked to -1e30, an fp32 softmax, the top k renormalised.  Ties go to
+    the lower expert index, as `jax.lax.top_k` breaks them (a stable
+    descending sort; `torch.topk` promises no order among ties on CUDA).
+    Each (token, choice) takes its place in its expert's queue by an
+    exclusive cumsum in (s-major, k-minor) order and is kept when that
+    place is below `cap`.
+
+    Returns probs (g, gs, E), topv and topi (g, gs, k), onehot, pos and
+    keep (g, gs, k, E), all fp32 but topi."""
+    e, k = padded_experts(cfg), cfg.experts_per_token
+    g, gs, _ = xt.shape
+    logits = xt @ use(p["router"]).to(cfg.cdtype)
+    if e > cfg.n_experts:   # EP padding: fake experts are never routed
+        emask = torch.arange(e, device=xt.device) < cfg.n_experts
+        logits = torch.where(emask, logits,
+                             torch.full((), -1e30, dtype=logits.dtype,
+                                        device=xt.device))
+    probs = torch.softmax(logits.float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = vals[..., :k], idx[..., :k]
+    topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
+    onehot = _one_hot(topi, e)                                # (g, gs, k, e)
+    flat = onehot.reshape(g, gs * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, gs, k, e)
+    keep = onehot * (pos < cap)
+    return {"probs": probs, "topv": topv, "topi": topi, "onehot": onehot,
+            "pos": pos, "keep": keep}
 
 
 def moe(p, x, cfg: ModelConfig):
-    raise NotImplementedError(MOE_TODO)
+    """GShard-style grouped top-k MoE with capacity.  x: (B,S,D) → (y, aux).
+
+    Tokens are split into groups (`moe_groups`), routed within each group
+    (`moe_route`), and dispatched to and combined from the experts by
+    dense einsums over (E, cap), as in the reference.  aux is the Switch
+    load-balance loss over the real experts.
+    """
+    b, s, d = x.shape
+    cd = cfg.cdtype
+    g, gs, cap = moe_groups(b * s, cfg)
+    xt = x.reshape(g, gs, d)
+    r = moe_route(p, xt, cfg, cap)
+    gate = r["topv"][..., None] * r["keep"]                   # (g, gs, k, e)
+    # Each (token, expert) pair is chosen by at most one k-slot, so the
+    # k axis folds out BEFORE the cap one-hot, as in the reference: the
+    # (g, gs, k, e, cap) dispatch tensor would be k times larger.
+    gate_e = torch.sum(gate, dim=2)                           # (g, gs, e)
+    pos_e = torch.sum(r["pos"] * r["keep"], dim=2)            # (g, gs, e)
+    sel_e = torch.sum(r["keep"], dim=2)                       # (g, gs, e) 0/1
+    pos_oh = _one_hot(pos_e, cap) * sel_e[..., None]          # (g, gs, e, cap)
+    combine = (gate_e[..., None] * pos_oh).to(cd)
+    dispatch = pos_oh.to(cd)
+
+    xin = torch.einsum("gsec,gsd->gecd", dispatch, xt)        # (g, e, cap, d)
+    h = _act(torch.einsum("gecd,edf->gecf", xin, use(p["w1"]).to(cd)),
+             cfg.act)
+    h = h * torch.einsum("gecd,edf->gecf", xin, use(p["w3"]).to(cd))
+    xout = torch.einsum("gecf,efd->gecd", h, use(p["w2"]).to(cd))
+    y = torch.einsum("gsec,gecd->gsd", combine, xout)
+    if cfg.n_shared_experts:
+        y = y + mlp(p["shared"], xt, cfg)
+
+    # load-balance aux loss (Switch): e·Σ_e f_e·P_e (real expert count;
+    # padded experts have f = P = 0)
+    frac_tokens = torch.mean(r["onehot"].sum(2), dim=1)       # (g, e)
+    frac_probs = torch.mean(r["probs"], dim=1)                # (g, e)
+    aux = cfg.n_experts * torch.mean(torch.sum(frac_tokens * frac_probs,
+                                               dim=-1))
+    return y.reshape(b, s, d), aux

@@ -1,0 +1,105 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427) —
+counterpart of `repro/models/rglru.py`.
+
+Gated diagonal linear recurrence
+    r_t = σ(W_a x_t + b_a)          (recurrence gate)
+    i_t = σ(W_i x_t + b_i)          (input gate)
+    log a_t = −c · r_t · softplus(Λ)            (c = 8)
+    h_t = a_t ⊙ h_{t−1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ x_t)
+
+No-cache path: a log-depth (Hillis–Steele) scan over (a, b) pairs in
+fp32, where the reference runs `jax.lax.associative_scan`.  Cache path:
+one recurrence step per token over a (B, rnn_width) state, as the
+reference's `lax.scan`; it writes the states into the cache's own
+tensors, so a captured decode step replays over fixed buffers.
+
+Block structure (Griffin recurrent block): two branches from the input —
+a GeLU gate branch and a conv1d → RG-LRU branch — merged multiplicatively
+and projected back to d_model.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.sharding.activation import use
+
+from .config import ModelConfig
+from .params import ParamDef
+from .ssm import _causal_conv, _softplus
+
+_C = 8.0
+
+
+def rglru_defs(cfg: ModelConfig):
+    d, w = cfg.d_model, cfg.rnn_width
+    return {
+        "w_gate": ParamDef((d, w), ("embed", "rnn")),
+        "w_x": ParamDef((d, w), ("embed", "rnn")),
+        "conv_w": ParamDef((cfg.conv_width, w), ("conv", "rnn"), scale=0.5),
+        "conv_b": ParamDef((w,), ("rnn",), init="zeros"),
+        "w_a": ParamDef((w, w), ("rnn", "rnn"), scale=0.01),
+        "b_a": ParamDef((w,), ("rnn",), init="zeros"),
+        "w_i": ParamDef((w, w), ("rnn", "rnn"), scale=0.01),
+        "b_i": ParamDef((w,), ("rnn",), init="zeros"),
+        "lam": ParamDef((w,), ("rnn",), init="ones"),
+        "w_out": ParamDef((w, d), ("rnn", "embed")),
+    }
+
+
+def _gates(p, xr):
+    """a_t and the gated input b_t.  xr: (B,S,W) fp32."""
+    r = torch.sigmoid(xr @ use(p["w_a"]).float() + use(p["b_a"]).float())
+    i = torch.sigmoid(xr @ use(p["w_i"]).float() + use(p["b_i"]).float())
+    log_a = -_C * r * _softplus(use(p["lam"]).float())
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xr)
+    return a, gated
+
+
+def linear_scan(a, b):
+    """h_t = a_t h_{t−1} + b_t from h_{−1} = 0, over dim 1, in ⌈log2 S⌉
+    doubling steps: after the step of offset d each position holds the
+    composition of the d·2 pairs ending there (the pair (a1, b1) then
+    (a2, b2) composes to (a2 a1, a2 b1 + b2))."""
+    s, d = a.shape[1], 1
+    while d < s:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def rglru_cache_shape(cfg: ModelConfig, batch: int):
+    """Decode cache: (conv_state (B,W−1,rnn), h_state (B,rnn)) shapes."""
+    return ((batch, cfg.conv_width - 1, cfg.rnn_width),
+            (batch, cfg.rnn_width))
+
+
+def rglru_block(p, x, cfg: ModelConfig, cache: Tuple = None):
+    """x: (B,S,D) → ((B,S,D), cache).  cache=None → the log-depth scan;
+    else the step loop, the cache's states overwritten in place."""
+    cd = cfg.cdtype
+    gate = F.gelu(x @ use(p["w_gate"]).to(cd), approximate="tanh")
+    xr = x @ use(p["w_x"]).to(cd)
+    xr, tail = _causal_conv(xr, use(p["conv_w"]).to(cd),
+                            use(p["conv_b"]).to(cd),
+                            None if cache is None else cache[0])
+    a, b = _gates(p, xr.float())
+
+    if cache is None:
+        h = linear_scan(a, b)
+    else:
+        hs = cache[1].float()
+        hh = []
+        for t in range(a.shape[1]):
+            hs = a[:, t] * hs + b[:, t]
+            hh.append(hs)
+        h = torch.stack(hh, dim=1)
+        cache[0].copy_(tail)
+        cache[1].copy_(hs)
+
+    y = (gate.float() * h).to(cd) @ use(p["w_out"]).to(cd)
+    return y, cache

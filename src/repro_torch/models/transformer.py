@@ -1,4 +1,5 @@
-"""Model assembly — counterpart of `repro/models/transformer.py`.
+"""Model assembly for all 10 architecture families — counterpart of
+`repro/models/transformer.py`.
 
 One `Model` facade per ModelConfig provides:
   defs()            — declarative param tree (ParamDef leaves)
@@ -6,23 +7,27 @@ One `Model` facade per ModelConfig provides:
   prefill / decode  — serving paths with per-family caches
 
 Layers are grouped into super-blocks of the config's pattern period, as
-in the reference (dense: 1, gemma2 local/global: 2).  Where the reference
-stacks full super-blocks and drives them with `lax.scan`, the port keeps
-one module per super-block in an `nn.ModuleList` and loops over them;
-leftover layers ("tail") run after, as in the reference.  Caches mirror
-the layer structure: a list of per-super-block dicts under "layers" and
-a tuple under "tail", written in place by the decode step.
+in the reference (dense: 1, gemma2 local/global: 2, recurrentgemma
+rglru/rglru/local: 3).  Where the reference stacks full super-blocks and
+drives them with `lax.scan`, the port keeps one module per super-block
+in an `nn.ModuleList` and loops over them; leftover layers ("tail", 26 =
+8·3 + 2 on recurrentgemma) run after, as in the reference.  Caches
+mirror the layer structure: a list of per-super-block dicts under
+"layers" and a tuple under "tail", each leaf a buffer of its own dtype
+(KV caches in the compute dtype, SSM and RG-LRU states in fp32, as the
+reference keeps them), written in place by the decode step.
 
-On this path the attention kernel runs in the encoder's self-attention
-and in every cross-attention (prefill and decode); the decoder's
-self-attention has a KV cache and takes the chunked route
+On this path the attention kernel runs wherever a self-attention has no
+KV cache (the encoder's, and a no-cache `forward` with
+`attn_impl="pallas"`) and in every cross-attention (prefill and
+decode); a self-attention with a KV cache takes the chunked route
 (`layers.attention`).  Under `sharding/activation.py:activation_sharding`
 the model runs as one rank of an LM serving mesh: the embedding looks
 its tokens up in the rank's vocab rows (summed over "model"), the caches
 are made as the rank's shards (`init_cache`) and the logits are gathered
-whole over the vocab.  The training side (`lm_loss`, `loss_fn`), the SSM
-and RG-LRU blocks and MoE are not ported yet (ROADMAP.md, queue 1 item
-12).
+whole over the vocab; MoE, SSM and RG-LRU models serve on one device only
+(`serving/engine.py`).  The training side (`lm_loss`, `loss_fn`) is not
+ported yet (ROADMAP.md, queue 1 item 12 (b)).
 """
 from __future__ import annotations
 
@@ -38,17 +43,17 @@ from repro_torch.sharding.activation import (constrain, current, hold,
 from .config import ModelConfig
 from .params import ParamDef, init_params, stack_defs
 from . import layers as L
-
-TODO = ("is not ported yet: ROADMAP.md, queue 1 item 12 (the port serves "
-        "dense attention and encoder-decoder models)")
+from . import rglru as R
+from . import ssm as S
 
 
 # ------------------------------------------------------------- defs ----
 def _block_defs(cfg: ModelConfig, kind: str, cross: bool = False):
-    if kind in ("ssm", "rglru"):
-        raise NotImplementedError(f"the {kind} block {TODO}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"the MoE block {TODO}")
+    if kind == "ssm":
+        return {"ln1": L.rmsnorm_defs(cfg.d_model), "ssm": S.ssm_defs(cfg)}
+    if kind == "rglru":
+        return {"ln1": L.rmsnorm_defs(cfg.d_model), "rnn": R.rglru_defs(cfg),
+                "ln2": L.rmsnorm_defs(cfg.d_model), "mlp": L.mlp_defs(cfg)}
     d: Dict[str, Any] = {
         "ln1": L.rmsnorm_defs(cfg.d_model),
         "attn": L.attention_defs(cfg),
@@ -57,7 +62,10 @@ def _block_defs(cfg: ModelConfig, kind: str, cross: bool = False):
     if cross:
         d["lnx"] = L.rmsnorm_defs(cfg.d_model)
         d["xattn"] = L.attention_defs(cfg)
-    d["mlp"] = L.mlp_defs(cfg)
+    if cfg.n_experts and kind in ("attn", "global", "local"):
+        d["moe"] = L.moe_defs(cfg)
+    else:
+        d["mlp"] = L.mlp_defs(cfg)
     return d
 
 
@@ -105,27 +113,40 @@ def model_defs(cfg: ModelConfig):
 
 
 # ------------------------------------------------------------ caches ----
+@dataclasses.dataclass(frozen=True)
+class CacheLeaf:
+    """One cache buffer's shape and dtype (the reference's
+    ShapeDtypeStruct)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
 def _block_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
                         max_len: int, cross: bool):
-    if kind in ("ssm", "rglru"):
-        raise NotImplementedError(f"the {kind} cache {TODO}")
-    k, dh = cfg.n_kv_heads, cfg.head_dim
+    if kind == "ssm":
+        return {"ssm": tuple(CacheLeaf(sh, torch.float32)
+                             for sh in S.ssm_cache_shape(cfg, batch))}
+    if kind == "rglru":
+        return {"rnn": tuple(CacheLeaf(sh, torch.float32)
+                             for sh in R.rglru_cache_shape(cfg, batch))}
+    k, dh, cd = cfg.n_kv_heads, cfg.head_dim, cfg.cdtype
     # sliding-window layers keep a ring buffer of exactly `window` slots
     # (slot = pos % W — layers.attention); full-attention layers keep the
     # full-length buffer
     length = max_len
     if kind == "local" and cfg.local_window and cfg.local_window < max_len:
         length = cfg.local_window
-    d = {"attn": ((batch, length, k, dh), (batch, length, k, dh))}
+    kv = CacheLeaf((batch, length, k, dh), cd)
+    d = {"attn": (kv, kv)}
     if cross:
-        d["xattn"] = ((batch, cfg.enc_context, k, dh),
-                      (batch, cfg.enc_context, k, dh))
+        xkv = CacheLeaf((batch, cfg.enc_context, k, dh), cd)
+        d["xattn"] = (xkv, xkv)
     return d
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
-    """Cache shapes mirroring the layer structure; every buffer has the
-    compute dtype."""
+    """`CacheLeaf`s mirroring the layer structure: KV caches in the
+    compute dtype, SSM and RG-LRU states in fp32."""
     kinds, n_scan, n_rest = _pattern(cfg)
     period = _period(cfg)
     cross = cfg.is_encdec
@@ -143,39 +164,14 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     return out
 
 
-def _zeros_like_shapes(tree, dtype, device):
+def map_cache(tree, fn):
+    """fn applied to every leaf of a cache tree (dicts, lists and tuples
+    of `CacheLeaf`s or tensors), the structure kept."""
     if isinstance(tree, dict):
-        return {k: _zeros_like_shapes(v, dtype, device)
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_zeros_like_shapes(v, dtype, device) for v in tree]
-    if tree and isinstance(tree[0], int):  # one shape
-        return torch.zeros(tree, dtype=dtype, device=device)
-    return tuple(_zeros_like_shapes(v, dtype, device) for v in tree)
-
-
-def _shard_leaves(tree, ctx):
-    """Under a mesh, each cache leaf's global shape → (local shape, its
-    cache spec)."""
-    if isinstance(tree, dict):
-        return {k: _shard_leaves(v, ctx) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_shard_leaves(v, ctx) for v in tree]
-    if tree and isinstance(tree[0], int):
-        spec = ctx.cache_spec(tree)
-        return ("leaf", ctx.local_shape(tree, spec), spec)
-    return tuple(_shard_leaves(v, ctx) for v in tree)
-
-
-def _zeros_of(tree, dtype, device):
-    if isinstance(tree, dict):
-        return {k: _zeros_of(v, dtype, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_zeros_of(v, dtype, device) for v in tree]
-    if tree and tree[0] == "leaf":
-        return hold(torch.zeros(tree[1], dtype=dtype, device=device),
-                    tree[2])
-    return tuple(_zeros_of(v, dtype, device) for v in tree)
+        return {k: map_cache(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_cache(v, fn) for v in tree)
+    return fn(tree)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
@@ -184,17 +180,43 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     (marked with its spec)."""
     ctx = current()
     if ctx is None:
-        return _zeros_like_shapes(cache_shapes(cfg, batch, max_len),
-                                  cfg.cdtype, device)
-    shapes = cache_shapes(cfg, batch * ctx.size(ctx.batch_entry), max_len)
-    return _zeros_of(_shard_leaves(shapes, ctx), cfg.cdtype, device)
+        return map_cache(cache_shapes(cfg, batch, max_len),
+                         lambda l: torch.zeros(l.shape, dtype=l.dtype,
+                                               device=device))
+
+    def shard(leaf):
+        spec = ctx.cache_spec(leaf.shape)
+        return hold(torch.zeros(ctx.local_shape(leaf.shape, spec),
+                                dtype=leaf.dtype, device=device), spec)
+
+    return map_cache(cache_shapes(cfg, batch * ctx.size(ctx.batch_entry),
+                                  max_len), shard)
 
 
 # ----------------------------------------------------------- blocks ----
 def _apply_block(p, x, cfg: ModelConfig, kind: str, *, cache=None,
                  cache_len=None, enc_out=None, pos_offset=0, causal=True):
-    """One residual block.  Returns (x, new_cache)."""
+    """One residual block.  Returns (x, new_cache, aux), aux 0.0 but for
+    an MoE block (a 0-d tensor): a block without MoE adds no launch."""
+    aux = 0.0
     new_cache = dict(cache) if cache is not None else None
+    if kind == "ssm":
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        if cache is None:
+            y = S.ssd_train(p["ssm"], h, cfg)
+        else:
+            y, new_cache["ssm"] = S.ssd_decode(p["ssm"], h, cache["ssm"], cfg)
+        return x + y, new_cache, aux
+    if kind == "rglru":
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        y, rc = R.rglru_block(p["rnn"], h, cfg,
+                              cache["rnn"] if cache is not None else None)
+        if cache is not None:
+            new_cache["rnn"] = rc
+        x = x + y
+        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + L.mlp(p["mlp"], h, cfg), new_cache, aux
+
     h = constrain(L.rmsnorm(p["ln1"], x, cfg.norm_eps), ("batch", None, None))
     y, kvc = L.attention(
         p["attn"], h, cfg, kind=kind, pos_offset=pos_offset,
@@ -217,21 +239,27 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, cache=None,
                                static_kv=cache["xattn"], causal=False)
         x = x + y
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, cfg), new_cache
+    if "moe" in p:
+        y, aux = L.moe(p["moe"], h, cfg)
+    else:
+        y = L.mlp(p["mlp"], h, cfg)
+    return x + y, new_cache, aux
 
 
 def _superblock(p_sb, x, cfg, kinds_period, *, cache=None, cache_len=None,
                 enc_out=None, pos_offset=0):
+    aux = 0.0
     new_cache = {} if cache is not None else None
     for j, kind in enumerate(kinds_period):
         key = f"k{j}"
         c = cache[key] if cache is not None else None
-        x, nc = _apply_block(p_sb[key], x, cfg, kind, cache=c,
-                             cache_len=cache_len, enc_out=enc_out,
-                             pos_offset=pos_offset)
+        x, nc, a = _apply_block(p_sb[key], x, cfg, kind, cache=c,
+                                cache_len=cache_len, enc_out=enc_out,
+                                pos_offset=pos_offset)
         if cache is not None:
             new_cache[key] = nc
-    return x, new_cache
+        aux = aux + a
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------- forward ----
@@ -244,8 +272,9 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
     (B, T_enc, D) audio frame stub (whisper) — runs the encoder and
     cross-attends.  cache/cache_len: the serving path (cache_len a
     Python int, or a 0-d int tensor on the device for a step that reads
-    nothing back to the host).  Returns (hidden (B,S,D), new_cache); the reference's
-    third output, the MoE aux loss, has no source in the port.
+    nothing back to the host).  Returns (hidden (B,S,D), new_cache,
+    aux_loss), aux_loss the sum of the MoE layers' load-balance losses
+    (a 0-d fp32 zero without MoE).
     """
     kinds, n_scan, n_rest = _pattern(cfg)
     period = _period(cfg)
@@ -260,28 +289,31 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
     if cfg.is_encdec and enc_frames is not None:
         e = enc_frames.to(cd) + use(params["enc_pos"]).to(cd)[None]
         for p_layer in params["enc_layers"]:
-            e, _ = _apply_block(p_layer, e, cfg, "attn", causal=False)
+            e, _, _ = _apply_block(p_layer, e, cfg, "attn", causal=False)
         enc_out = L.rmsnorm(params["enc_norm"], e, cfg.norm_eps)
 
     pos_offset = 0 if cache_len is None else cache_len
     kinds_period = tuple(kinds[:period])
+    aux_total = 0.0
 
     new_layers = []
     for i in range(n_scan):
         c_sb = cache["layers"][i] if cache is not None else None
-        x, nc = _superblock(params["layers"][i], x, cfg, kinds_period,
-                            cache=c_sb, cache_len=cache_len,
-                            enc_out=enc_out, pos_offset=pos_offset)
+        x, nc, a = _superblock(params["layers"][i], x, cfg, kinds_period,
+                               cache=c_sb, cache_len=cache_len,
+                               enc_out=enc_out, pos_offset=pos_offset)
         x = constrain(x, ("batch", None, None))
+        aux_total = aux_total + a
         new_layers.append(nc)
 
     new_tail = []
     for j in range(n_rest):
         kind = kinds[n_scan * period + j]
         c = cache["tail"][j] if cache is not None else None
-        x, nc = _apply_block(params["tail"][j], x, cfg, kind, cache=c,
-                             cache_len=cache_len, enc_out=enc_out,
-                             pos_offset=pos_offset)
+        x, nc, a = _apply_block(params["tail"][j], x, cfg, kind, cache=c,
+                                cache_len=cache_len, enc_out=enc_out,
+                                pos_offset=pos_offset)
+        aux_total = aux_total + a
         new_tail.append(nc)
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -292,7 +324,9 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
             new_cache["layers"] = new_layers
         if n_rest:
             new_cache["tail"] = tuple(new_tail)
-    return x, new_cache
+    if not torch.is_tensor(aux_total):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux_total
 
 
 def _embed(emb, tokens):
@@ -350,7 +384,7 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
-        hidden, cache = forward(
+        hidden, cache, _ = forward(
             params, tokens, cfg, cache=cache, cache_len=0,
             prefix_embed=batch.get("patches"),
             enc_frames=batch.get("frames"))
@@ -362,8 +396,8 @@ class Model:
         the cache updated in place.  cache_len: the positions filled, a
         Python int or a 0-d int tensor on the device (the same logits,
         bit for bit; the tensor form captures as one CUDA graph)."""
-        hidden, cache = forward(params, tokens, self.cfg, cache=cache,
-                                cache_len=cache_len)
+        hidden, cache, _ = forward(params, tokens, self.cfg, cache=cache,
+                                   cache_len=cache_len)
         return logits_last(params, hidden, self.cfg), cache
 
 

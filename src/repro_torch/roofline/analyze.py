@@ -7,12 +7,13 @@ serving) and the "auto" choosers that read them: `choose_relayout`,
 the reference's `V5E` by default, so a call without it gives the
 reference's numbers; the port's call sites pass
 `hw.target_hw(device)` (`H100` on a card).  Also the LM side's model
-FLOPs (`model_flops`, `active_param_count`, the dense families the port
-builds) and the `RooflineReport` record with `save_report`.
+FLOPs (`model_flops`, `active_param_count`, every family) and the
+`RooflineReport` record with `save_report`.
 
 The reference builds a report from an XLA compiled object
 (`report_from_compiled`, through its HLO parser); the port's profile-based
-counterpart comes with `launch/dryrun.py` (ROADMAP.md queue 1 item 12).
+counterpart comes with `launch/dryrun.py` (ROADMAP.md queue 1 item 12
+(c)).
 """
 from __future__ import annotations
 

@@ -27,7 +27,10 @@ time dim (B = 1), and the model runs under `activation_sharding`
 (`sharding/activation.py`), with the FSDP gathers inside the steps.
 Every rank passes the same whole batch to `generate` and gets the same
 whole (B, n) tokens back; on a card the decode step stays one CUDA graph,
-its collectives inside.
+its collectives inside.  MoE, SSM and RG-LRU models serve on one device
+only (`one_device_only`): `_cache_leaf_spec` would read a (B, H, P, N)
+SSM state as a (B, T, K, dh) KV cache, and the expert-parallel combine
+over "model" is not ported.
 """
 from __future__ import annotations
 
@@ -39,13 +42,24 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.models import Model, cache_shapes
+from repro_torch.models import Model, cache_shapes, map_cache
 from repro_torch.models.params import build
 from repro_torch.serving.graphs import Step, warm_up
 from repro_torch.sharding.activation import (LMShards, activation_sharding,
                                              held_of, hold, spec_entry)
 from repro_torch.sharding.specs import (batch_axes_for, mesh_dims,
                                         param_specs, rules_for)
+
+
+MESH_TODO = ("is served on one device only: MoE, SSM and RG-LRU models on a "
+             "mesh are not ported yet (ROADMAP.md, queue 1 item 12 (a))")
+
+
+def one_device_only(cfg) -> bool:
+    """Whether the model has MoE, SSM or RG-LRU blocks, which serve on one
+    device only."""
+    return bool(cfg.n_experts) or any(k in ("ssm", "rglru")
+                                      for k in cfg.layer_kinds())
 
 
 class _Clock:
@@ -128,20 +142,15 @@ def cache_specs(model: Model, mesh, batch: int, max_len: int):
     bs = spec_entry(used)
     shapes = cache_shapes(model.cfg, batch, max_len)
 
-    def leaves(tree, fn):
-        if isinstance(tree, dict):
-            return {k: leaves(v, fn) for k, v in tree.items()}
-        if tree and isinstance(tree[0], int):
-            return fn(tree)
-        return tuple(leaves(v, fn) for v in tree)
+    def spec(leaf):
+        return tuple(_cache_leaf_spec(leaf.shape, mesh, bs, time_axes))
 
     out = {}
     if "layers" in shapes:  # one super-block's leaves, with the layer dim
-        out["layers"] = leaves(shapes["layers"][0], lambda sh: (None,) + tuple(
-            _cache_leaf_spec(sh, mesh, bs, time_axes)))
+        out["layers"] = map_cache(shapes["layers"][0],
+                                  lambda leaf: (None,) + spec(leaf))
     if "tail" in shapes:
-        out["tail"] = leaves(shapes["tail"], lambda sh: _cache_leaf_spec(
-            sh, mesh, bs, time_axes))
+        out["tail"] = map_cache(shapes["tail"], spec)
     return out
 
 
@@ -244,6 +253,8 @@ class ServeEngine:
 
     def __init__(self, model: Model, params, batch: int, max_len: int,
                  mesh=None):
+        if mesh is not None and one_device_only(model.cfg):
+            raise NotImplementedError(f"{model.cfg.name} {MESH_TODO}")
         self.model = model
         self.batch = batch
         self.max_len = max_len

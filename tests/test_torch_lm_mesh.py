@@ -7,9 +7,10 @@ are held equal to the reference's for every config of
 `src/repro/configs/` on the meshes (1, 1), (2, 1), (1, 2), (2, 2),
 (1, 4), (16, 16) and (2, 16, 16), under both `zero_shard` settings; the
 reference gets a stand-in mesh that carries only `.shape` and
-`.axis_names`.  Families the port does not build yet (MoE, SSM, RG-LRU)
-are held through the reference's own defs and cache shapes, read into
-the port's `ParamDef`.
+`.axis_names`.  Every family is held through the port's own defs and
+cache shapes, and through the reference's defs and cache shapes read
+into the port's `ParamDef` (the MoE, SSM and hybrid families serve on
+one device only, but their specs are the reference's).
 
 Across gloo ranks (one spawn per mesh shape, bounded by a join timeout):
 reduced qwen1.5-0.5b and whisper-tiny, their parameters made by the
@@ -36,7 +37,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.models import build_model, model_defs  # noqa: E402
 from repro_torch.models.params import ParamDef  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.sharding import specs as tspecs  # noqa: E402
@@ -48,7 +51,6 @@ MESHES = [((1, 1), ("data", "model")), ((2, 1), ("data", "model")),
 CONFIGS = ("internvl2_26b", "qwen1_5_0_5b", "deepseek_67b", "qwen2_5_32b",
            "gemma2_27b", "whisper_tiny", "qwen2_moe_a2_7b",
            "granite_moe_1b_a400m", "mamba2_2_7b", "recurrentgemma_2b")
-BUILT = CONFIGS[:6]  # the families the port builds
 BATCHES = (1, 2, 16, 32)
 SPAWN_TIMEOUT = 200
 TOL = 1e-5
@@ -122,15 +124,10 @@ def test_param_specs_are_the_references(jx, name, zero):
                 assert tspecs.spec_for_def(_port_def(d), dims, rules) == \
                     tuple(jx.specs.spec_for_def(d, stand, jrules)), (d,
                                                                      shape)
-            if name in BUILT:
-                from repro_torch.configs import get_config
-
-                tc = dataclasses.replace(get_config(name), zero_shard=zero)
-                from repro_torch.models import model_defs
-
-                got = tspecs.param_specs(model_defs(tc), dims, rules)
-                want = _norm(jx.specs.param_specs(jdefs, stand, jrules))
-                assert _norm(got) == want, shape
+            tc = dataclasses.replace(get_config(name), zero_shard=zero)
+            got = tspecs.param_specs(model_defs(tc), dims, rules)
+            want = _norm(jx.specs.param_specs(jdefs, stand, jrules))
+            assert _norm(got) == want, shape
 
 
 @pytest.mark.parametrize("zero", [True, False], ids=["zero", "no_zero"])
@@ -156,25 +153,9 @@ def test_batch_and_cache_specs_are_the_references(jx, name, zero):
             assert (used, rest) == jx.engine.serve_batch_axes(b, stand,
                                                               jrules)
             want = _norm(jx.engine.cache_specs(jm, stand, b, 64))
-            if name in BUILT:
-                from repro_torch.configs import get_config
-                from repro_torch.models import build_model
-
-                tm = build_model(dataclasses.replace(get_config(name),
-                                                     zero_shard=zero))
-                assert _norm(tengine.cache_specs(tm, dims, b, 64)) == want
-            else:
-                bs = used if len(used) > 1 else (used[0] if used else None)
-                shapes = jx.transformer.cache_shapes(jc, b, 64)
-                for key, lead in (("layers", 1), ("tail", 0)):
-                    if key not in shapes:
-                        continue
-                    got = jx.jax.tree.map(
-                        lambda s: (None,) * lead + tuple(
-                            tengine._cache_leaf_spec(
-                                tuple(s.shape[lead:]), dims, bs, rest)),
-                        shapes[key])
-                    assert _norm(got) == want[key], (key, shape, b)
+            tm = build_model(dataclasses.replace(get_config(name),
+                                                 zero_shard=zero))
+            assert _norm(tengine.cache_specs(tm, dims, b, 64)) == want
 
 
 def test_local_and_production_mesh_shapes_are_the_references():

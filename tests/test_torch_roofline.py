@@ -5,8 +5,8 @@ Every model's dict and every chooser's pick equal the reference's at
 the epilogue, eigensolve, relayout, continuous and static serving models
 over the grids of `tests/test_roofline.py::TestEpilogueModel` and
 `tests/test_autotune.py::TestChooserCrossovers`, the LM side's
-`active_param_count` / `model_flops` on the dense configs the port
-builds, `RooflineReport` and `table.render`.  The H100 spec runs every
+`active_param_count` / `model_flops` on dense, encoder–decoder, MoE,
+SSM and hybrid configs, `RooflineReport` and `table.render`.  The H100 spec runs every
 model and chooser, and `target_hw` maps a CUDA device to it and the CPU
 to the reference's V5E.
 """
@@ -169,7 +169,9 @@ def test_serving_model_and_queue_wait_are_the_references():
 
 
 @pytest.mark.parametrize("name", ["qwen1_5_0_5b", "whisper_tiny",
-                                  "gemma2_27b"])
+                                  "gemma2_27b", "qwen2_moe_a2_7b",
+                                  "granite_moe_1b_a400m", "mamba2_2_7b",
+                                  "recurrentgemma_2b"])
 def test_model_flops_are_the_references(name):
     from repro.configs import get_config as jget
     from repro.models.config import SHAPES_BY_NAME as JSHAPES

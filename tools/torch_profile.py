@@ -5,6 +5,7 @@
         [--schedule flat|sequential] [--gram]
         [--mesh-shape 1|1,1 [--relayout gspmd] [--epilogue allgather]]
     PYTHONPATH=src python tools/torch_profile.py --lm [--attn-impl chunked]
+        [--arch whisper-tiny]
     PYTHONPATH=src python tools/torch_profile.py --continuous \
         [--chunks-per-step 1]
 
@@ -35,14 +36,14 @@ report, the host reads of a warm run, and the device time of one replay
 of each of the continuous engine's two CUDA graphs (CUDA events over 20
 replays: the step, and the refill with inputs that move nothing).
 
-`--lm` profiles LM serving instead: whisper-tiny at its published size,
-batch 16, prompt 32, 16 generated tokens (`launch/serve.py`'s engine,
-random weights from seed 0), warmed up once, then one `generate` under
-the profiler, with the same report and LM stages (flash_attention,
-matmuls, elementwise and reductions, copies and casts).  The decode
-steps replay the engine's captured step (one CUDA graph per token).
-`--attn-impl` picks the attention route (default `pallas`, the CUDA
-kernel).
+`--lm` profiles LM serving instead: `--arch` (default whisper-tiny) at
+its published size, batch 16, prompt 32, 16 generated tokens
+(`launch/serve.py`'s engine, random weights from seed 0), warmed up
+once, then one `generate` under the profiler, with the same report and
+LM stages (flash_attention, matmuls, elementwise and reductions, copies
+and casts).  The decode steps replay the engine's captured step (one
+CUDA graph per token).  `--attn-impl` picks the attention route
+(default `pallas`, the CUDA kernel).
 """
 from __future__ import annotations
 
@@ -84,6 +85,7 @@ STAGES = (("nccl", "collectives (NCCL)"),
 LM_STAGES = (("flash_", "attention (flash_attention)"),
              ("gemm", "matmuls (cuBLAS)"),
              ("gemv", "matmuls (cuBLAS)"),
+             ("nvjet", "matmuls (cuBLAS)"),
              ("copy", "copies and casts"),
              ("elementwise", "elementwise and reductions"),
              ("reduce", "elementwise and reductions"),
@@ -108,7 +110,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gram", action="store_true",
                     help="explicit-gram eigensolver (paper Alg. 1)")
     ap.add_argument("--lm", action="store_true",
-                    help="profile whisper-tiny serving instead of MSC")
+                    help="profile LM serving (--arch) instead of MSC")
+    ap.add_argument("--arch", default="whisper-tiny",
+                    help="the arch --lm serves")
     ap.add_argument("--attn-impl", default="pallas",
                     choices=("pallas", "chunked"),
                     help="attention route of --lm")
@@ -134,7 +138,7 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip())
 
     if args.lm:
-        return profile_lm(torch, args.attn_impl)
+        return profile_lm(torch, args.attn_impl, args.arch)
     if args.continuous:
         return profile_continuous(torch, args.chunks_per_step)
 
@@ -319,14 +323,14 @@ def profile_continuous(torch, chunks_per_step: int) -> int:
     return 0
 
 
-def profile_lm(torch, attn_impl: str) -> int:
-    """One warm whisper-tiny `generate` under the profiler."""
+def profile_lm(torch, attn_impl: str, arch: str) -> int:
+    """One warm `generate` of `arch` under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.launch import serve
 
-    args = serve.parse_args(["--arch", "whisper-tiny", "--batch", "16",
+    args = serve.parse_args(["--arch", arch, "--batch", "16",
                              "--prompt-len", "32", "--gen", "16",
                              "--attn-impl", attn_impl])
     engine, batch = serve.build(args)
@@ -339,7 +343,7 @@ def profile_lm(torch, attn_impl: str) -> int:
         engine.generate(batch, args.gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"profiled generate (whisper-tiny, batch {args.batch}, prompt "
+    print(f"profiled generate ({arch}, batch {args.batch}, prompt "
           f"{args.prompt_len}, {args.gen} tokens, {attn_impl}, "
           f"{engine.model.cfg.compute_dtype}): launches "
           f"flash_attention={kfa.launches}, decode graphs captured "
