@@ -226,10 +226,34 @@ line):
    and 2e-2 (bf16; or the chunked route's own bf16-to-fp32 distance
    where larger, both printed) of max |h|, exactly one launch per local
    layer (8), both times.  0 B left after each arch.
+17. Training (`training/loop.py`, `training/steps.py`, `optim/`,
+   `checkpoint/store.py:CheckpointManager`) under
+   `torch.use_deterministic_algorithms(True)` (`CUBLAS_WORKSPACE_CONFIG`
+   is set to :4096:8 before CUDA starts, PyTorch's own size on an H100).
+   17a: qwen1.5-0.5b at its published size (bf16 compute, fp32 masters,
+   random weights from seed 0), batch 8, seq 512 of
+   `SyntheticLMDataset`, 12 steps, twice: `TrainLoop.run_with_restarts`
+   with a checkpoint at step 6 and an injected failure at step 9, and
+   an uninterrupted `TrainLoop.run`.  Every step's loss and the final
+   parameters, moments and step bit for bit equal, the last loss below
+   the first, no NaN, the memory back to its baseline once both are
+   gone; prints the warm step ms (median), tokens/s, peak memory,
+   checkpoint bytes and ms (the snapshot on the step path, the write
+   and SHA-256 in a thread), the seconds from the failure to the first
+   resumed step and the model-flops share of a step at 989 TFLOP/s.
+   17b: qwen1.5-0.5b at full width and 2 layers, fp32, TF32 off, (2,
+   128): the loss and every gradient leaf of the card within 1e-4 of the
+   same code on the CPU (of that leaf's largest |g|).  17c:
+   granite-moe-1b-a400m at its published size, bf16, batch 8, seq 512,
+   6 steps of `build_train_step` with 1 and with 2 microbatches: finite
+   losses and aux, the loss falls, the 2-microbatch step-1 loss within
+   1e-2 of the 1-microbatch one; step ms, peak memory, tokens/s.  The
+   four kernels are launched 0 times on this path (the reference's
+   training takes its chunked attention only).
 Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
 beside their measured times (`roofline.H100`; reported, no bar).
-`--only 11,12,13,14,15,16` (any subset) runs the card and build phases and
-the named phases alone (a development run: no result lines, exit code 3
+`--only 11,12,13,14,15,16,17` (any subset) runs the card and build phases
+and the named phases alone (a development run: no result lines, exit code 3
 when they pass).
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -240,6 +264,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3483,17 +3508,287 @@ def _rg_kernel_route(torch, checks, smi, cfg, params):
     return launches
 
 
+# ------------------------------------------------------------ phase 17 --
+TRAIN_ARCH, MOE_TRAIN_ARCH = "qwen1.5-0.5b", "granite-moe-1b-a400m"
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL = 12, 6, 9
+MOE_TRAIN_STEPS = 6
+GRAD_B, GRAD_S, GRAD_LAYERS = 2, 128, 2
+
+
+def phase_training(torch, checks, smi):
+    """Phase 17: 17a, 17b and 17c under deterministic algorithms, the
+    launch counts set to 0 before and read after.  Returns {label: launch
+    counts}."""
+    import gc
+
+    t0 = time.perf_counter()
+    log(f"training; card: {smi}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    _warm_backward(torch)
+    mods = _reset_counts()
+    try:
+        _train_resume(torch, checks, smi)
+        _train_grads(torch, checks)
+        _train_moe(torch, checks, smi)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = _read_counts(mods)
+    _gate(checks, not any(counts.values()), "train launches",
+          f"kernel launches on the training path: {counts} (want none: "
+          f"training takes the chunked attention)")
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return {"train 17a-17c": counts}
+
+
+MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "router",
+                  "lm_head")
+
+
+def _model_flops(model, tokens: int, seq: int) -> float:
+    """PaLM's model flops of a dense train step (no recompute counted): 6
+    a token per matmul weight (the tied head's d x V included, the
+    embedding lookup not) and 12 L d S a token for attention."""
+    cfg = model.cfg
+    n = sum(p.numel() for name, p in model.abstract().named_parameters()
+            if name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS)
+    if cfg.tie_embeddings:
+        n += cfg.vocab_size * cfg.d_model
+    return tokens * (6 * n + 12 * cfg.n_layers * cfg.d_model * seq)
+
+
+def _state_tensors(state):
+    """Every tensor of a TrainState, in one fixed order."""
+    out = list(state.params.parameters()) + [state.opt.step]
+    out += list(state.opt.m.parameters()) + list(state.opt.v.parameters())
+    if state.compress is not None:
+        out += list(state.compress.residual.parameters())
+    return out
+
+
+def _warm_backward(torch):
+    """What outlives the phase, made before its baselines: the cuBLAS
+    workspaces of the default stream and of the autograd engine's device
+    thread (it runs every backward, with a cuBLAS handle of its own)."""
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.ones((8, 8), dtype=dt, device=DEVICE, requires_grad=True)
+        (x @ x).float().sum().backward()
+    del x
+    torch.cuda.synchronize()
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _timed_saves(loop):
+    """Wrap `loop.ckpt` so each save records (snapshot s, write s,
+    step): the snapshot is on the step path, the write in a thread."""
+    ckpt, log_ = loop.ckpt, []
+    save, write = ckpt.save, ckpt._write
+
+    def timed_save(step, tree, extra=None):
+        t = time.perf_counter()
+        save(step, tree, extra)
+        log_.append({"step": step, "snapshot_s": time.perf_counter() - t})
+
+    def timed_write(step, host, extra):
+        t = time.perf_counter()
+        write(step, host, extra)
+        for rec in log_:
+            if rec["step"] == step:
+                rec["write_s"] = time.perf_counter() - t
+
+    ckpt.save, ckpt._write = timed_save, timed_write
+    return log_
+
+
+def _train_resume(torch, checks, smi):
+    """17a: the crash-and-resume run against the uninterrupted run."""
+    import gc
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models import build_model, count_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.loop import TrainLoop, TrainLoopConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        crash = TrainLoop(model, None, AdamWConfig(), TrainLoopConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+            ckpt_dir=os.path.join(tmp, "crash"), fail_at_step=TRAIN_FAIL),
+            data, device=DEVICE)
+        saves = _timed_saves(crash)
+        t = time.perf_counter()
+        s_crash = crash.run_with_restarts()
+        torch.cuda.synchronize()
+        wall_crash = time.perf_counter() - t
+        ck_bytes = _dir_bytes(os.path.join(tmp, "crash",
+                                           f"step_{TRAIN_STEPS:08d}"))
+        shutil.rmtree(os.path.join(tmp, "crash"))
+        peak = torch.cuda.max_memory_allocated()
+        clean = TrainLoop(model, None, AdamWConfig(), TrainLoopConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=10 * TRAIN_STEPS,
+            ckpt_dir=os.path.join(tmp, "clean")), data, device=DEVICE)
+        t = time.perf_counter()
+        s_clean = clean.run()
+        torch.cuda.synchronize()
+        wall_clean = time.perf_counter() - t
+        with torch.no_grad():
+            a, b = _state_tensors(s_crash), _state_tensors(s_clean)
+            same = len(a) == len(b) and all(
+                torch.equal(x, y) for x, y in zip(a, b))
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in s_clean.params.parameters())
+        del a, b, s_crash, s_clean
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = [m["loss"] for m in clean.metrics]
+    got = [m["loss"] for m in crash.metrics]
+    order = list(range(TRAIN_FAIL)) + list(range(TRAIN_CKPT, TRAIN_STEPS))
+    _gate(checks, got == [want[i] for i in order] and same and finite
+          and want[-1] < want[0] and all(map(math.isfinite, want)),
+          "train resume",
+          f"{TRAIN_ARCH} {TRAIN_STEPS} steps at ({TRAIN_B}, {TRAIN_S}), "
+          f"bf16: crash at {TRAIN_FAIL} resumed from step {TRAIN_CKPT} "
+          f"gives the uninterrupted losses bit for bit: "
+          f"{got == [want[i] for i in order]}, final state bit for bit: "
+          f"{same}; loss {want[0]:.6f} -> {want[-1]:.6f}")
+    warm = [m["step_time_s"] for m in clean.metrics[1:]]
+    step_ms = statistics.median(warm) * 1e3
+    flops = _model_flops(model, TRAIN_B * TRAIN_S, TRAIN_S)
+    share = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    log(f"  {TRAIN_ARCH}: {count_params(model.defs())} parameters; warm step "
+        f"{step_ms:.2f} ms (median of {len(warm)}; first "
+        f"{clean.metrics[0]['step_time_s'] * 1e3:.1f} ms), "
+        f"{TRAIN_B * TRAIN_S / (step_ms / 1e3):.0f} tokens/s, model flops "
+        f"{flops:.4e} a step = {share:.4f} of 989 TFLOP/s; peak "
+        f"{peak} B ({peak / 2**30:.2f} GiB); walls crash+resume "
+        f"{wall_crash:.2f} s, clean {wall_clean:.2f} s; {smi}")
+    for rec in saves:
+        log(f"  checkpoint step {rec['step']}: snapshot to host "
+            f"{rec['snapshot_s'] * 1e3:.1f} ms on the step path, write + "
+            f"SHA-256 {rec.get('write_s', float('nan')) * 1e3:.1f} ms in "
+            f"its thread")
+    log(f"  checkpoint bytes {ck_bytes}; failure to first resumed step "
+        f"{crash.restart_s[0]:.3f} s; stragglers {crash.straggler_events} / "
+        f"{clean.straggler_events}")
+    del crash, clean
+    _freed(torch, checks, "train 17a memory", base)
+
+
+def _train_grads(torch, checks):
+    """17b: the card's loss and gradients against the CPU's, fp32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, device_put_batch
+    from repro_torch.models import build_model, map_params, trainable
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=GRAD_LAYERS,
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    host = trainable(model.init(torch.Generator().manual_seed(0)))
+    card = trainable(map_params(lambda p: p.detach().to(DEVICE), host))
+    batch = SyntheticLMDataset(cfg.vocab_size, GRAD_S, GRAD_B,
+                               seed=1).batch(0)
+    out = {}
+    for name, params in (("cpu", host), ("card", card)):
+        dev = "cpu" if name == "cpu" else DEVICE
+        loss, _ = model.loss_fn(params, device_put_batch(batch, dev))
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        out[name] = (loss.item(), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["card"]
+    names = [n for n, _ in host.named_parameters()]
+    worst, where = 0.0, None
+    for n, a, b in zip(names, g_card, g_cpu):
+        err = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        if err > worst:
+            worst, where = err, n
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    _gate(checks, rel <= 1e-4 and worst <= 1e-4, "train grads card vs cpu",
+          f"{TRAIN_ARCH} width, {GRAD_LAYERS} layers, fp32, TF32 off, "
+          f"({GRAD_B}, {GRAD_S}): loss {l_card:.6f} card / {l_cpu:.6f} CPU "
+          f"(rel {rel:.3e}); worst gradient leaf {where} {worst:.3e} of its "
+          f"largest |g| over {len(names)} leaves (tol 1e-4)")
+
+
+def _train_moe(torch, checks, smi):
+    """17c: granite-moe at its published size, 1 and 2 microbatches."""
+    import gc
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, device_put_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.steps import build_train_step, make_train_state
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    model = build_model(cfg)
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    first = {}
+    for n_mb in (1, 2):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(
+            model, torch.Generator(device=DEVICE).manual_seed(0))
+        step, _, _ = build_train_step(model, None, AdamWConfig(),
+                                      microbatches=n_mb)
+        losses, auxes, times = [], [], []
+        for i in range(MOE_TRAIN_STEPS):
+            batch = device_put_batch(data.batch(i), DEVICE)
+            t = time.perf_counter()
+            state, met = step(state, batch)
+            losses.append(met["loss"].item())
+            auxes.append(met["aux"].item())
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        first[n_mb] = losses[0]
+        ms = statistics.median(times[1:]) * 1e3
+        _gate(checks, all(map(math.isfinite, losses + auxes))
+              and losses[-1] < losses[0], f"train moe n_mb={n_mb}",
+              f"{MOE_TRAIN_ARCH} bf16 ({TRAIN_B}, {TRAIN_S}), {n_mb} "
+              f"microbatch(es): loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+              f"aux {auxes[0]:.6f} -> {auxes[-1]:.6f}; warm step {ms:.2f} ms "
+              f"(median of {len(times) - 1}), "
+              f"{TRAIN_B * TRAIN_S / (ms / 1e3):.0f} tokens/s, peak {peak} B "
+              f"({peak / 2**30:.2f} GiB); {smi}")
+    rel = abs(first[2] - first[1]) / abs(first[1])
+    _gate(checks, rel <= 1e-2, "train moe microbatches",
+          f"{MOE_TRAIN_ARCH} step-1 loss with 2 microbatches {first[2]:.6f} "
+          f"against 1: {first[1]:.6f} (rel {rel:.3e}, tol 1e-2)")
+
+
 def _only_phases():
-    """`--only 11,12,13,14,15,16`: the later phases to run alone
+    """`--only 11,12,13,14,15,16,17`: the later phases to run alone
     (development runs only; with no arguments every phase runs)."""
     if "--only" not in sys.argv:
         return []
     names = sys.argv[sys.argv.index("--only") + 1].split(",")
     bad = [n for n in names
-           if n not in ("11", "12", "13", "14", "15", "16")]
+           if n not in ("11", "12", "13", "14", "15", "16", "17")]
     if bad:
         raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14, 15, "
-                         f"16; got {bad}")
+                         f"16, 17; got {bad}")
     return names
 
 
@@ -3512,6 +3807,9 @@ def main() -> int:
               "of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    # phase 17 trains deterministically: cuBLAS reads this when CUDA
+    # starts (32 MiB, PyTorch's own size on an H100)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     checks = Checks()
     t_start = time.perf_counter()
@@ -3522,7 +3820,8 @@ def main() -> int:
         # a development run of the named tier phases: no result lines
         tiers = {"11": phase_cache, "12": phase_scheduler,
                  "13": phase_faults, "14": phase_autotune,
-                 "15": phase_multihost, "16": phase_families}
+                 "15": phase_multihost, "16": phase_families,
+                 "17": phase_training}
         for name in only:
             tiers[name](torch, checks, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s (phases "
@@ -3546,6 +3845,7 @@ def main() -> int:
     launches.update(phase_autotune(torch, checks, smi))
     launches.update(phase_multihost(torch, checks, smi))
     launches.update(phase_families(torch, checks, smi))
+    launches.update(phase_training(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

@@ -103,3 +103,25 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", mesh=None):
                                                                 d.dtype)
 
     return build(defs, make)
+
+
+def train_state_from_numpy(cfg: ModelConfig, params, step, m, v,
+                           residual=None, device="cpu"):
+    """The port's `TrainState` holding the reference's: its parameters,
+    AdamW step and moments m, v, and the optional compression residual,
+    each a pytree as `lm_params_from_numpy` takes (numpy arrays).  The
+    parameters get gradients on; the AdamW step is a 0-d int32 tensor."""
+    from .models.params import trainable
+    from .optim import AdamWState, CompressionState
+    from .training.steps import TrainState
+
+    def tree(t):
+        return lm_params_from_numpy(cfg, t, device)
+
+    return TrainState(
+        params=trainable(tree(params)),
+        opt=AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                         dtype=torch.int32, device=device),
+                       m=tree(m), v=tree(v)),
+        compress=None if residual is None else CompressionState(
+            residual=tree(residual)))

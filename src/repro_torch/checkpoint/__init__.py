@@ -1,5 +1,6 @@
-"""Checkpoints — counterpart of `repro.checkpoint` (format 1, one writer)."""
+"""Checkpoints — counterpart of `repro.checkpoint`."""
 from .store import (
+    CheckpointManager,
     checkpoint_extra,
     fsync_dir,
     gc_checkpoints,
@@ -7,5 +8,7 @@ from .store import (
     latest_step,
     load_leaves,
     restorable_steps,
+    restore_checkpoint,
     save_checkpoint,
 )
+from repro_torch.models.params import tree_leaves

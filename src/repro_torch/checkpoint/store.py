@@ -28,23 +28,35 @@ reference writes them, so each package reads the other's checkpoints.
     steps.
   * Keep-last-k GC, which also reaps `.tmp` step directories and shard
     files no manifest references.
-
-Not here: `CheckpointManager` and `restore_checkpoint`, used only by
-training, are item 12 (b).
+  * Training state (`tree_leaves`, `restore_checkpoint`,
+    `CheckpointManager`): a tree — NamedTuples, dicts, lists, tensors and
+    the parameter modules of `models/params.py` — is written as the
+    reference's `jax.tree.flatten` lists it: NamedTuple fields and lists
+    in order, dict and `ParamTree` keys sorted, and each leaf of a
+    `LayerStack` stacked over its layers into one array with a leading
+    layer dim.  So each package resumes the other's training checkpoint.
+    `CheckpointManager.save` copies the state to the host before it
+    returns (the step after it updates the parameters in place) and may
+    write in a thread.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
 import re
 import shutil
+import threading
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+from torch import nn
 
 from repro_torch.core.fingerprint import host_array
+from repro_torch.models.params import map_params, tree_leaves
 
 
 def _sha(arr: np.ndarray) -> str:
@@ -407,3 +419,137 @@ def gc_checkpoints(directory: str, keep: int) -> None:
     sub = os.path.join(directory, "autotune")
     if os.path.basename(directory) != "autotune" and os.path.isdir(sub):
         gc_checkpoints(sub, 1)
+
+
+# ------------------------------------------------------ training state ----
+def _leaf_shape(leaf) -> Tuple[int, ...]:
+    if isinstance(leaf, list):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return tuple(np.shape(leaf))
+
+
+def host_leaves(tree) -> List[np.ndarray]:
+    """The tree's leaves (`tree_leaves`) copied to host numpy arrays now
+    (copies, never views of a tensor on the CPU), a `LayerStack` leaf
+    stacked on its device first."""
+    out = []
+    with torch.no_grad():
+        for leaf in tree_leaves(tree):
+            if isinstance(leaf, list):
+                leaf = torch.stack([t.detach() for t in leaf])
+            elif isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu":
+                leaf = leaf.detach().clone()
+            out.append(host_array(leaf))
+    return out
+
+
+def restore_checkpoint(directory: str, step: int, like, shardings=None,
+                       verify: bool = True):
+    """Restore one step into the structure of `like` (a tree as
+    `tree_leaves` reads it; its tensors may be on the `meta` device).
+    Returns (tree, extra): new tensors of the checkpoint's values, each on
+    its `like` leaf's device (the CPU for a meta leaf), or on
+    `shardings` when it names a device (one device: the port's
+    counterpart of the reference's re-sharding onto a mesh); parameter
+    modules keep each leaf's `requires_grad`.  A leaf count or a leaf
+    shape that differs from `like`'s raises ValueError, a failed SHA
+    check IOError."""
+    raw, extra = load_leaves(directory, step, verify=verify)
+    want = tree_leaves(like)
+    if len(want) != len(raw):
+        raise ValueError(f"checkpoint has {len(raw)} leaves, model "
+                         f"{len(want)}")
+    for i, (leaf, arr) in enumerate(zip(want, raw)):
+        if _leaf_shape(leaf) != tuple(arr.shape):
+            raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != "
+                             f"model {_leaf_shape(leaf)}")
+    device = None if shardings is None else torch.device(shardings)
+    return _rebuild(like, iter(raw), device), extra
+
+
+def _placed(arr, like, device) -> torch.Tensor:
+    t = torch.from_numpy(np.array(arr))
+    if device is None:
+        device = getattr(like, "device", torch.device("cpu"))
+        if device.type == "meta":
+            device = torch.device("cpu")
+    return t.to(device)
+
+
+def _rebuild(tree, it, device):
+    """`tree`'s structure holding the next arrays of `it`, consumed in
+    `tree_leaves` order."""
+    if tree is None:
+        return None
+    if isinstance(tree, nn.Module):
+        vals = {}
+        for leaf in tree_leaves(tree):
+            arr = next(it)
+            for j, p in enumerate(leaf if isinstance(leaf, list) else [leaf]):
+                vals[id(p)] = _placed(arr[j] if isinstance(leaf, list)
+                                      else arr, p, device)
+        new = map_params(lambda p: vals[id(p)], tree)
+        for old, p in zip(tree.parameters(), new.parameters()):
+            p.requires_grad_(old.requires_grad)
+        return new
+    if isinstance(tree, torch.Tensor):
+        return _placed(next(it), tree, device)
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], it, device) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_rebuild(t, it, device) for t in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(t, it, device) for t in tree)
+    return next(it)
+
+
+@dataclasses.dataclass
+class CheckpointManager:
+    """Periodic checkpoints of a training state: `save` copies the tree
+    to the host at once and writes it (in a thread with `async_save`;
+    one write at a time), then keeps the newest `keep` steps;
+    `restore_latest` takes the newest step that restores, falling back
+    to the previous one with a warning."""
+    directory: str
+    keep: int = 3
+    async_save: bool = False
+
+    def __post_init__(self):
+        self._thread: Optional[threading.Thread] = None
+
+    def save(self, step: int, tree, extra: Optional[Dict] = None):
+        # snapshot to host memory NOW: the next step updates the
+        # parameters and moments in place
+        host = host_leaves(tree)
+        if self.async_save:
+            self.wait()
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host, extra), daemon=True)
+            self._thread.start()
+        else:
+            self._write(step, host, extra)
+
+    def _write(self, step, host, extra):
+        save_checkpoint(self.directory, step, host, extra)
+        gc_checkpoints(self.directory, self.keep)
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def restore_latest(self, like, shardings=None):
+        """(step, tree, extra) of the newest step that passes
+        verification, skipping with a warning a step whose leaves fail
+        their SHA check or do not fit `like`; (None, None, None) when
+        none does."""
+        self.wait()
+        for step in restorable_steps(self.directory, verify_sha=False):
+            try:
+                tree, extra = restore_checkpoint(self.directory, step,
+                                                 like, shardings)
+                return step, tree, extra
+            except (IOError, ValueError) as e:
+                warnings.warn(f"checkpoint step {step} failed restore "
+                              f"({e}); trying the previous step")
+        return None, None, None

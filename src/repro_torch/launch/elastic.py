@@ -8,12 +8,15 @@ true bucket size, blocks rebuilt from the stashed tensors), so a solve
 checkpointed on 2 ranks finishes on 1, and the reverse.
 
 `restore_after_host_loss` is the survivor's side of the multi-host
-control plane (`launch/distributed.py`).  `ElasticTrainer` waits for the
-training side (item 12 (b)).
+control plane (`launch/distributed.py`).  `ElasticTrainer` rebuilds the
+training loop on the ranks live at each attempt; training runs on one
+device, so a (data, model) mesh of more than one rank raises
+NotImplementedError (ROADMAP.md queue 1 item 12 (d)).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Any, Optional, Tuple
 
 
 def best_mesh_shape(n_devices: int, prefer_model: int = 1) -> Tuple[int, int]:
@@ -40,6 +43,20 @@ def _group_up() -> bool:
     import torch.distributed as dist
 
     return dist.is_available() and dist.is_initialized()
+
+
+def make_elastic_mesh(prefer_model: int = 1, device_type=None):
+    """The ("data", "model") mesh over every rank of the current process
+    group, shaped by `best_mesh_shape`; None (one device) without a
+    group."""
+    if not _group_up():
+        return None
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import _mesh
+
+    return _mesh(best_mesh_shape(dist.get_world_size(), prefer_model),
+                 ("data", "model"), device_type)
 
 
 def make_elastic_msc_mesh(prefer_inner: int = 1, device_type=None):
@@ -92,3 +109,30 @@ def restore_after_host_loss(directory: str, *, device="cuda",
 
     return MSCContinuousEngine.restore(directory, mesh=None, device=device,
                                        **restore_kwargs)
+
+
+@dataclasses.dataclass
+class ElasticTrainer:
+    """Builds a `TrainLoop` from the ranks live now at each `run()` (one
+    attempt: it auto-resumes the newest checkpoint); the outer restart
+    controller calls it again after a failure, possibly on fewer
+    ranks.  Without a process group it trains on `device`."""
+
+    model: Any
+    opt_cfg: Any
+    loop_cfg: Any
+    dataset: Any
+    prefer_model: int = 1
+    device: Any = "cuda"
+
+    def run(self):
+        import torch
+
+        from repro_torch.training.loop import TrainLoop
+
+        mesh = make_elastic_mesh(self.prefer_model,
+                                 torch.device(self.device).type)
+        loop = TrainLoop(self.model, mesh, self.opt_cfg, self.loop_cfg,
+                         self.dataset, device=self.device)
+        state = loop.run()
+        return loop, state

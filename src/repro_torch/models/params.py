@@ -8,11 +8,15 @@ the tree into modules:
 
   dict     → `ParamTree`, an `nn.Module` whose parameters and children
              are the dict's entries, read as `p["wq"]`, `"w3" in p`
-  Stacked  → `nn.ModuleList` of n `ParamTree`s (the reference's leading
-             layer dim, unstacked: layers run in a Python loop)
+  Stacked  → `LayerStack`, an `nn.ModuleList` of n `ParamTree`s (the
+             reference's leading layer dim, unstacked: layers run in a
+             Python loop)
   tuple    → `nn.ModuleList`
 
-Parameters hold no gradient: the port serves and does not train.
+Parameters are built without gradient, for serving; `trainable` turns
+them on for training.  `map_params` builds a tree of the same structure
+(AdamW's moments, the compression residual) and `abstract_params` one on
+the `meta` device (shapes and dtypes, no allocation).
 """
 from __future__ import annotations
 
@@ -71,6 +75,12 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
+class LayerStack(nn.ModuleList):
+    """n layers of one block: the reference stacks each of their leaves
+    into one array with a leading layer dim (its checkpoints hold them
+    so, `checkpoint/store.py:tree_leaves`)."""
+
+
 def _fan_in(shape) -> int:
     return shape[0] if len(shape) == 1 else math.prod(shape[:-1])
 
@@ -95,8 +105,8 @@ def build(defs, leaf: Callable[[ParamDef, Tuple], torch.Tensor],
     if isinstance(defs, ParamDef):
         return nn.Parameter(leaf(defs, path), requires_grad=False)
     if isinstance(defs, Stacked):
-        return nn.ModuleList(build(defs.defs, leaf, path + (i,))
-                             for i in range(defs.n))
+        return LayerStack(build(defs.defs, leaf, path + (i,))
+                          for i in range(defs.n))
     if isinstance(defs, tuple):
         return nn.ModuleList(build(d, leaf, path + (i,))
                              for i, d in enumerate(defs))
@@ -109,6 +119,70 @@ def init_params(defs, generator: torch.Generator):
     the tree (the reference's values differ: jax.random is another
     generator)."""
     return build(defs, lambda d, _: _init_one(d, generator))
+
+
+def abstract_params(defs):
+    """The parameter tree on the `meta` device: shapes and dtypes with no
+    storage (the reference's ShapeDtypeStruct view)."""
+    return build(defs, lambda d, _: torch.empty(d.shape, dtype=d.dtype,
+                                                device="meta"))
+
+
+def map_params(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    """A new tree of the structure of `tree` (a `ParamTree`, a
+    `LayerStack` or a `ModuleList`) whose leaf is fn(leaf), without
+    gradient."""
+    if isinstance(tree, nn.Parameter):
+        return nn.Parameter(fn(tree), requires_grad=False)
+    if isinstance(tree, nn.ModuleList):
+        return type(tree)(map_params(fn, t) for t in tree)
+    return ParamTree({k: map_params(fn, tree[k]) for k in _keys(tree)})
+
+
+def _keys(tree: ParamTree):
+    return list(tree._parameters) + list(tree._modules)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in the reference's `jax.tree.flatten` order:
+    NamedTuple fields, lists and tuples in order, dict and `ParamTree`
+    keys sorted, None without leaves; each leaf a tensor (or any other
+    value) or, for a `LayerStack`, the list of one leaf's tensors across
+    its layers (the reference's stacked leaf)."""
+    out: list = []
+    _walk(tree, out)
+    return out
+
+
+def _walk(tree, out: list) -> None:
+    if tree is None:
+        return
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, LayerStack):
+        for group in zip(*(tree_leaves(layer) for layer in tree)):
+            out.append(list(group))
+    elif isinstance(tree, nn.ModuleList):
+        for t in tree:
+            _walk(t, out)
+    elif isinstance(tree, ParamTree):
+        for k in sorted(_keys(tree)):
+            _walk(tree[k], out)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _walk(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            _walk(t, out)
+    else:
+        out.append(tree)
+
+
+def trainable(tree, on: bool = True):
+    """`tree` with gradients on (or off) for every leaf; returns it."""
+    for p in tree.parameters():
+        p.requires_grad_(on)
+    return tree
 
 
 def count_params(defs) -> int:

@@ -26,22 +26,30 @@ the model runs as one rank of an LM serving mesh: the embedding looks
 its tokens up in the rank's vocab rows (summed over "model"), the caches
 are made as the rank's shards (`init_cache`) and the logits are gathered
 whole over the vocab; MoE, SSM and RG-LRU models serve on one device only
-(`serving/engine.py`).  The training side (`lm_loss`, `loss_fn`) is not
-ported yet (ROADMAP.md, queue 1 item 12 (b)).
+(`serving/engine.py`).
+
+Training (`Model.loss_fn`, `lm_loss`) runs on one device: the chunked
+softmax cross-entropy recomputes each chunk's logits in the backward
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint`), and with
+`cfg.remat` each super-block is recomputed in the backward too.  The
+attention kernel has no backward (nor has the reference's Pallas
+kernel), so `loss_fn` with `attn_impl="pallas"` raises under autograd.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.activation import (constrain, current, hold,
                                              on_model, use)
 
 from .config import ModelConfig
-from .params import ParamDef, init_params, stack_defs
+from .params import ParamDef, abstract_params, init_params, stack_defs
 from . import layers as L
 from . import rglru as R
 from . import ssm as S
@@ -296,12 +304,18 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
     kinds_period = tuple(kinds[:period])
     aux_total = 0.0
 
+    # training recomputes each super-block in the backward (the
+    # reference's jax.checkpoint of its scan body)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     new_layers = []
     for i in range(n_scan):
         c_sb = cache["layers"][i] if cache is not None else None
-        x, nc, a = _superblock(params["layers"][i], x, cfg, kinds_period,
-                               cache=c_sb, cache_len=cache_len,
-                               enc_out=enc_out, pos_offset=pos_offset)
+        run = functools.partial(_superblock, params["layers"][i], cfg=cfg,
+                                kinds_period=kinds_period, cache=c_sb,
+                                cache_len=cache_len, enc_out=enc_out,
+                                pos_offset=pos_offset)
+        x, nc, a = (checkpoint(run, x, use_reentrant=False) if remat
+                    else run(x))
         x = constrain(x, ("batch", None, None))
         aux_total = aux_total + a
         new_layers.append(nc)
@@ -351,6 +365,60 @@ def _head_weight(params, cfg):
     return use(params["lm_head"]), on_model(params["lm_head"], 1)
 
 
+# ------------------------------------------------------------- loss ----
+PALLAS_NO_GRAD = (
+    "attn_impl='pallas' has no backward: the attention kernel "
+    "(kernels/csrc/flash_attention.cu) is forward only, as the reference's "
+    "Pallas kernel is (jax.grad through it fails), so training takes "
+    "attn_impl='chunked' or 'full'")
+
+
+def lm_loss(params, hidden, labels, cfg: ModelConfig,
+            mask: Optional[torch.Tensor] = None):
+    """Chunked softmax cross-entropy: the (B, S, V) logits are never
+    materialised.  Each seq chunk's logits (B, chunk, V) are made in the
+    compute dtype, taken to fp32 (softcapped with cfg.final_softcap) for
+    a logsumexp and the gold logit, and recomputed in the backward
+    instead of saved.  The NLL sum and the token count accumulate over
+    the chunks in order; returns their quotient (fp32, 0-d)."""
+    b, s, _ = hidden.shape
+    chunk = min(cfg.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} is not a multiple of the loss chunk "
+                         f"{chunk}")
+    w, cut = _head_weight(params, cfg)
+    if cut:
+        raise NotImplementedError(
+            "lm_loss over a vocab cut across ranks (ROADMAP.md queue 1 "
+            "item 12 (d), training over ranks)")
+    w = w.to(cfg.cdtype)
+    labels = labels.long()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        m_c = None if mask is None else mask[:, c0:c0 + chunk].float()
+        nll = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk], w,
+                         labels[:, c0:c0 + chunk], cfg.final_softcap,
+                         use_reentrant=False)
+        if m_c is None:
+            tot = tot + nll.sum()
+            cnt = cnt + nll.numel()
+        else:
+            tot = tot + (nll * m_c).sum()
+            cnt = cnt + m_c.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _chunk_nll(h_c, w, l_c, softcap):
+    """Per-token NLL (B, chunk) of one seq chunk, fp32."""
+    logits = (h_c @ w).float()
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, l_c[..., None])[..., 0]
+    return lse - gold
+
+
 def logits_last(params, hidden, cfg: ModelConfig):
     """Decode-time logits for the final position only, fp32 (whole over
     the vocab on every rank of a mesh)."""
@@ -376,6 +444,24 @@ class Model:
     def init(self, generator: torch.Generator):
         """Random parameters on the generator's device."""
         return init_params(self.defs(), generator)
+
+    def abstract(self):
+        """The parameter tree on the `meta` device (no allocation)."""
+        return abstract_params(self.defs())
+
+    # ---- training ----
+    def loss_fn(self, params, batch):
+        """batch: {tokens, labels[, patches | frames, loss_mask]} →
+        (loss + 0.01·aux, aux), both fp32 0-d tensors."""
+        if self.cfg.attn_impl == "pallas" and torch.is_grad_enabled():
+            raise NotImplementedError(PALLAS_NO_GRAD)
+        hidden, _, aux = forward(
+            params, batch["tokens"], self.cfg,
+            prefix_embed=batch.get("patches"),
+            enc_frames=batch.get("frames"))
+        loss = lm_loss(params, hidden, batch["labels"], self.cfg,
+                       batch.get("loss_mask"))
+        return loss + 0.01 * aux, aux
 
     # ---- serving ----
     @torch.no_grad()

@@ -1,0 +1,64 @@
+"""Error-feedback top-k gradient compression — counterpart of
+`repro/optim/compression.py`.
+
+compressed = topk(grad + residual); residual' = (grad + residual) −
+compressed (Stich et al., 2018).  The mask keeps every entry whose |x|
+is at least the k-th largest, so ties at the threshold keep more than k
+entries, as the reference's do.  k and the threshold are per leaf of the
+reference's tree: the layers of a `LayerStack` leaf are one leaf there
+(stacked), so they share one threshold here too.  On one device nothing is exchanged: the
+step applies the compressed gradient, and the residual carries the rest
+to the next step.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.models.params import map_params, tree_leaves
+
+from .adamw import leaves
+
+
+class CompressionState(NamedTuple):
+    residual: Any  # error-feedback accumulator, congruent with the params
+
+
+def compress_init(params) -> CompressionState:
+    return CompressionState(residual=map_params(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        params))
+
+
+def _topk_mask(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """Mask (in x's dtype) keeping the top `frac` fraction of |x|."""
+    n = x.numel()
+    k = max(1, int(n * frac))
+    flat = torch.abs(x.reshape(-1))
+    thresh = torch.topk(flat, k, sorted=False).values.min()
+    return (torch.abs(x) >= thresh).to(x.dtype)
+
+
+def _groups(tree):
+    """Indices into `leaves(tree)`, one list per leaf of the reference's
+    tree (a `LayerStack` leaf's layers together)."""
+    pos = {id(t): i for i, t in enumerate(leaves(tree))}
+    return [[pos[id(t)] for t in (e if isinstance(e, list) else [e])]
+            for e in tree_leaves(tree)]
+
+
+@torch.no_grad()
+def topk_compress_update(grads, state: CompressionState, frac: float = 0.01):
+    """Returns (compressed grads, new state): the grads a list in the
+    parameters' order, each in its gradient's dtype; the residual is
+    updated in place."""
+    g_all, r_all = leaves(grads), leaves(state.residual)
+    sent = [None] * len(g_all)
+    for group in _groups(state.residual):
+        acc = torch.stack([g_all[i].float() + r_all[i] for i in group])
+        s = acc * _topk_mask(acc, frac)
+        for j, i in enumerate(group):
+            sent[i] = s[j].to(g_all[i].dtype)
+            r_all[i].copy_(acc[j] - s[j])
+    return sent, state

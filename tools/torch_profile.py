@@ -6,6 +6,8 @@
         [--mesh-shape 1|1,1 [--relayout gspmd] [--epilogue allgather]]
     PYTHONPATH=src python tools/torch_profile.py --lm [--attn-impl chunked]
         [--arch whisper-tiny]
+    PYTHONPATH=src python tools/torch_profile.py --train
+        [--arch qwen1.5-0.5b] [--microbatches 1]
     PYTHONPATH=src python tools/torch_profile.py --continuous \
         [--chunks-per-step 1]
 
@@ -35,6 +37,19 @@ warmed up, then one warm run of each under the profiler with the same
 report, the host reads of a warm run, and the device time of one replay
 of each of the continuous engine's two CUDA graphs (CUDA events over 20
 replays: the step, and the refill with inputs that move nothing).
+
+`--train` profiles one warm train step of `chip_smoke.py` phase 17
+instead: `--arch` (qwen1.5-0.5b as in 17a, or granite-moe-1b-a400m as
+in 17c) at its published size, bf16 compute on fp32 masters, batch 8,
+seq 512 of `SyntheticLMDataset`, `build_train_step` with
+`--microbatches` (default 1), under deterministic algorithms as phase
+17 runs it; one step warms up, the next is profiled.  Its kernels are
+put in stages by where they were launched: the super-blocks' forward,
+their backward, their recompute in the backward (remat), the loss chunks
+(forward, recompute and backward), AdamW and the rest, and in each by
+kind (matmuls, copies and casts, elementwise and reductions); then the
+same step timed in pieces with CUDA events (the forward, the forward and
+backward, AdamW alone).
 
 `--lm` profiles LM serving instead: `--arch` (default whisper-tiny) at
 its published size, batch 16, prompt 32, 16 generated tokens
@@ -111,11 +126,16 @@ def main(argv=None) -> int:
                     help="explicit-gram eigensolver (paper Alg. 1)")
     ap.add_argument("--lm", action="store_true",
                     help="profile LM serving (--arch) instead of MSC")
-    ap.add_argument("--arch", default="whisper-tiny",
-                    help="the arch --lm serves")
+    ap.add_argument("--arch", default=None,
+                    help="the arch --lm serves (whisper-tiny) or --train "
+                         "trains (qwen1.5-0.5b)")
     ap.add_argument("--attn-impl", default="pallas",
                     choices=("pallas", "chunked"),
                     help="attention route of --lm")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step of --arch (phase 17)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient accumulation of --train")
     ap.add_argument("--continuous", action="store_true",
                     help="profile continuous MSC serving against the "
                          "static engine instead of one solve")
@@ -129,6 +149,8 @@ def main(argv=None) -> int:
     ap.add_argument("--epilogue", default="allgather",
                     choices=("allgather", "ring"))
     args = ap.parse_args(argv)
+    # --train runs deterministically: cuBLAS reads this when CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -137,8 +159,11 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
 
+    if args.train:
+        return profile_train(torch, args.arch or "qwen1.5-0.5b",
+                             args.microbatches)
     if args.lm:
-        return profile_lm(torch, args.attn_impl, args.arch)
+        return profile_lm(torch, args.attn_impl, args.arch or "whisper-tiny")
     if args.continuous:
         return profile_continuous(torch, args.chunks_per_step)
 
@@ -353,13 +378,177 @@ def profile_lm(torch, attn_impl: str, arch: str) -> int:
     return 0
 
 
+# where a train step's kernels were launched (the ranges profile_train
+# opens), innermost first
+TRAIN_RANGES = ("train/superblock.recompute", "train/superblock",
+                "train/loss_chunk.recompute", "train/loss_chunk",
+                "train/adamw")
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")):
+        return "matmuls"
+    if "copy" in low:
+        return "copies and casts"
+    return "elementwise and reductions"
+
+
+def _region(e, fwd_region):
+    """The range a CPU op ran in: its innermost TRAIN_RANGES ancestor; in
+    the autograd engine, the range of the forward op its node came from
+    (by sequence number) + " backward"; else "other"."""
+    node = e
+    while node is not None:
+        if node.name in TRAIN_RANGES:
+            return node.name[len("train/"):]
+        if node.name.startswith("autograd::engine::evaluate_function"):
+            return fwd_region.get(node.sequence_nr, "other") + " backward"
+        node = node.cpu_parent
+    return "other"
+
+
+def _wrap_ranges(torch):
+    """Open a TRAIN_RANGES range around each super-block, loss chunk and
+    AdamW update (a super-block or chunk run inside the autograd engine
+    is its recompute).  Returns a function that undoes it."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import transformer
+    from repro_torch.training import steps
+
+    saved = (transformer._superblock, transformer._chunk_nll,
+             steps.adamw_update)
+
+    def ranged(fn, name):
+        def inner(*a, **kw):
+            tag = name + (".recompute" if torch._C._current_autograd_node()
+                          is not None else "")
+            with record_function("train/" + tag):
+                return fn(*a, **kw)
+        return inner
+
+    transformer._superblock = ranged(saved[0], "superblock")
+    transformer._chunk_nll = ranged(saved[1], "loss_chunk")
+    steps.adamw_update = ranged(saved[2], "adamw")
+
+    def undo():
+        (transformer._superblock, transformer._chunk_nll,
+         steps.adamw_update) = saved
+
+    return undo
+
+
+def profile_train(torch, arch: str, microbatches: int) -> int:
+    """One warm train step of `arch` under the profiler, by stage."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, device_put_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.training.steps import build_train_step, make_train_state
+
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    state = make_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(0))
+    step, _, _ = build_train_step(model, None, AdamWConfig(),
+                                  microbatches=microbatches)
+    data = SyntheticLMDataset(cfg.vocab_size, 512, 8, seed=0)
+    batches = [device_put_batch(data.batch(i), "cuda") for i in range(4)]
+    state, met = step(state, batches[0])  # warm-up
+    met["loss"].item()
+    undo = _wrap_ranges(torch)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, met = step(state, batches[1])
+            met["loss"].item()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        undo()
+    print(f"profiled train step ({arch}, batch 8, seq 512, "
+          f"{cfg.compute_dtype} on fp32 masters, {microbatches} "
+          f"microbatch(es)): loss {met['loss'].item():.6f}, peak "
+          f"{torch.cuda.max_memory_allocated()} B")
+    report(prof, wall, LM_STAGES)
+
+    events = prof.events()
+    fwd_region = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.sequence_nr >= 0 and \
+                not _in_engine(e):
+            fwd_region.setdefault(e.sequence_nr, _region(e, {}))
+    by = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        region = _region(e, fwd_region)
+        for k in e.kernels:
+            key = (region, _kind(k.name))
+            by[key] = by.get(key, 0.0) + k.duration
+    total = sum(by.values())
+    print(f"device time by where it was launched (kernels of CPU ops, "
+          f"{total / 1e3:.1f} ms):")
+    for (region, kind), us in sorted(by.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / 1e3:9.2f} ms  {region:32s} {kind}")
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    plist = list(state.params.parameters())
+    b = batches[2]
+
+    def fwd():
+        model.loss_fn(state.params, b)
+
+    def fwd_bwd():
+        loss, _ = model.loss_fn(state.params, b)
+        return torch.autograd.grad(loss, plist)
+
+    grads = fwd_bwd()
+    t_fwd, t_fb = timed(fwd), timed(fwd_bwd)
+    t_opt = timed(lambda: adamw_update(grads, state.opt, state.params,
+                                       AdamWConfig()))
+    t_step = timed(lambda: step(state, batches[3]))
+    print(f"CUDA events (ms, mean of 3 warm calls): forward {t_fwd:.2f}, "
+          f"forward + backward {t_fb:.2f}, AdamW {t_opt:.2f}, step "
+          f"{t_step:.2f}")
+    return 0
+
+
+def _in_engine(e) -> bool:
+    node = e
+    while node is not None:
+        if node.name.startswith("autograd::engine::evaluate_function"):
+            return True
+        node = node.cpu_parent
+    return False
+
+
 def report(prof, wall: float, stages_of) -> None:
     """Device time per stage and per kernel, busy share and the top
     operators of one profiled window of `wall` host seconds."""
     from torch.autograd import DeviceType
 
+    # the train ranges' spans on the device timeline are not kernels
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("train/")]
     total_us = sum(_dev_us(e, self_only=True) for e in events)
     print(f"wall {wall * 1e3:.1f} ms, device kernel time "
           f"{total_us / 1e3:.1f} ms, busy share {total_us / 1e6 / wall:.3f}")
