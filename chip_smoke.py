@@ -250,9 +250,35 @@ line):
    1e-2 of the 1-microbatch one; step ms, peak memory, tokens/s.  The
    four kernels are launched 0 times on this path (the reference's
    training takes its chunked attention only).
+18. The LM over ranks, on a (data, model) = (1, 1) mesh of one NCCL rank
+   (one card: NCCL takes one rank per device), each path against the
+   one-device path on the same weights from seed 0.  18a (deterministic
+   algorithms): qwen1.5-0.5b at its published size, (8, 512), bf16 on
+   fp32 masters, 3 steps of `build_train_step` on one device and on the
+   mesh: every loss and every state tensor bit for bit (the (1, 1) path
+   runs the one-device operations in the same order, its collectives
+   among one rank), the one-device losses equal to phase 17a's first 3;
+   `TrainLoop` on the mesh with a checkpoint at step 1 and a crash at
+   step 2: the uninterrupted mesh run's losses and state bit for bit;
+   that step-1 checkpoint restored on one device and stepped to step 3
+   there: the mesh run's state bit for bit.  18b: granite-moe-1b-a400m
+   at its published size, (8, 512), 2 steps on the mesh: the step-1
+   loss within 1e-5 relative of the one-device step's and every routing
+   decision of step 1 (top-k indices, kept slots; forward and remat
+   recompute) identical.  Step ms, tokens/s, peak memory and the
+   collectives a step by kind are printed beside the one-device runs
+   (and phase 17's); 0 kernel launches; 0 B left.  18c:
+   granite-moe-1b-a400m, mamba2-2.7b and recurrentgemma-2b in fp32 at
+   phase 16's batch and lengths through `ServeEngine(..., mesh=…)`: the
+   one-device engine's tokens, the decode step one CUDA graph (captured
+   once cold, none warm), decode ms a token beside the one-device
+   engine's (and phase 16's); recurrentgemma-2b's (1, 4096) no-cache
+   forward with attn_impl="pallas" on the mesh: one `flash_attention`
+   launch per local layer (8), hidden states within 2e-4 of max |h| of
+   the one-device forward; 0 B left after each arch.
 Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
 beside their measured times (`roofline.H100`; reported, no bar).
-`--only 11,12,13,14,15,16,17` (any subset) runs the card and build phases
+`--only 11,12,13,14,15,16,17,18` (any subset) runs the card and build phases
 and the named phases alone (a development run: no result lines, exit code 3
 when they pass).
 
@@ -3412,8 +3438,8 @@ def _family_runs(torch, checks, smi, arch):
         model = build_model(dataclasses.replace(cfg, compute_dtype=cdt))
         batch = make_batch(model.cfg, LM_B, LM_PROMPT, kind="serve",
                            device=dev)
-        graphed_decode(torch, checks, model, params, batch, cdt, tol,
-                       label=f"{arch} ")
+        STASH[f"p16 {arch} {cdt}"] = graphed_decode(
+            torch, checks, model, params, batch, cdt, tol, label=f"{arch} ")
 
     # two algorithms, one function: the prefill (the recurrences step by
     # step, the SSD decode loop) against the no-cache forward (the chunked
@@ -3671,6 +3697,7 @@ def _train_resume(torch, checks, smi):
           f"{same}; loss {want[0]:.6f} -> {want[-1]:.6f}")
     warm = [m["step_time_s"] for m in clean.metrics[1:]]
     step_ms = statistics.median(warm) * 1e3
+    STASH["p17a"] = {"losses": want, "step_ms": step_ms, "peak": peak}
     flops = _model_flops(model, TRAIN_B * TRAIN_S, TRAIN_S)
     share = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
     log(f"  {TRAIN_ARCH}: {count_params(model.defs())} parameters; warm step "
@@ -3764,6 +3791,8 @@ def _train_moe(torch, checks, smi):
         del state
         first[n_mb] = losses[0]
         ms = statistics.median(times[1:]) * 1e3
+        STASH[f"p17c {n_mb}"] = {"losses": losses, "step_ms": ms,
+                                 "peak": peak}
         _gate(checks, all(map(math.isfinite, losses + auxes))
               and losses[-1] < losses[0], f"train moe n_mb={n_mb}",
               f"{MOE_TRAIN_ARCH} bf16 ({TRAIN_B}, {TRAIN_S}), {n_mb} "
@@ -3778,17 +3807,321 @@ def _train_moe(torch, checks, smi):
           f"against 1: {first[1]:.6f} (rel {rel:.3e}, tol 1e-2)")
 
 
+# ------------------------------------------------------------ phase 18 --
+# the LM over ranks on a (data, model) = (1, 1) mesh of one NCCL rank
+MESH_TRAIN_STEPS, MESH_MOE_STEPS = 3, 2
+MESH_SERVE_ARCHS = ("granite-moe-1b-a400m", "mamba2-2.7b",
+                    "recurrentgemma-2b")
+
+
+def phase_lm_ranks(torch, checks, smi):
+    """Phase 18: 18a and 18b (training, under deterministic algorithms,
+    kernel launch counts set to 0 before and read after) and 18c
+    (serving) on a (1, 1) mesh of one NCCL rank, each against the
+    one-device path on the same weights; 0 B left after each.  Returns
+    {label: launch counts}."""
+    import gc
+    import tempfile
+
+    from repro_torch.launch.mesh import join, leave, make_local_mesh
+    from repro_torch.serving.graphs import capture_stream
+
+    t0 = time.perf_counter()
+    log(f"the LM over ranks: a (data, model) = (1, 1) mesh of one NCCL "
+        f"rank; card: {smi}")
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        join("cuda", rank=0, world_size=1,
+             store_file=os.path.join(tmp, "store"))
+        try:
+            mesh = make_local_mesh(1)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.use_deterministic_algorithms(True)
+            _warm_backward(torch)
+            base = torch.cuda.memory_allocated()
+            mods = _reset_counts()
+            _ranks_train(torch, checks, smi, mesh, tmp)
+            _ranks_moe(torch, checks, smi, mesh)
+            counts = _read_counts(mods)
+            torch.use_deterministic_algorithms(False)
+            _gate(checks, not any(counts.values()), "train ranks launches",
+                  f"kernel launches on the training path over ranks: "
+                  f"{counts} (want none: training takes the chunked "
+                  f"attention)")
+            launches["train 18a-18b (1, 1)"] = counts
+            _freed(torch, checks, "phase 18a-18b memory", base)
+            # what outlives the serving runs when this phase runs alone,
+            # made before their baselines (as phase 16 does): the capture
+            # stream's and the default stream's cuBLAS workspaces
+            capture_stream(DEVICE)
+            for dt in (torch.float32, torch.bfloat16):
+                a = torch.ones((8, 8), dtype=dt, device=DEVICE)
+                a @ a
+            del a
+            for arch in MESH_SERVE_ARCHS:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                launches.update(_ranks_serve(torch, checks, smi, mesh, arch))
+                _freed(torch, checks, f"phase 18c {arch} memory", base)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            leave()
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _or_not_run(value, fmt: str, unit: str) -> str:
+    """A number from an earlier phase, or "not run" when that phase did
+    not run in this invocation."""
+    return "not run" if value is None else format(value, fmt) + unit
+
+
+def _bits_equal(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _ranks_steps(torch, model, mesh, data, n, routes=False):
+    """n train steps of `model` from seed 0 on one device (mesh None) or on
+    the mesh.  Returns (state, losses, step seconds, peak bytes above the
+    start, the step function, (topi, keep) of step 1 when `routes`)."""
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.models.layers import record_routes
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.steps import build_train_step, make_train_state
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(0), mesh=mesh)
+    step, _, bspecs = build_train_step(model, mesh, AdamWConfig())
+    losses, times, seen = [], [], None
+    for i in range(n):
+        batch = device_put_batch(data.batch(i), DEVICE,
+                                 bspecs if mesh is not None else None,
+                                 step.shards)
+        t = time.perf_counter()
+        if routes and i == 0:
+            with record_routes() as seen:
+                state, met = step(state, batch)
+        else:
+            state, met = step(state, batch)
+        losses.append(met["loss"].item())
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() - start
+    return state, losses, times, peak, step, seen
+
+
+def _ranks_train(torch, checks, smi, mesh, tmp):
+    """18a: qwen1.5-0.5b, MESH_TRAIN_STEPS steps at (TRAIN_B, TRAIN_S) in
+    bf16 on fp32 masters, on one device and on the (1, 1) mesh: the same
+    losses and state bit for bit; a crash at step 2 after the step-1
+    checkpoint, resumed on the mesh, the uninterrupted mesh run's bits;
+    that checkpoint resumed on one device, the same bits again."""
+    import statistics
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, device_put_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.loop import TrainLoop, TrainLoopConfig
+    from repro_torch.training.steps import (abstract_train_state,
+                                            build_train_step)
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    n = MESH_TRAIN_STEPS
+    s_one, l_one, t_one, p_one, _, _ = _ranks_steps(torch, model, None,
+                                                     data, n)
+    s_mesh, l_mesh, t_mesh, p_mesh, step, _ = _ranks_steps(torch, model,
+                                                          mesh, data, n)
+    a, b = _state_tensors(s_one), _state_tensors(s_mesh)
+    same = _bits_equal(torch, a, b)
+    worst = max(((x.float() - y.float()).abs().max()
+                 / x.float().abs().max().clamp_min(1e-30)).item()
+                for x, y in zip(a, b))
+    del a, b
+    p17 = STASH.get("p17a")
+    against17 = ("phase 17a not run" if p17 is None else
+                 f"phase 17a's first {n}: {p17['losses'][:n] == l_one}")
+    _gate(checks, same and l_one == l_mesh, "train ranks 18a",
+          f"{TRAIN_ARCH} ({TRAIN_B}, {TRAIN_S}) bf16 on fp32 masters, {n} "
+          f"steps: the (1, 1) mesh's losses and every state tensor "
+          f"bit for bit the one-device run's: {same and l_one == l_mesh} "
+          f"(worst state tensor {worst:.3e} of its largest |x|; losses "
+          f"{l_mesh}; one-device losses equal {against17})")
+    ms_one = statistics.median(t_one[1:]) * 1e3
+    ms_mesh = statistics.median(t_mesh[1:]) * 1e3
+    tok = TRAIN_B * TRAIN_S
+    log(f"  step {ms_mesh:.2f} ms on (1, 1) against {ms_one:.2f} ms on one "
+        f"device (median of steps 2..{n}; phase 17a: "
+        f"{_or_not_run(p17 and p17['step_ms'], '.2f', ' ms')}"
+        f"), {tok / ms_mesh * 1e3:.0f} against {tok / ms_one * 1e3:.0f} "
+        f"tokens/s; peak above the run's start {p_mesh} B against {p_one} B; "
+        f"{smi}")
+    log(f"  collectives a step on (1, 1): {dict(step.shards.counts)}, of "
+        f"which gradient reductions {dict(step.shards.grad_counts)}")
+    del s_one
+
+    # a crash at step 2 after the checkpoint at step 1, resumed on (1, 1)
+    ck = os.path.join(tmp, "ck18a")
+    loop = TrainLoop(model, mesh, AdamWConfig(), TrainLoopConfig(
+        total_steps=n, ckpt_every=1, ckpt_dir=ck, fail_at_step=1), data,
+        device=DEVICE)
+    s_crash = loop.run_with_restarts()
+    got = [m["loss"] for m in loop.metrics]
+    same_c = got == l_mesh and _bits_equal(
+        torch, _state_tensors(s_crash), _state_tensors(s_mesh))
+    _gate(checks, same_c, "train ranks 18a resume",
+          f"crash at step 2 after the step-1 checkpoint, resumed on (1, 1): "
+          f"the uninterrupted (1, 1) run's losses and state bit for bit: "
+          f"{same_c}; failure to first resumed step "
+          f"{loop.restart_s[0]:.3f} s")
+    del s_crash, loop
+    # the step-1 checkpoint on one device, then steps 2..n there
+    state, _ = restore_checkpoint(ck, 1, abstract_train_state(model), DEVICE)
+    one_step, _, _ = build_train_step(model, None, AdamWConfig())
+    for i in range(1, n):
+        state, _ = one_step(state, device_put_batch(data.batch(i), DEVICE))
+    same_r = _bits_equal(torch, _state_tensors(state), _state_tensors(s_mesh))
+    _gate(checks, same_r, "train ranks 18a restore on one device",
+          f"the (1, 1) mesh's step-1 checkpoint resumed on one device: after "
+          f"step {n} the (1, 1) run's state bit for bit: {same_r}")
+    del state, s_mesh
+
+
+def _ranks_moe(torch, checks, smi, mesh):
+    """18b: granite-moe-1b-a400m, MESH_MOE_STEPS steps on the (1, 1) mesh:
+    the step-1 loss within 1e-5 relative of the one-device step's (phase
+    17c's path) and every routing decision of step 1 identical."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models import build_model
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    model = build_model(cfg)
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    s, l_one, _, _, _, r_one = _ranks_steps(torch, model, None, data, 1,
+                                            routes=True)
+    del s
+    s, l_mesh, t_mesh, peak, step, r_mesh = _ranks_steps(
+        torch, model, mesh, data, MESH_MOE_STEPS, routes=True)
+    del s
+    same = len(r_one) == len(r_mesh) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(r_one, r_mesh))
+    rel = abs(l_mesh[0] - l_one[0]) / abs(l_one[0])
+    p17 = STASH.get("p17c 1")
+    _gate(checks, rel <= 1e-5 and same and all(map(math.isfinite, l_mesh)),
+          "train ranks 18b",
+          f"{MOE_TRAIN_ARCH} ({TRAIN_B}, {TRAIN_S}) bf16 on (1, 1): step-1 "
+          f"loss {l_mesh[0]:.6f} against one device {l_one[0]:.6f} (rel "
+          f"{rel:.3e}, tol 1e-5; phase 17c: "
+          f"{'not run' if p17 is None else repr(p17['losses'][0])}); "
+          f"routing decisions of step 1 identical over {len(r_mesh)} "
+          f"routings (forward and remat recompute): {same}; losses {l_mesh}")
+    ms = statistics.median(t_mesh[1:]) * 1e3
+    log(f"  step {ms:.2f} ms on (1, 1) ({TRAIN_B * TRAIN_S / ms * 1e3:.0f} "
+        f"tokens/s; phase 17c: "
+        f"{_or_not_run(p17 and p17['step_ms'], '.2f', ' ms')}"
+        f"), peak above the run's start {peak} B; collectives a step "
+        f"{dict(step.shards.counts)}, of which gradient reductions "
+        f"{dict(step.shards.grad_counts)}; {smi}")
+
+
+def _ranks_serve(torch, checks, smi, mesh, arch):
+    """18c: `arch` served in fp32 on the (1, 1) mesh at phase 16's batch
+    and lengths: the one-device engine's tokens, one decode graph a step
+    (captured once cold, none warm); on recurrentgemma-2b the (1, RG_S)
+    no-cache forward with attn_impl="pallas" on the mesh: one
+    flash_attention launch per local layer, within 2e-4 of max |h| of the
+    one-device forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.models import build_model, forward
+    from repro_torch.serving.engine import (ServeEngine, build_serve_steps,
+                                            shard_params)
+    from repro_torch.sharding.activation import activation_sharding
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    model = build_model(cfg)
+    dev = torch.device(DEVICE)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = make_batch(cfg, LM_B, LM_PROMPT, kind="serve", device=dev)
+    max_len = LM_PROMPT + LM_GEN
+    out = {}
+    for name, m in (("one", None), ("mesh", mesh)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(model, params, LM_B, max_len, mesh=m)
+        eng.generate(batch, LM_GEN)  # cold: one eager step, the capture
+        first = eng._decode
+        toks = eng.generate(batch, LM_GEN)  # warm: replays
+        out[name] = (toks, eng.timings["decode_ms"] / LM_GEN,
+                     eng.captures == 1 and eng._decode is first,
+                     torch.cuda.max_memory_allocated())
+        eng.close()
+        del eng
+    (t1, ms1, once1, _), (t2, ms2, once2, peak) = out["one"], out["mesh"]
+    p16 = STASH.get(f"p16 {arch} float32")
+    _gate(checks, torch.equal(t1, t2) and once1 and once2,
+          f"serve ranks {arch}",
+          f"{arch} fp32 ({LM_B}, {LM_PROMPT}) + {LM_GEN} on (1, 1): tokens "
+          f"== the one-device engine's {torch.equal(t1, t2)}; decode one "
+          f"CUDA graph a step (captured once cold, none warm): {once2}; "
+          f"warm decode {ms2:.3f} ms a token against {ms1:.3f} on one device "
+          f"(phase 16: "
+          f"{_or_not_run(p16 and p16['graphed_ms_per_token'], '.3f', ' ms')}"
+          f"); peak {peak} B; {smi}")
+    launches = {}
+    if arch == "recurrentgemma-2b":
+        c = dataclasses.replace(cfg, attn_impl="pallas")
+        tokens = make_batch(c, 1, RG_S, seed=2, kind="serve",
+                            device=dev)["tokens"]
+        with torch.no_grad():
+            want, _, _ = forward(params, tokens, c)
+            _, _, _, _, p_specs, shards = build_serve_steps(
+                build_model(c), mesh, 1, RG_S)
+            local = shard_params(build_model(c), params, shards, p_specs, dev)
+            mods = _reset_counts()
+            with activation_sharding(shards):
+                got, _, _ = forward(local, tokens, c)
+            counts = _read_counts(mods)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        n_local = cfg.layer_kinds().count("local")
+        label = f"recurrentgemma-2b forward S={RG_S} pallas (1, 1)"
+        launches[label] = counts
+        _gate(checks, rel <= 2e-4 and counts["flash_attention"] == n_local,
+              label,
+              f"recurrentgemma-2b fp32 no-cache forward at (1, {RG_S}) with "
+              f"attn_impl='pallas' on (1, 1): hidden max rel diff "
+              f"{rel:.3e} against one device (tol 2e-4); flash_attention "
+              f"launches {counts['flash_attention']} (want {n_local})")
+        del got, want, local
+    return launches
+
+
 def _only_phases():
-    """`--only 11,12,13,14,15,16,17`: the later phases to run alone
+    """`--only 11,12,13,14,15,16,17,18`: the later phases to run alone
     (development runs only; with no arguments every phase runs)."""
     if "--only" not in sys.argv:
         return []
     names = sys.argv[sys.argv.index("--only") + 1].split(",")
     bad = [n for n in names
-           if n not in ("11", "12", "13", "14", "15", "16", "17")]
+           if n not in ("11", "12", "13", "14", "15", "16", "17", "18")]
     if bad:
         raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14, 15, "
-                         f"16, 17; got {bad}")
+                         f"16, 17, 18; got {bad}")
     return names
 
 
@@ -3821,7 +4154,7 @@ def main() -> int:
         tiers = {"11": phase_cache, "12": phase_scheduler,
                  "13": phase_faults, "14": phase_autotune,
                  "15": phase_multihost, "16": phase_families,
-                 "17": phase_training}
+                 "17": phase_training, "18": phase_lm_ranks}
         for name in only:
             tiers[name](torch, checks, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s (phases "
@@ -3846,6 +4179,7 @@ def main() -> int:
     launches.update(phase_multihost(torch, checks, smi))
     launches.update(phase_families(torch, checks, smi))
     launches.update(phase_training(torch, checks, smi))
+    launches.update(phase_lm_ranks(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

@@ -106,17 +106,37 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", mesh=None):
 
 
 def train_state_from_numpy(cfg: ModelConfig, params, step, m, v,
-                           residual=None, device="cpu"):
+                           residual=None, device="cpu", mesh=None):
     """The port's `TrainState` holding the reference's: its parameters,
     AdamW step and moments m, v, and the optional compression residual,
     each a pytree as `lm_params_from_numpy` takes (numpy arrays).  The
-    parameters get gradients on; the AdamW step is a 0-d int32 tensor."""
+    parameters get gradients on; the AdamW step is a 0-d int32 tensor.
+
+    With `mesh` (a (data, model) DeviceMesh of ranks) each rank gets only
+    its shards under `training/steps.py:state_specs` (the train rules),
+    cut from the numpy arrays, on the rank's device."""
+    from .models import Model
     from .models.params import trainable
     from .optim import AdamWState, CompressionState
     from .training.steps import TrainState
 
-    def tree(t):
-        return lm_params_from_numpy(cfg, t, device)
+    if mesh is None:
+        def tree(t):
+            return lm_params_from_numpy(cfg, t, device)
+    else:
+        from .launch.mesh import mesh_device
+        from .serving.engine import shard_params
+        from .training.steps import state_specs, train_shards
+
+        model = Model(cfg)
+        specs = state_specs(model, mesh).params
+        shards = train_shards(model, mesh)
+        device = mesh_device(mesh)
+
+        def tree(t):
+            return shard_params(
+                model, lambda d, path: _numpy_leaf(t, path, d.shape),
+                shards, specs, device)
 
     return TrainState(
         params=trainable(tree(params)),

@@ -38,6 +38,14 @@ reference writes them, so each package reads the other's checkpoints.
     `CheckpointManager.save` copies the state to the host before it
     returns (the step after it updates the parameters in place) and may
     write in a thread.
+  * Training state on a mesh of ranks (`CheckpointManager(shards=…)`,
+    `host_leaves(tree, shards)`, `restore_checkpoint(..., shardings=…)`):
+    every rank gathers each leaf whole on the step path, in leaf order
+    (a collective in the writer thread would interleave with the step's),
+    and the mesh's first rank writes format 1, byte for byte what one
+    device writes for the same state.  A restore reads the whole leaves
+    and cuts each rank's shard for the mesh live now, so a step written
+    on one mesh resumes on another, on one device, or in the reference.
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ import re
 import shutil
 import threading
 import warnings
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -428,19 +436,44 @@ def _leaf_shape(leaf) -> Tuple[int, ...]:
     return tuple(np.shape(leaf))
 
 
-def host_leaves(tree) -> List[np.ndarray]:
+def _whole(t, shards):
+    """A shard marked with its layout, gathered whole (t itself when it
+    carries none)."""
+    held = getattr(t, "_held", None)
+    if shards is None or held is None:
+        return t.detach()
+    return shards.reshard(t.detach(), held, (None,) * t.dim())
+
+
+def writes(shards) -> bool:
+    """Whether this rank writes the mesh's checkpoints (its first rank;
+    every process without a mesh)."""
+    if shards is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == int(shards.mesh.mesh.reshape(-1)[0])
+
+
+def host_leaves(tree, shards=None) -> Optional[List[np.ndarray]]:
     """The tree's leaves (`tree_leaves`) copied to host numpy arrays now
     (copies, never views of a tensor on the CPU), a `LayerStack` leaf
-    stacked on its device first."""
+    stacked on its device first.  With `shards` (an `LMShards`) each
+    leaf is this rank's shard, gathered whole over the mesh first by
+    every rank; the mesh's first rank gets the arrays, the others None."""
     out = []
+    mine = writes(shards)
     with torch.no_grad():
         for leaf in tree_leaves(tree):
             if isinstance(leaf, list):
-                leaf = torch.stack([t.detach() for t in leaf])
-            elif isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu":
-                leaf = leaf.detach().clone()
-            out.append(host_array(leaf))
-    return out
+                leaf = torch.stack([_whole(t, shards) for t in leaf])
+            elif isinstance(leaf, torch.Tensor):
+                leaf = _whole(leaf, shards)
+                if leaf.device.type == "cpu":
+                    leaf = leaf.clone()
+            if mine:
+                out.append(host_array(leaf))
+    return out if mine else None
 
 
 def restore_checkpoint(directory: str, step: int, like, shardings=None,
@@ -449,11 +482,14 @@ def restore_checkpoint(directory: str, step: int, like, shardings=None,
     `tree_leaves` reads it; its tensors may be on the `meta` device).
     Returns (tree, extra): new tensors of the checkpoint's values, each on
     its `like` leaf's device (the CPU for a meta leaf), or on
-    `shardings` when it names a device (one device: the port's
-    counterpart of the reference's re-sharding onto a mesh); parameter
-    modules keep each leaf's `requires_grad`.  A leaf count or a leaf
-    shape that differs from `like`'s raises ValueError, a failed SHA
-    check IOError."""
+    `shardings` when it names a device; parameter modules keep each
+    leaf's `requires_grad`.  With `shardings` an `LMShards` (a rank of a
+    mesh) each leaf of `like` marked with a layout
+    (`training/steps.py:abstract_train_state(..., mesh=)`) becomes this
+    rank's shard of it on the rank's device, marked likewise: the
+    reference's re-sharding onto the mesh live now.  A leaf count or a
+    leaf shape that differs from `like`'s (whole shapes) raises
+    ValueError, a failed SHA check IOError."""
     raw, extra = load_leaves(directory, step, verify=verify)
     want = tree_leaves(like)
     if len(want) != len(raw):
@@ -463,22 +499,35 @@ def restore_checkpoint(directory: str, step: int, like, shardings=None,
         if _leaf_shape(leaf) != tuple(arr.shape):
             raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != "
                              f"model {_leaf_shape(leaf)}")
-    device = None if shardings is None else torch.device(shardings)
-    return _rebuild(like, iter(raw), device), extra
+    if shardings is None or isinstance(shardings, (str, torch.device)):
+        device = None if shardings is None else torch.device(shardings)
+        return _rebuild(like, iter(raw), device), extra
+    from repro_torch.launch.mesh import mesh_device
+
+    return _rebuild(like, iter(raw), mesh_device(shardings.mesh),
+                    shardings), extra
 
 
-def _placed(arr, like, device) -> torch.Tensor:
+def _placed(arr, like, device, shards=None) -> torch.Tensor:
+    held = getattr(like, "_held", None)
+    if shards is not None and held is not None:
+        from repro_torch.serving.engine import _slices
+
+        arr = arr[_slices(arr.shape, held, shards)]
     t = torch.from_numpy(np.array(arr))
     if device is None:
         device = getattr(like, "device", torch.device("cpu"))
         if device.type == "meta":
             device = torch.device("cpu")
-    return t.to(device)
+    t = t.to(device)
+    if shards is not None and held is not None:
+        t._held = held
+    return t
 
 
-def _rebuild(tree, it, device):
+def _rebuild(tree, it, device, shards=None):
     """`tree`'s structure holding the next arrays of `it`, consumed in
-    `tree_leaves` order."""
+    `tree_leaves` order (each rank's shard of them with `shards`)."""
     if tree is None:
         return None
     if isinstance(tree, nn.Module):
@@ -487,19 +536,20 @@ def _rebuild(tree, it, device):
             arr = next(it)
             for j, p in enumerate(leaf if isinstance(leaf, list) else [leaf]):
                 vals[id(p)] = _placed(arr[j] if isinstance(leaf, list)
-                                      else arr, p, device)
+                                      else arr, p, device, shards)
         new = map_params(lambda p: vals[id(p)], tree)
         for old, p in zip(tree.parameters(), new.parameters()):
             p.requires_grad_(old.requires_grad)
         return new
     if isinstance(tree, torch.Tensor):
-        return _placed(next(it), tree, device)
+        return _placed(next(it), tree, device, shards)
     if isinstance(tree, dict):
-        return {k: _rebuild(tree[k], it, device) for k in sorted(tree)}
+        return {k: _rebuild(tree[k], it, device, shards)
+                for k in sorted(tree)}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_rebuild(t, it, device) for t in tree])
+        return type(tree)(*[_rebuild(t, it, device, shards) for t in tree])
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(t, it, device) for t in tree)
+        return type(tree)(_rebuild(t, it, device, shards) for t in tree)
     return next(it)
 
 
@@ -509,10 +559,16 @@ class CheckpointManager:
     to the host at once and writes it (in a thread with `async_save`;
     one write at a time), then keeps the newest `keep` steps;
     `restore_latest` takes the newest step that restores, falling back
-    to the previous one with a warning."""
+    to the previous one with a warning.
+
+    With `shards` (a rank of a mesh) the tree holds the rank's shards:
+    `save` gathers every leaf whole on every rank and the mesh's first
+    rank writes; `restore_latest` waits for that rank's writes to end
+    (a collective over the mesh) and cuts each rank's shards."""
     directory: str
     keep: int = 3
     async_save: bool = False
+    shards: Any = None
 
     def __post_init__(self):
         self._thread: Optional[threading.Thread] = None
@@ -520,7 +576,9 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: Optional[Dict] = None):
         # snapshot to host memory NOW: the next step updates the
         # parameters and moments in place
-        host = host_leaves(tree)
+        host = host_leaves(tree, self.shards)
+        if host is None:  # another rank writes
+            return
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(
@@ -544,6 +602,16 @@ class CheckpointManager:
         their SHA check or do not fit `like`; (None, None, None) when
         none does."""
         self.wait()
+        if self.shards is not None:
+            # every rank reads what the writing rank has finished
+            dims = tuple(self.shards.dims)
+            from repro_torch.launch.mesh import mesh_device
+            from repro_torch.sharding.activation import spec_entry
+
+            self.shards._all_reduce(
+                torch.zeros(1, device=mesh_device(self.shards.mesh)),
+                spec_entry(dims))
+            shardings = self.shards
         for step in restorable_steps(self.directory, verify_sha=False):
             try:
                 tree, extra = restore_checkpoint(self.directory, step,

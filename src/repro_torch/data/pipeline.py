@@ -8,7 +8,8 @@
   exactly the batches it needs: no data state to checkpoint.
 * `TensorChunkLoader`: mode-1 slabs of the paper's planted tensor, made
   on the device that owns them (`core/synthetic.py`, a torch.Generator).
-* `device_put_batch`: host → device copy of a batch.
+* `device_put_batch`: host → device copy of a batch (on a mesh of ranks,
+  this rank's rows under the batch specs).
 * `Prefetcher`: a thread builds the next host batches while a step runs;
   the copy to the device happens in the caller's thread, on its stream,
   when the batch is taken (no pinned buffer is reused under a copy).
@@ -82,9 +83,23 @@ class TensorChunkLoader:
         return torch.cat([s for _, s in rows], dim=0)
 
 
-def device_put_batch(batch: Dict[str, Any], device="cuda"
-                     ) -> Dict[str, torch.Tensor]:
-    """Each array of the batch as a tensor on `device` (a copy)."""
+def device_put_batch(batch: Dict[str, Any], device="cuda", specs=None,
+                     shards=None) -> Dict[str, torch.Tensor]:
+    """Each array of the batch as a tensor on `device` (a copy).  With
+    `specs` ({name: spec}, `training/steps.py:batch_specs`) and `shards`
+    (the rank's `LMShards`), each array is cut to this rank's block first
+    (the reference's `device_put` onto batch shardings)."""
+    if specs is not None and shards is not None:
+        from repro_torch.serving.engine import _slices
+
+        for k, v in batch.items():
+            for n, entry in zip(np.shape(v), specs[k]):
+                if n % shards.size(entry):
+                    raise ValueError(
+                        f"batch {k!r} of shape {np.shape(v)} does not "
+                        f"divide over {entry!r} of the mesh {shards.dims}")
+        batch = {k: np.asarray(v)[_slices(np.shape(v), specs[k], shards)]
+                 for k, v in batch.items()}
     return {k: torch.tensor(np.ascontiguousarray(v), device=device)
             for k, v in batch.items()}
 

@@ -9,9 +9,11 @@ checkpointed on 2 ranks finishes on 1, and the reverse.
 
 `restore_after_host_loss` is the survivor's side of the multi-host
 control plane (`launch/distributed.py`).  `ElasticTrainer` rebuilds the
-training loop on the ranks live at each attempt; training runs on one
-device, so a (data, model) mesh of more than one rank raises
-NotImplementedError (ROADMAP.md queue 1 item 12 (d)).
+training loop on the ranks live at each attempt: the (data, model) mesh
+over the current process group (`make_elastic_mesh`), onto which the
+newest checkpoint is resumed (the checkpoint holds whole leaves; each
+rank cuts its shards for the mesh live now), so a run checkpointed on
+four ranks goes on with two.
 """
 from __future__ import annotations
 

@@ -23,6 +23,9 @@ Examples:
       --reduced --device cpu --nproc 4 --model-axis 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --batch 16 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-1b-a400m --reduced --device cpu --nproc 4 \\
+      --model-axis 2   # expert parallel over "model"
 """
 from __future__ import annotations
 
@@ -36,12 +39,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.inputs import make_batch
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import flash_attention as kfa
-from repro_torch.launch.mesh import (launched_by_torchrun, make_local_mesh,
-                                     make_production_mesh, mesh_dims,
-                                     on_ranks)
+from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
+                                     mesh_dims, on_ranks)
 from repro_torch.models import build_model
-from repro_torch.serving.engine import (MESH_TODO, ServeEngine,
-                                        one_device_only)
+from repro_torch.serving.engine import ServeEngine
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -94,10 +95,6 @@ def run(args: argparse.Namespace):
     one device) and the flash_attention launches of the run; under
     torchrun rank 0's (None on the other ranks); with --nproc the ranks
     run in new processes and this returns None."""
-    if args.nproc or args.production_mesh or launched_by_torchrun():
-        cfg = get_config(args.arch)
-        if one_device_only(cfg):
-            raise NotImplementedError(f"{cfg.name} {MESH_TODO}")
     return on_ranks(args, _serve_and_report)
 
 

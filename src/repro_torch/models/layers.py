@@ -22,12 +22,20 @@ reference's three conditions (`attention` below):
             encoder–decoder model; on the CPU the kernel's plain
             version.
 
-`moe` is the reference's grouped top-k MoE with capacity, on one device
-(the expert-parallel combine over "model" is not ported: a mesh with an
-MoE model raises, `serving/engine.py`).
+`moe` is the reference's grouped top-k MoE with capacity.  On a mesh it
+is expert parallel, as the reference's dataflow: the router's logits are
+gathered whole over the experts (softmax and top-k see every expert),
+each model rank dispatches to its own experts only, and the token-space
+combine is summed over "model".
+
+Under autograd (the train step) the same code runs with the moves'
+adjoints (`sharding/activation.py`): the input of every product cut over
+"model" (`to_model`) sums its gradient over the model ranks, so every
+tensor a rank holds carries its whole gradient.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -35,8 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.sharding.activation import (constrain, current, held_of,
-                                             hold, is_model, on_model,
-                                             psum_model, use)
+                                             hold, is_model, model_part,
+                                             on_model, psum_model, to_model,
+                                             use)
 
 from .config import ModelConfig
 from .params import ParamDef
@@ -188,35 +197,38 @@ def _attn_pallas(q, k, v, *, scale, causal, window, softcap, q_offset):
     return o.reshape(b, hk, g, sq, dh).permute(0, 3, 1, 2, 4)
 
 
-def _cache_want(held):
-    """The layout a cache leaf is read in for a step: its batch cut and a
-    kv-head cut over "model" kept, its time and head-dim cuts gathered."""
-    return (held[0], None,
-            held[2] if is_model(held[2]) else None, None)
+def _cache_want(held, keep=(2,)):
+    """The layout a cache leaf is read in for a step: its batch cut and
+    the "model" cuts of the dims in `keep` kept (a KV cache's kv heads),
+    every other cut gathered."""
+    return (held[0],) + tuple(
+        h if d in keep and is_model(h) else None
+        for d, h in enumerate(held) if d > 0)
 
 
-def _cache_view(t: torch.Tensor) -> torch.Tensor:
-    """A cache leaf whole over time and head dim for this step (the local
-    shard itself when nothing is cut there)."""
+def cache_view(t: torch.Tensor, keep=(2,)) -> torch.Tensor:
+    """A cache leaf in the layout a step computes in (`_cache_want`): the
+    local shard itself when nothing else is cut."""
     ctx, held = current(), held_of(t)
     if ctx is None or held is None:
         return t
-    return ctx.reshard(t, held, _cache_want(held))
+    return ctx.reshard(t, held, _cache_want(held, keep))
 
 
-def _cache_store(local: torch.Tensor, view: torch.Tensor) -> None:
+def cache_store(local: torch.Tensor, view: torch.Tensor,
+                keep=(2,)) -> None:
     """Write the rank's shard of a step's cache view back (nothing when the
     view is the shard)."""
     if view is not local:
         held = held_of(local)
-        local.copy_(current().reshard(view, _cache_want(held), held))
+        local.copy_(current().reshard(view, _cache_want(held, keep), held))
 
 
 def _as_cache(t: torch.Tensor, held_now) -> torch.Tensor:
     """A whole-time (B, T, K, dh) projection as a cache leaf: the rank's
     shard under the cache spec of its global shape, marked with it."""
     ctx = current()
-    if ctx is None:
+    if ctx is None or ctx.cache_spec is None:  # no cache kept (training)
         return t
     spec = ctx.cache_spec(ctx.global_shape(t, held_now))
     return hold(ctx.reshard(t, held_now, spec).contiguous(), spec)
@@ -229,6 +241,9 @@ def _kv_for_heads(k, v, h_loc: int, h0: int, cfg: ModelConfig):
     g = padded_heads(cfg) // cfg.n_kv_heads
     if k.shape[2] * g == h_loc:  # the rank's kv heads are its groups'
         return k, v
+    # k and v are whole over "model" and each rank reads its heads' part:
+    # their gradients are summed over the model ranks
+    k, v = current().to_model(k), current().to_model(v)
     idx = torch.div(h0 + torch.arange(h_loc, device=k.device), g,
                     rounding_mode="floor")
     return k.index_select(2, idx), v.index_select(2, idx)
@@ -257,14 +272,19 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
     cd = cfg.cdtype
     dev = x.device
     ctx = current()
-    q = torch.einsum("bsd,dhe->bshe", x, use(p["wq"]).to(cd))
+    xq = to_model(x, p["wq"], 1)
+    q = torch.einsum("bsd,dhe->bshe", xq, use(p["wq"]).to(cd))
     h_loc = q.shape[2]  # this rank's query heads: h0 … h0 + h_loc − 1
     h0 = ctx.model_index() * h_loc if on_model(p["wq"], 1) else 0
     is_cross = kv_source is not None or static_kv is not None
     if static_kv is not None:
-        k, v = (_cache_view(t) for t in static_kv)
+        k, v = (cache_view(t) for t in static_kv)
     else:
         src = x if kv_source is None else kv_source
+        if on_model(p["wk"], 1) or on_model(p["wk"], 2):
+            # column-parallel: the kv heads (or their dims) cut over "model"
+            src = xq if src is x and xq is not x else \
+                current().to_model(src)
         k = torch.einsum("bsd,dhe->bshe", src, use(p["wk"]).to(cd))
         v = torch.einsum("bsd,dhe->bshe", src, use(p["wv"]).to(cd))
     if cfg.qkv_bias:
@@ -297,7 +317,7 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
         qpos = torch.arange(s, device=dev)
     elif kv_cache is not None:
         ck_local, cv_local = kv_cache
-        ck, cv = _cache_view(ck_local), _cache_view(cv_local)
+        ck, cv = cache_view(ck_local), cache_view(cv_local)
         w_buf = ck.shape[1]
         ring = (kind == "local" and cfg.local_window is not None
                 and w_buf == cfg.local_window)
@@ -342,8 +362,8 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
         qpos = qpos_vec
 
     if kv_cache is not None and not is_cross:
-        _cache_store(ck_local, ck)
-        _cache_store(cv_local, cv)
+        cache_store(ck_local, ck)
+        cache_store(cv_local, cv)
     k, v = _kv_for_heads(k, v, h_loc, h0, cfg)
     qg = _grouped(q, k.shape[2])
     scale = dh ** -0.5
@@ -401,6 +421,7 @@ def _act(x, name):
 
 def mlp(p, x, cfg: ModelConfig):
     cd = cfg.cdtype
+    x = to_model(x, p["w1"], 1)
     h = _act(x @ use(p["w1"]).to(cd), cfg.act)
     if "w3" in p:
         h = h * (x @ use(p["w3"]).to(cd))
@@ -467,11 +488,18 @@ def moe_route(p, xt: torch.Tensor, cfg: ModelConfig, cap: int) -> dict:
     exclusive cumsum in (s-major, k-minor) order and is kept when that
     place is below `cap`.
 
+    On a mesh whose "model" dim cuts the experts, each rank's logits for
+    its experts are gathered whole (an exact concatenation), so every
+    rank routes every token alike.  Inside `record_routes` each call's
+    topi and keep are appended to its list.
+
     Returns probs (g, gs, E), topv and topi (g, gs, k), onehot, pos and
     keep (g, gs, k, E), all fp32 but topi."""
     e, k = padded_experts(cfg), cfg.experts_per_token
     g, gs, _ = xt.shape
-    logits = xt @ use(p["router"]).to(cfg.cdtype)
+    logits = to_model(xt, p["router"], 1) @ use(p["router"]).to(cfg.cdtype)
+    if on_model(p["router"], 1):
+        logits = current().gather(logits, 2, "model")
     if e > cfg.n_experts:   # EP padding: fake experts are never routed
         emask = torch.arange(e, device=xt.device) < cfg.n_experts
         logits = torch.where(emask, logits,
@@ -485,6 +513,8 @@ def moe_route(p, xt: torch.Tensor, cfg: ModelConfig, cap: int) -> dict:
     flat = onehot.reshape(g, gs * k, e)
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, gs, k, e)
     keep = onehot * (pos < cap)
+    if _ROUTES is not None:
+        _ROUTES.append((topi.detach().clone(), keep.detach().clone()))
     return {"probs": probs, "topv": topv, "topi": topi, "onehot": onehot,
             "pos": pos, "keep": keep}
 
@@ -496,11 +526,32 @@ def moe(p, x, cfg: ModelConfig):
     (`moe_route`), and dispatched to and combined from the experts by
     dense einsums over (E, cap), as in the reference.  aux is the Switch
     load-balance loss over the real experts.
+
+    On a mesh the groups are the reference's, made from the global batch:
+    when they fall within a rank's rows the rank routes its own groups;
+    when a group spans the ranks of the batch dims, the ranks' tokens are
+    gathered, every rank runs every group and keeps its rows.  With the
+    experts cut over "model" each rank runs its own experts and the
+    combine is summed over the model ranks.
     """
     b, s, d = x.shape
+    ctx = current()
+    rows = 1 if ctx is None else ctx.size(ctx.batch_entry)
+    _, gs, cap = moe_groups(b * s * rows, cfg)
+    spans = rows > 1 and (b * s) % gs != 0
+    if spans:  # a group spans the batch ranks: route the whole batch
+        x = _GatherRows.apply(x, ctx)
+        b = x.shape[0]
+    y, aux = _moe_groups(p, x.reshape(b * s // gs, gs, d), cfg, cap)
+    y = y.reshape(b, s, d)
+    if spans:
+        y = _TakeRows.apply(y, ctx)
+    return y, aux
+
+
+def _moe_groups(p, xt, cfg: ModelConfig, cap: int):
+    """The MoE over grouped tokens xt (g, gs, D) → (y (g, gs, D), aux)."""
     cd = cfg.cdtype
-    g, gs, cap = moe_groups(b * s, cfg)
-    xt = x.reshape(g, gs, d)
     r = moe_route(p, xt, cfg, cap)
     gate = r["topv"][..., None] * r["keep"]                   # (g, gs, k, e)
     # Each (token, expert) pair is chosen by at most one k-slot, so the
@@ -513,12 +564,19 @@ def moe(p, x, cfg: ModelConfig):
     combine = (gate_e[..., None] * pos_oh).to(cd)
     dispatch = pos_oh.to(cd)
 
-    xin = torch.einsum("gsec,gsd->gecd", dispatch, xt)        # (g, e, cap, d)
+    # expert parallel: this model rank's experts only, the combine summed
+    # over "model" (the reference's EP dataflow)
+    ep = on_model(p["w1"], 0)
+    combine = model_part(combine, 2, ep)
+    dispatch = model_part(dispatch, 2, ep)
+    xe = to_model(xt, p["w1"], 0)
+    xin = torch.einsum("gsec,gsd->gecd", dispatch, xe)        # (g, e, cap, d)
     h = _act(torch.einsum("gecd,edf->gecf", xin, use(p["w1"]).to(cd)),
              cfg.act)
     h = h * torch.einsum("gecd,edf->gecf", xin, use(p["w3"]).to(cd))
     xout = torch.einsum("gecf,efd->gecd", h, use(p["w2"]).to(cd))
-    y = torch.einsum("gsec,gecd->gsd", combine, xout)
+    y = psum_model(torch.einsum("gsec,gecd->gsd", combine, xout),
+                   p["w2"], 0)
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], xt, cfg)
 
@@ -528,4 +586,53 @@ def moe(p, x, cfg: ModelConfig):
     frac_probs = torch.mean(r["probs"], dim=1)                # (g, e)
     aux = cfg.n_experts * torch.mean(torch.sum(frac_tokens * frac_probs,
                                                dim=-1))
-    return y.reshape(b, s, d), aux
+    return y, aux
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows of x (B_local, ...) gathered over the batch dims
+    (adjoint: the gradients of the whole batch summed over those ranks,
+    this rank's rows kept)."""
+
+    @staticmethod
+    def forward(ctx_, x, shards):
+        ctx_.shards = shards
+        return shards._all_gather(x, 0, shards.batch_entry)
+
+    @staticmethod
+    def backward(ctx_, g):
+        s = ctx_.shards
+        return s._reduce_scatter(g, 0, s.batch_entry), None
+
+
+class _TakeRows(torch.autograd.Function):
+    """This rank's rows of a tensor every batch rank computed whole
+    (adjoint: the gradient of those rows, zero elsewhere)."""
+
+    @staticmethod
+    def forward(ctx_, y, shards):
+        ctx_.shards, ctx_.shape = shards, y.shape
+        return shards._part(y, 0, shards.batch_entry).clone()
+
+    @staticmethod
+    def backward(ctx_, g):
+        s = ctx_.shards
+        _, n, i = s.role(s.batch_entry)
+        out = g.new_zeros(ctx_.shape)
+        out.narrow(0, i * g.shape[0], g.shape[0]).copy_(g)
+        return out, None
+
+
+_ROUTES = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Collect every `moe_route` call's (topi, keep) in the yielded list
+    (the routing decisions, for holding two runs to each other)."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev

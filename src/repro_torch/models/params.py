@@ -131,9 +131,13 @@ def abstract_params(defs):
 def map_params(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     """A new tree of the structure of `tree` (a `ParamTree`, a
     `LayerStack` or a `ModuleList`) whose leaf is fn(leaf), without
-    gradient."""
+    gradient; a leaf's mesh layout mark (`sharding/activation.py:hold`)
+    carries over."""
     if isinstance(tree, nn.Parameter):
-        return nn.Parameter(fn(tree), requires_grad=False)
+        out = nn.Parameter(fn(tree), requires_grad=False)
+        if hasattr(tree, "_held"):
+            out._held = tree._held
+        return out
     if isinstance(tree, nn.ModuleList):
         return type(tree)(map_params(fn, t) for t in tree)
     return ParamTree({k: map_params(fn, tree[k]) for k in _keys(tree)})

@@ -16,6 +16,15 @@ tensors, so a captured decode step replays over fixed buffers.
 Block structure (Griffin recurrent block): two branches from the input —
 a GeLU gate branch and a conv1d → RG-LRU branch — merged multiplicatively
 and projected back to d_model.
+
+On a (data, model) mesh the recurrence's channels ("rnn") are cut over
+"model": each rank runs the gate and x branches, the depthwise conv and
+the recurrence on its own channels (its blocks of the 1-D leaves), so
+the cache's states are the rank's shards as they stand.  `w_a` and `w_i`
+are ("rnn", "rnn") and a mesh dim cuts one dim of a leaf, so only their
+contraction dim is cut: each rank's product is a partial sum over the
+channels, reduce-scattered back to the rank's own channels.  `w_out`
+contracts over the channels, so its product is summed over "model".
 """
 from __future__ import annotations
 
@@ -24,7 +33,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.activation import use
+from repro_torch.sharding.activation import (current, on_model,
+                                             psum_model, to_model, use,
+                                             use_block)
 
 from .config import ModelConfig
 from .params import ParamDef
@@ -49,11 +60,23 @@ def rglru_defs(cfg: ModelConfig):
     }
 
 
-def _gates(p, xr):
-    """a_t and the gated input b_t.  xr: (B,S,W) fp32."""
-    r = torch.sigmoid(xr @ use(p["w_a"]).float() + use(p["b_a"]).float())
-    i = torch.sigmoid(xr @ use(p["w_i"]).float() + use(p["b_i"]).float())
-    log_a = -_C * r * _softplus(use(p["lam"]).float())
+def _gate_in(p, name: str, xr) -> torch.Tensor:
+    """xr @ w (w a ("rnn", "rnn") leaf): with its rows cut over "model" a
+    partial sum, reduce-scattered to this rank's channels."""
+    y = xr @ use(p[name]).float()
+    if on_model(p[name], 0):
+        y = current().reduce_scatter(y, -1, "model")
+    return y
+
+
+def _gates(p, xr, cut: bool = False):
+    """a_t and the gated input b_t.  xr: (B,S,W) fp32 (this rank's
+    channels when `cut`)."""
+    r = torch.sigmoid(_gate_in(p, "w_a", xr)
+                      + use_block(p["b_a"], 0, cut).float())
+    i = torch.sigmoid(_gate_in(p, "w_i", xr)
+                      + use_block(p["b_i"], 0, cut).float())
+    log_a = -_C * r * _softplus(use_block(p["lam"], 0, cut).float())
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xr)
     return a, gated
@@ -82,12 +105,14 @@ def rglru_block(p, x, cfg: ModelConfig, cache: Tuple = None):
     """x: (B,S,D) → ((B,S,D), cache).  cache=None → the log-depth scan;
     else the step loop, the cache's states overwritten in place."""
     cd = cfg.cdtype
+    cut = on_model(p["w_x"], 1)
+    x = to_model(x, p["w_x"], 1)
     gate = F.gelu(x @ use(p["w_gate"]).to(cd), approximate="tanh")
     xr = x @ use(p["w_x"]).to(cd)
     xr, tail = _causal_conv(xr, use(p["conv_w"]).to(cd),
-                            use(p["conv_b"]).to(cd),
+                            use_block(p["conv_b"], 0, cut).to(cd),
                             None if cache is None else cache[0])
-    a, b = _gates(p, xr.float())
+    a, b = _gates(p, xr.float(), cut)
 
     if cache is None:
         h = linear_scan(a, b)
@@ -102,4 +127,4 @@ def rglru_block(p, x, cfg: ModelConfig, cache: Tuple = None):
         cache[1].copy_(hs)
 
     y = (gate.float() * h).to(cd) @ use(p["w_out"]).to(cd)
-    return y, cache
+    return psum_model(y, p["w_out"], 0), cache

@@ -11,6 +11,15 @@ decode step replays over fixed buffers.
 
 Shapes: d_inner = H·P (H = ssm_heads, P = ssm_head_dim), N = ssm_state,
 conv_dim = d_inner + 2N (x, B and C all pass the causal conv).
+
+On a (data, model) mesh `in_proj`'s output dim ("ssm_inner": the z, xBC
+and dt segments side by side) is cut in contiguous blocks over "model",
+which mix the segments.  So each rank computes its block, the blocks are
+gathered whole, and the conv, the scan and the gated norm run whole on
+every model rank (the conv weight gathered likewise, the cache's states
+read whole and written back as the rank's shards); `out_proj`, whose
+rows are cut over "model", takes the rank's block of the normed output
+and its product is summed over the model ranks.
 """
 from __future__ import annotations
 
@@ -19,9 +28,12 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.activation import use
+from repro_torch.sharding.activation import (current, model_part,
+                                             on_model, psum_model, to_model,
+                                             use, use_whole)
 
 from .config import ModelConfig
+from .layers import cache_store, cache_view
 from .params import ParamDef
 
 
@@ -71,7 +83,9 @@ def _softplus(x):
 def _split(p, x, cfg: ModelConfig):
     d_inner, _ = _dims(cfg)
     n, h = cfg.ssm_state, cfg.ssm_heads
-    zxbcdt = x @ use(p["in_proj"]).to(cfg.cdtype)
+    zxbcdt = to_model(x, p["in_proj"], 1) @ use(p["in_proj"]).to(cfg.cdtype)
+    if on_model(p["in_proj"], 1):
+        zxbcdt = current().gather(zxbcdt, -1, "model")
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, h], dim=-1)
     return z, xbc, dt
 
@@ -80,16 +94,18 @@ def _post(p, y, z, cfg: ModelConfig):
     """Gated RMSNorm + out projection.  y, z: (B,S,d_inner)."""
     y = y * F.silu(z.float())
     var = torch.mean(y * y, dim=-1, keepdim=True)
-    y = y * torch.rsqrt(var + cfg.norm_eps) * use(p["norm"]).float()
-    return y.to(cfg.cdtype) @ use(p["out_proj"]).to(cfg.cdtype)
+    y = y * torch.rsqrt(var + cfg.norm_eps) * use_whole(p["norm"], 0).float()
+    cut = on_model(p["out_proj"], 0)
+    y = model_part(y.to(cfg.cdtype), -1, cut)
+    return psum_model(y @ use(p["out_proj"]).to(cfg.cdtype), p["out_proj"], 0)
 
 
 def _conv_split(p, xbc, cfg: ModelConfig, state=None):
     """The causal conv over x, B, C, then split: (xs, B, C, new tail)."""
     d_inner, _ = _dims(cfg)
     cd = cfg.cdtype
-    xbc, tail = _causal_conv(xbc, use(p["conv_w"]).to(cd),
-                             use(p["conv_b"]).to(cd), state)
+    xbc, tail = _causal_conv(xbc, use_whole(p["conv_w"], 1).to(cd),
+                             use_whole(p["conv_b"], 0).to(cd), state)
     xs, bm, cm = torch.split(xbc, [d_inner, cfg.ssm_state, cfg.ssm_state],
                              dim=-1)
     return xs, bm, cm, tail
@@ -97,8 +113,8 @@ def _conv_split(p, xbc, cfg: ModelConfig, state=None):
 
 def _dt_and_a(p, dt_raw):
     """softplus(dt + bias) (B,S,H) and the negative decay rates a (H,)."""
-    dt = _softplus(dt_raw.float() + use(p["dt_bias"]).float())
-    return dt, -torch.exp(use(p["a_log"]).float())
+    dt = _softplus(dt_raw.float() + use_whole(p["dt_bias"], 0).float())
+    return dt, -torch.exp(use_whole(p["a_log"], 0).float())
 
 
 def ssd_train(p, x, cfg: ModelConfig):
@@ -150,8 +166,8 @@ def ssd_train(p, x, cfg: ModelConfig):
     prev = torch.stack(prev, dim=1)                           # (b,nc,h,p,n)
 
     y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cm, prev, torch.exp(cum))
-    y = y_diag + y_off + use(p["d_skip"]).float()[None, None, None, :,
-                                                  None] * xs
+    y = y_diag + y_off + use_whole(p["d_skip"], 0).float()[
+        None, None, None, :, None] * xs
     y = y.reshape(b, s, d_inner)[:, :s0]
     return _post(p, y, z[:, :s0], cfg)
 
@@ -176,7 +192,10 @@ def ssd_decode(p, x, cache: Tuple, cfg: ModelConfig):
     b, s, d = x.shape
     h, pd = cfg.ssm_heads, cfg.ssm_head_dim
     d_inner, _ = _dims(cfg)
-    conv_state, ssm_state = cache
+    conv_local, ssm_local = cache
+    # on a mesh: the states whole but for their batch cut
+    conv_state, ssm_state = cache_view(conv_local, ()), \
+        cache_view(ssm_local, ())
 
     z, xbc, dt_raw = _split(p, x, cfg)
     xs, bm, cm, tail = _conv_split(p, xbc, cfg, conv_state)
@@ -194,8 +213,10 @@ def ssd_decode(p, x, cache: Tuple, cfg: ModelConfig):
         st = st * decay[:, :, None, None] + upd
         ys.append(torch.einsum("bn,bhpn->bhp", cm[:, t], st))
     y = torch.stack(ys, dim=1)                                  # (b,s,h,p)
-    y = y + use(p["d_skip"]).float()[None, None, :, None] * xs
+    y = y + use_whole(p["d_skip"], 0).float()[None, None, :, None] * xs
     y = y.reshape(b, s, d_inner)
     conv_state.copy_(tail)
     ssm_state.copy_(st)
+    cache_store(conv_local, conv_state, ())
+    cache_store(ssm_local, ssm_state, ())
     return _post(p, y, z, cfg), cache

@@ -25,15 +25,22 @@ decode); a self-attention with a KV cache takes the chunked route
 the model runs as one rank of an LM serving mesh: the embedding looks
 its tokens up in the rank's vocab rows (summed over "model"), the caches
 are made as the rank's shards (`init_cache`) and the logits are gathered
-whole over the vocab; MoE, SSM and RG-LRU models serve on one device only
-(`serving/engine.py`).
+whole over the vocab.
 
-Training (`Model.loss_fn`, `lm_loss`) runs on one device: the chunked
-softmax cross-entropy recomputes each chunk's logits in the backward
-(`torch.utils.checkpoint`, the reference's `jax.checkpoint`), and with
-`cfg.remat` each super-block is recomputed in the backward too.  The
-attention kernel has no backward (nor has the reference's Pallas
-kernel), so `loss_fn` with `attn_impl="pallas"` raises under autograd.
+Training (`Model.loss_fn`, `lm_loss`): the chunked softmax cross-entropy
+recomputes each chunk's logits in the backward (`torch.utils.checkpoint`,
+the reference's `jax.checkpoint`), and with `cfg.remat` each super-block
+is recomputed in the backward too; on a mesh the recompute runs the
+chunk's and the block's collectives again, in the same order on every
+rank.  With the vocab cut over "model" each rank makes the logits of its
+vocab block: the logsumexp takes its max and its sum over the model
+ranks, and the gold logit comes from the rank that holds the label's
+row.  On a mesh the loss a rank returns is its share of the global one
+(its rows' NLL over the global token count, its MoE aux over the batch
+ranks), so the shares summed over the batch ranks are the loss of the
+whole batch, and so are their gradients.  The attention kernel has no
+backward (nor has the reference's Pallas kernel), so `loss_fn` with
+`attn_impl="pallas"` raises under autograd.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.activation import (constrain, current, hold,
-                                             on_model, use)
+                                             on_model, use, vocab_logsumexp)
 
 from .config import ModelConfig
 from .params import ParamDef, abstract_params, init_params, stack_defs
@@ -380,17 +387,21 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig,
     compute dtype, taken to fp32 (softcapped with cfg.final_softcap) for
     a logsumexp and the gold logit, and recomputed in the backward
     instead of saved.  The NLL sum and the token count accumulate over
-    the chunks in order; returns their quotient (fp32, 0-d)."""
+    the chunks in order; returns their quotient (fp32, 0-d).
+
+    On a mesh the token count is the global one (summed over the batch
+    ranks), so the quotient is this rank's share of the global mean; with
+    the vocab cut over "model" the hidden states enter the head as the
+    input of a column-parallel product."""
     b, s, _ = hidden.shape
     chunk = min(cfg.loss_chunk, s)
     if s % chunk:
         raise ValueError(f"seq {s} is not a multiple of the loss chunk "
                          f"{chunk}")
     w, cut = _head_weight(params, cfg)
+    ctx = current()
     if cut:
-        raise NotImplementedError(
-            "lm_loss over a vocab cut across ranks (ROADMAP.md queue 1 "
-            "item 12 (d), training over ranks)")
+        hidden = ctx.to_model(hidden)
     w = w.to(cfg.cdtype)
     labels = labels.long()
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -398,7 +409,7 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig,
     for c0 in range(0, s, chunk):
         m_c = None if mask is None else mask[:, c0:c0 + chunk].float()
         nll = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk], w,
-                         labels[:, c0:c0 + chunk], cfg.final_softcap,
+                         labels[:, c0:c0 + chunk], cfg.final_softcap, cut,
                          use_reentrant=False)
         if m_c is None:
             tot = tot + nll.sum()
@@ -406,17 +417,30 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig,
         else:
             tot = tot + (nll * m_c).sum()
             cnt = cnt + m_c.sum()
+    if ctx is not None and ctx.batch_entry is not None:
+        with torch.no_grad():
+            cnt = ctx.psum(cnt, ctx.batch_entry)
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _chunk_nll(h_c, w, l_c, softcap):
-    """Per-token NLL (B, chunk) of one seq chunk, fp32."""
+def _chunk_nll(h_c, w, l_c, softcap, cut=False):
+    """Per-token NLL (B, chunk) of one seq chunk, fp32; with `cut` the
+    head's vocab is this model rank's block of it."""
     logits = (h_c @ w).float()
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, l_c[..., None])[..., 0]
-    return lse - gold
+    if not cut:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, l_c[..., None])[..., 0]
+        return lse - gold
+    ctx = current()
+    rows = logits.shape[-1]
+    local = l_c - ctx.model_index() * rows
+    inside = (local >= 0) & (local < rows)
+    gold = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])
+    gold = torch.where(inside, gold[..., 0],
+                       torch.zeros((), device=gold.device))
+    return vocab_logsumexp(logits) - ctx.psum(gold, "model")
 
 
 def logits_last(params, hidden, cfg: ModelConfig):
@@ -452,7 +476,8 @@ class Model:
     # ---- training ----
     def loss_fn(self, params, batch):
         """batch: {tokens, labels[, patches | frames, loss_mask]} →
-        (loss + 0.01·aux, aux), both fp32 0-d tensors."""
+        (loss + 0.01·aux, aux), both fp32 0-d tensors; on a mesh this
+        rank's share of the first (`lm_loss`) and its own aux."""
         if self.cfg.attn_impl == "pallas" and torch.is_grad_enabled():
             raise NotImplementedError(PALLAS_NO_GRAD)
         hidden, _, aux = forward(
@@ -461,6 +486,9 @@ class Model:
             enc_frames=batch.get("frames"))
         loss = lm_loss(params, hidden, batch["labels"], self.cfg,
                        batch.get("loss_mask"))
+        ctx = current()
+        if ctx is not None:  # this rank's share of the batch ranks' mean
+            return loss + 0.01 * (aux / ctx.size(ctx.batch_entry)), aux
         return loss + 0.01 * aux, aux
 
     # ---- serving ----

@@ -9,6 +9,12 @@ clip by the global norm, fp32 moments, bias corrections from an fp32
 step, decoupled weight decay on fp32 masters, the result cast back to
 the parameter's dtype.  Parameters and moments are updated in place, so
 a step allocates only its temporaries.
+
+On a mesh of ranks (`shards`, the train step's `LMShards`) parameters,
+gradients and moments are the rank's shards and the update is
+elementwise on them; the global norm sums each leaf's squares over the
+ranks that cut it (one all_reduce per kind of cut), so each element
+counts once.
 """
 from __future__ import annotations
 
@@ -62,23 +68,53 @@ def adamw_init(params) -> AdamWState:
         m=map_params(zeros, params), v=map_params(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ g²) over every leaf, in fp32."""
+def global_norm(tree, shards=None, helds=None) -> torch.Tensor:
+    """sqrt(Σ g²) over every leaf, in fp32, the leaves added in order.
+    With `shards`, each leaf is this rank's shard under its layout in
+    `helds` (one per leaf): its sum of squares is summed over the mesh
+    dims that cut it before the leaves are added."""
+    sqs = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    if shards is not None:
+        sqs = _summed_over_cuts(sqs, shards, helds)
     total = None
-    for g in leaves(tree):
-        sq = torch.sum(torch.square(g.float()))
+    for sq in sqs:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
+def _summed_over_cuts(sqs, shards, helds):
+    """Each per-leaf value summed over the ranks of the mesh dims that cut
+    its leaf: one all_reduce per kind of cut, of every value at once (the
+    others zero, so every sum is exact in its own order)."""
+    from repro_torch.sharding.activation import spec_axes, spec_entry
+
+    kinds = []
+    for held in helds:
+        cut = {a for h in (held or ()) for a in spec_axes(h)}
+        kinds.append(tuple(a for a in shards.dims if a in cut))
+    vec = torch.stack(sqs)
+    out = None
+    for kind in dict.fromkeys(kinds):
+        mask = torch.tensor([k == kind for k in kinds], device=vec.device)
+        part = torch.where(mask, vec, torch.zeros((), device=vec.device))
+        if kind:
+            part = shards._all_reduce(part, spec_entry(kind))
+        out = part if out is None else out + part
+    return list(out.unbind())
+
+
 @torch.no_grad()
-def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
+def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
+                 shards=None):
     """One AdamW step.  grads: a tree or sequence in the parameters'
     order.  Updates `params`, `state.m` and `state.v` in place and
     returns (params, new state, {"grad_norm", "lr"}), the metrics 0-d
-    fp32 tensors."""
+    fp32 tensors.  With `shards` every tensor is this rank's shard (the
+    parameters carry their layouts)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    helds = None if shards is None else \
+        [getattr(p, "_held", None) for p in leaves(params)]
+    gnorm = global_norm(grads, shards, helds)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     if cfg.schedule is None:
         lr = torch.tensor(cfg.lr, dtype=torch.float32, device=gnorm.device)

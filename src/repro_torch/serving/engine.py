@@ -27,10 +27,13 @@ time dim (B = 1), and the model runs under `activation_sharding`
 (`sharding/activation.py`), with the FSDP gathers inside the steps.
 Every rank passes the same whole batch to `generate` and gets the same
 whole (B, n) tokens back; on a card the decode step stays one CUDA graph,
-its collectives inside.  MoE, SSM and RG-LRU models serve on one device
-only (`one_device_only`): `_cache_leaf_spec` would read a (B, H, P, N)
-SSM state as a (B, T, K, dh) KV cache, and the expert-parallel combine
-over "model" is not ported.
+its collectives inside.  Every family serves on a mesh: the MoE experts
+cut over "model" (expert parallel), the SSM and RG-LRU blocks as
+`models/ssm.py` and `models/rglru.py` cut them.  The cache specs are the
+reference's, which read a (B, H, P, N) SSM state as a (B, T, K, dh) KV
+cache (P over "model" where it divides, else N; H over the leftover data
+dims when B = 1); a block reads each state in the layout it computes in
+and writes the rank's shard back (`models/layers.py:cache_view`).
 """
 from __future__ import annotations
 
@@ -49,17 +52,6 @@ from repro_torch.sharding.activation import (LMShards, activation_sharding,
                                              held_of, hold, spec_entry)
 from repro_torch.sharding.specs import (batch_axes_for, mesh_dims,
                                         param_specs, rules_for)
-
-
-MESH_TODO = ("is served on one device only: MoE, SSM and RG-LRU models on a "
-             "mesh are not ported yet (ROADMAP.md, queue 1 item 12 (a))")
-
-
-def one_device_only(cfg) -> bool:
-    """Whether the model has MoE, SSM or RG-LRU blocks, which serve on one
-    device only."""
-    return bool(cfg.n_experts) or any(k in ("ssm", "rglru")
-                                      for k in cfg.layer_kinds())
 
 
 class _Clock:
@@ -194,7 +186,8 @@ def shard_params(model: Model, params, shards: LMShards, specs, device):
         part = full[_slices(full.shape, spec, shards)]
         if isinstance(part, np.ndarray):
             part = torch.from_numpy(np.array(part, dtype=np.float32))
-        return part.to(device, d.dtype).contiguous()
+        # a copy: a view would keep the whole tensor's storage alive
+        return part.to(device, d.dtype, copy=True).contiguous()
 
     out = build(model.defs(), leaf)
     for name, p in out.named_parameters():
@@ -253,8 +246,6 @@ class ServeEngine:
 
     def __init__(self, model: Model, params, batch: int, max_len: int,
                  mesh=None):
-        if mesh is not None and one_device_only(model.cfg):
-            raise NotImplementedError(f"{model.cfg.name} {MESH_TODO}")
         self.model = model
         self.batch = batch
         self.max_len = max_len

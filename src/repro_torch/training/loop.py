@@ -14,8 +14,15 @@
   * metrics: loss / aux / grad-norm / lr / step time per step, on the
     host.
 
-One device (`device`, the card by default); a mesh of more than one rank
-raises NotImplementedError (ROADMAP.md queue 1 item 12 (d)).
+One device (`device`, the card by default), or a (data, model) mesh of
+ranks (`mesh`, a DeviceMesh: every rank runs the loop in lockstep on its
+device, `training/steps.py`).  On a mesh the fresh state is made as the
+rank's shards, a resume cuts the rank's shards of the newest checkpoint
+for the mesh live now, each rank steps on its rows of every batch, the
+checkpoints gather whole leaves on the step path and the mesh's first
+rank writes them (`CheckpointManager(shards=…)`), the watchdog reads
+rank 0's step time (a broadcast), and an injected failure raises on
+every rank at the same step, so they restart together.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from repro_torch.models import Model
 from repro_torch.optim import AdamWConfig
 
 from .steps import (TrainState, abstract_train_state, build_train_step,
-                    make_train_state, require_one_device)
+                    make_train_state)
 
 
 @dataclasses.dataclass
@@ -60,19 +67,25 @@ class TrainLoop:
     def __init__(self, model: Model, mesh, opt_cfg: AdamWConfig,
                  loop_cfg: TrainLoopConfig, dataset: SyntheticLMDataset,
                  seed: int = 0, device="cuda"):
-        require_one_device(mesh)
         self.model = model
         self.mesh = mesh
         self.opt_cfg = opt_cfg
         self.cfg = loop_cfg
         self.dataset = dataset
         self.seed = seed
-        self.device = resolve_device(device)
         self.step_fn, self.state_specs, self.batch_specs = \
             build_train_step(model, mesh, opt_cfg,
                              compress_frac=loop_cfg.compress_frac)
+        self.shards = self.step_fn.shards
+        if self.shards is not None:
+            from repro_torch.launch.mesh import mesh_device
+
+            self.device = mesh_device(mesh)
+        else:
+            self.device = resolve_device(device)
         self.ckpt = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep,
-                                      async_save=loop_cfg.async_ckpt)
+                                      async_save=loop_cfg.async_ckpt,
+                                      shards=self.shards)
         self.metrics: List[Dict[str, float]] = []
         self.straggler_events: List[int] = []
         self.restart_s: List[float] = []
@@ -82,13 +95,15 @@ class TrainLoop:
     def fresh_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         return make_train_state(self.model, gen,
-                                compress=self.cfg.compress_frac is not None)
+                                compress=self.cfg.compress_frac is not None,
+                                mesh=self.mesh if self.shards else None)
 
     def resume_or_init(self):
         """(start_step, state): the newest checkpoint that restores, else
         step 0 and a fresh state."""
         like = abstract_train_state(
-            self.model, compress=self.cfg.compress_frac is not None)
+            self.model, compress=self.cfg.compress_frac is not None,
+            mesh=self.mesh if self.shards else None)
         try:
             step, tree, _ = self.ckpt.restore_latest(like, self.device)
         except Exception:
@@ -108,11 +123,12 @@ class TrainLoop:
             if self.cfg.fail_at_step is not None and \
                     step == self.cfg.fail_at_step:
                 raise _InjectedFailure(f"injected failure at step {step}")
-            batch = device_put_batch(self.dataset.batch(step), self.device)
+            batch = device_put_batch(self.dataset.batch(step), self.device,
+                                     self.batch_specs, self.shards)
             t0 = time.perf_counter()
             state, metrics = self.step_fn(state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
-            dt = time.perf_counter() - t0
+            dt = self._rank0(time.perf_counter() - t0)
             if self._failed_at is not None:
                 self.restart_s.append(time.perf_counter() - self._failed_at)
                 self._failed_at = None
@@ -129,6 +145,16 @@ class TrainLoop:
             self.ckpt.save(self.cfg.total_steps, state)
         self.ckpt.wait()
         return state
+
+    def _rank0(self, dt: float) -> float:
+        """Rank 0's step time on every rank of a mesh (dt alone off one)."""
+        if self.shards is None:
+            return dt
+        import torch.distributed as dist
+
+        t = torch.tensor([dt], dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=0)
+        return float(t)
 
     def run_with_restarts(self, max_restarts: int = 3) -> TrainState:
         """Crash-resilient driver: restart from the newest checkpoint on an

@@ -1,16 +1,30 @@
 """The train step — counterpart of `repro/training/steps.py`.
 
 `build_train_step(model, mesh, opt_cfg)` returns (step_fn, state specs,
-batch specs), as the reference's does.  The step runs eagerly on one
-device: gradients by autograd through `Model.loss_fn` (remat and the
-chunked loss recompute in the backward), accumulated in fp32 over
-microbatches in a Python loop (the reference's `lax.scan`), divided by
-the count, loss and aux averaged; then top-k compression with error
-feedback when asked, then AdamW, both in place (the reference donates
-the state).  The spec trees are the reference's, through
-`sharding/specs.py:param_specs`, for the mesh that training over ranks
-will use: a mesh of more than one rank raises NotImplementedError here
-(ROADMAP.md queue 1 item 12 (d)).
+batch specs), as the reference's does.  The step runs eagerly: gradients
+by autograd through `Model.loss_fn` (remat and the chunked loss recompute
+in the backward), accumulated in fp32 over microbatches in a Python loop
+(the reference's `lax.scan`), divided by the count, loss and aux
+averaged; then top-k compression with error feedback when asked, then
+AdamW, both in place (the reference donates the state).  The spec trees
+are the reference's, through `sharding/specs.py:param_specs`.
+
+`mesh` None is one device.  On a (data, model) DeviceMesh of ranks
+(`launch/mesh.py:make_local_mesh`) every rank holds only the shards of
+the parameters, moments and residual that `state_specs` gives it
+(`make_train_state(..., mesh=)`) and steps on its rows of the batch
+(`batch_specs`, `data/pipeline.py:device_put_batch`).  In each
+microbatch the model runs under `activation_sharding`: every parameter
+is gathered over its "data" cut once (FSDP), whose backward
+reduce-scatters the gradient into the rank's shard (ZeRO: one
+reduce-scatter a microbatch per "data"-cut leaf, the fp32 accumulator
+cut like the parameters; a leaf the batch dims do not cut is summed over
+them instead), and tensor and expert parallelism over "model" run the
+collectives of `sharding/activation.py`.  The loss and aux are the
+global batch's; `global_norm` counts each element once across the mesh,
+and the compression's threshold is the whole leaf's.  `step.shards`
+holds the rank's `LMShards` (its collective counts cover the last step)
+and `step.accumulator` the last step's accumulated gradients.
 """
 from __future__ import annotations
 
@@ -25,13 +39,11 @@ from repro_torch.optim import (AdamWConfig, AdamWState, CompressionState,
                                adamw_init, adamw_update, compress_init,
                                topk_compress_update)
 from repro_torch.optim.adamw import leaves
+from repro_torch.sharding.activation import (LMShards, activation_sharding,
+                                             hold)
 from repro_torch.sharding.specs import (batch_spec, mesh_dims, param_specs,
                                         rules_for)
 
-TRAIN_MESH_TODO = (
-    "trains on one device only: training over ranks (ZeRO over 'data', "
-    "the model axis, collectives that carry gradients) is ROADMAP.md "
-    "queue 1 item 12 (d)")
 # the dims of the reference's one-device mesh (make_local_mesh on 1 device)
 ONE_DEVICE = {"data": 1, "model": 1}
 
@@ -46,25 +58,74 @@ def _dims(mesh) -> dict:
     return dict(ONE_DEVICE) if mesh is None else mesh_dims(mesh)
 
 
-def require_one_device(mesh) -> None:
-    """Raise NotImplementedError for a mesh of more than one rank."""
+def _over_ranks(mesh) -> bool:
+    """Whether `mesh` is a DeviceMesh of ranks (None, or a {dim: size}
+    dict of one device, is one device; a dict of more raises: the spec
+    functions take one, a step needs the ranks)."""
+    if mesh is None:
+        return False
+    if hasattr(mesh, "get_group"):
+        return True
     if math.prod(_dims(mesh).values()) > 1:
-        raise NotImplementedError(f"TrainLoop {TRAIN_MESH_TODO}; mesh "
-                                  f"{_dims(mesh)}")
+        raise TypeError(f"a train step over {_dims(mesh)} needs a "
+                        "DeviceMesh of that many ranks "
+                        "(launch/mesh.py:make_local_mesh)")
+    return False
+
+
+def train_shards(model: Model, mesh) -> LMShards:
+    """The rank's `LMShards` for training on `mesh`: the batch cut over
+    every batch dim of the train rules."""
+    return LMShards(mesh, rules_for(model.cfg.zero_shard).batch_axes)
+
+
+def _shard_state(model: Model, state: "TrainState", mesh) -> "TrainState":
+    """The rank's shards of a whole state under `state_specs`."""
+    from repro_torch.launch.mesh import mesh_device
+    from repro_torch.serving.engine import shard_params
+
+    specs = state_specs(model, mesh, compress=state.compress is not None)
+    shards = train_shards(model, mesh)
+    dev = mesh_device(mesh)
+
+    def cut(tree):
+        return shard_params(model, tree, shards, specs.params, dev)
+
+    return TrainState(
+        params=trainable(cut(state.params)),
+        opt=AdamWState(step=state.opt.step.to(dev), m=cut(state.opt.m),
+                       v=cut(state.opt.v)),
+        compress=None if state.compress is None else CompressionState(
+            residual=cut(state.compress.residual)))
 
 
 def make_train_state(model: Model, generator: torch.Generator,
-                     compress: bool = False) -> TrainState:
+                     compress: bool = False, mesh=None) -> TrainState:
     """Random parameters (with gradients on) from `generator`, on its
-    device, zero AdamW moments and, with `compress`, a zero residual."""
+    device, zero AdamW moments and, with `compress`, a zero residual.
+    With a mesh of ranks, this rank's shards of that state (the same
+    draws as one device's, cut by `state_specs`)."""
     params = trainable(model.init(generator))
-    return TrainState(params=params, opt=adamw_init(params),
-                      compress=compress_init(params) if compress else None)
+    state = TrainState(params=params, opt=adamw_init(params),
+                       compress=compress_init(params) if compress else None)
+    return _shard_state(model, state, mesh) if _over_ranks(mesh) else state
 
 
-def abstract_train_state(model: Model, compress: bool = False) -> TrainState:
-    """The state's shapes and dtypes on the `meta` device (no storage)."""
+def abstract_train_state(model: Model, compress: bool = False,
+                         mesh=None) -> TrainState:
+    """The state's shapes and dtypes on the `meta` device (no storage),
+    whole; with a mesh each parameter leaf is marked with its spec
+    (`sharding/activation.py:hold`), so a restore cuts each rank's
+    shard."""
     params = trainable(model.abstract())
+    if mesh is not None:
+        from repro_torch.serving.engine import _spec_at
+
+        specs = param_specs(model.defs(), _dims(mesh),
+                            rules_for(model.cfg.zero_shard))
+        for name, p in params.named_parameters():
+            hold(p, _spec_at(specs, [int(k) if k.isdigit() else k
+                                     for k in name.split(".")]))
     return TrainState(params=params, opt=adamw_init(params),
                       compress=compress_init(params) if compress else None)
 
@@ -114,15 +175,43 @@ def auto_microbatches(cfg, global_batch: int, seq: int, mesh) -> int:
     return k
 
 
-def _grads(model: Model, params, batch):
+def _grads(model: Model, params, batch, shards: Optional[LMShards] = None):
     """(loss, aux, grads): grads in the parameters' order, a zero for a
-    parameter the loss does not reach (as jax.grad gives)."""
+    parameter the loss does not reach (as jax.grad gives).  With `shards`
+    the model runs as this rank of the mesh: grads are the rank's shards
+    of the global batch's gradients, loss and aux the global batch's."""
     plist = leaves(params)
-    loss, aux = model.loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, plist, allow_unused=True)
+    if shards is None:
+        loss, aux = model.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, plist, allow_unused=True)
+    else:
+        with activation_sharding(shards):
+            shards.gather_params(plist)
+            try:
+                loss, aux = model.loss_fn(params, batch)
+                grads = torch.autograd.grad(loss, plist, allow_unused=True)
+            finally:
+                shards.memo = None
+            with torch.no_grad():
+                if shards.batch_entry is not None:
+                    loss = shards.psum(loss.detach(), shards.batch_entry)
+                    aux = shards.psum(aux.detach(), shards.batch_entry) / \
+                        shards.size(shards.batch_entry)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(plist, grads)]
     return loss.detach(), aux.detach(), grads
+
+
+def _whole_rows(batch, shards: LMShards):
+    """The global batch from every rank's rows (all_gather over the batch
+    dims): microbatch i is the global rows i·B/n … (i+1)·B/n, as the
+    reference's reshape of the global batch makes it, and each rank takes
+    its block of those."""
+    if shards.batch_entry is None:
+        return batch
+    with torch.no_grad():
+        return {k: shards.gather(v, 0, shards.batch_entry)
+                for k, v in batch.items()}
 
 
 def build_train_step(model: Model, mesh, opt_cfg: AdamWConfig,
@@ -137,8 +226,9 @@ def build_train_step(model: Model, mesh, opt_cfg: AdamWConfig,
     reference donates the state); donate=False raises ValueError.
     microbatches: the gradient-accumulation factor; None →
     cfg.microbatches, else the activation-budget heuristic when
-    (global_batch, seq_len) are known, else 1."""
-    require_one_device(mesh)
+    (global_batch, seq_len) are known, else 1.  On a mesh of ranks the
+    state is the rank's shards and the batch its rows (module doc)."""
+    shards = train_shards(model, mesh) if _over_ranks(mesh) else None
     if not donate:
         raise ValueError("the train step updates the state in place "
                          "(donate=True)")
@@ -155,15 +245,30 @@ def build_train_step(model: Model, mesh, opt_cfg: AdamWConfig,
     n_mb = max(int(microbatches), 1)
 
     def step(state: TrainState, batch):
+        if shards is not None:
+            shards.counts.clear()
+            shards.grad_counts.clear()
         if n_mb == 1:
-            loss, aux, grads = _grads(model, state.params, batch)
+            loss, aux, grads = _grads(model, state.params, batch, shards)
         else:
             grads, losses, auxes = None, [], []
+            whole = batch if shards is None else _whole_rows(batch, shards)
+            rows = whole["tokens"].shape[0]
+            if shards is not None and (
+                    rows % n_mb
+                    or rows // n_mb % shards.size(shards.batch_entry)):
+                raise ValueError(
+                    f"a batch of {rows} rows in {n_mb} microbatches does not "
+                    f"divide over the batch dims {shards.batch_axes} of the "
+                    f"mesh {shards.dims}")
             for i in range(n_mb):
                 mb = {k: v.reshape((n_mb, v.shape[0] // n_mb)
                                    + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                l, a, g = _grads(model, state.params, mb)
+                      for k, v in whole.items()}
+                if shards is not None:  # this rank's rows of microbatch i
+                    mb = {k: shards.part(v, 0, shards.batch_entry)
+                          for k, v in mb.items()}
+                l, a, g = _grads(model, state.params, mb, shards)
                 if grads is None:
                     grads = [gi.float() for gi in g]
                 else:
@@ -175,13 +280,16 @@ def build_train_step(model: Model, mesh, opt_cfg: AdamWConfig,
             grads = [g / n_mb for g in grads]
             loss = torch.mean(torch.stack(losses))
             aux = torch.mean(torch.stack(auxes))
+        step.accumulator = grads
         new_comp = state.compress
         if compress_frac is not None and state.compress is not None:
             grads, new_comp = topk_compress_update(grads, state.compress,
-                                                   compress_frac)
+                                                   compress_frac, shards)
         params, opt, metrics = adamw_update(grads, state.opt, state.params,
-                                            opt_cfg)
+                                            opt_cfg, shards)
         metrics = dict(metrics, loss=loss, aux=aux)
         return TrainState(params, opt, new_comp), metrics
 
+    step.shards = shards
+    step.accumulator = None
     return step, sspecs, bspecs

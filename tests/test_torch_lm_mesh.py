@@ -9,12 +9,14 @@ are held equal to the reference's for every config of
 reference gets a stand-in mesh that carries only `.shape` and
 `.axis_names`.  Every family is held through the port's own defs and
 cache shapes, and through the reference's defs and cache shapes read
-into the port's `ParamDef` (the MoE, SSM and hybrid families serve on
-one device only, but their specs are the reference's).
+into the port's `ParamDef`.
 
 Across gloo ranks (one spawn per mesh shape, bounded by a join timeout):
 reduced qwen1.5-0.5b and whisper-tiny, their parameters made by the
-reference and carried to each rank's shards by `bridge`, on (2, 2), on
+reference and carried to each rank's shards by `bridge`, on (2, 2) (with
+the MoE, SSM and hybrid families: qwen2-moe-a2.7b, granite-moe-1b-a400m,
+mamba2-2.7b and recurrentgemma-2b, experts and channels cut over
+"model"), on
 (1, 4) (2 kv heads: the KV projections and caches fall back to their
 head dim) and with B = 1 on (2, 1) (the cache's time dim cut over
 "data"), with and without `zero_shard`.  Held: every step's logits under
@@ -23,8 +25,10 @@ model, the fp32 tokens of `generate` identical, and every rank's tokens
 the same.  A mismatch reports its logit margin.
 
 On a card (`pytest -m gpu`): a (1, 1) mesh of one NCCL rank against the
-one-device engine, and on an even number of cards every card one rank
-of an (n/2, 2) mesh.
+one-device engine and the one-device train step (bit for bit), and on
+an even number of cards every card one rank of an (n/2, 2) mesh,
+serving and training qwen1.5-0.5b and granite-moe at their published
+widths against one device.
 """
 import dataclasses
 import os
@@ -180,7 +184,11 @@ RANK_MESHES = {
     "d2m2": ((2, 2), 2, [("qwen1.5-0.5b", "chunked", False),
                          ("qwen1.5-0.5b", "chunked", True),
                          ("whisper-tiny", "pallas", False),
-                         ("whisper-tiny", "chunked", True)]),
+                         ("whisper-tiny", "chunked", True),
+                         ("qwen2-moe-a2.7b", "chunked", False),
+                         ("granite-moe-1b-a400m", "chunked", True),
+                         ("mamba2-2.7b", "chunked", True),
+                         ("recurrentgemma-2b", "chunked", False)]),
     "d1m4": ((1, 4), 2, [("qwen1.5-0.5b", "chunked", False),
                          ("whisper-tiny", "pallas", False)]),
     "d2m1": ((2, 1), 1, [("qwen1.5-0.5b", "chunked", True),
@@ -209,7 +217,12 @@ def _reference_params(path):
                 configs.get_config(arch).reduced(compute_dtype="float32",
                                                  attn_impl=impl),
                 zero_shard=zero)
-            params = build_model(jc).init(jax.random.PRNGKey(0))
+            model = build_model(jc)
+            # the families added later init jitted (one compile, the same
+            # draws); the first ones keep their eager init
+            init = model.init if arch in ("qwen1.5-0.5b", "whisper-tiny") \
+                else jax.jit(model.init)
+            params = init(jax.random.PRNGKey(0))
             out[_case_key(arch, impl, zero)] = (
                 dataclasses.asdict(jc), jax.tree.map(np.asarray, params))
     with open(path, "wb") as f:
@@ -262,12 +275,13 @@ def _rank_worker(device, key, params_path, out_dir):
         out[f"{name}/tokens"] = eng.generate(batch, GEN).numpy()
         out[f"{name}/tokens_one"] = ServeEngine(
             model, one, batch_size, max_len).generate(batch, GEN).numpy()
-        lay = shards["tail"][0]["attn"]
-        out[f"{name}/wk_held"] = np.asarray(repr(held_of(lay["wk"])))
-        out[f"{name}/wq_shape"] = np.asarray(lay["wq"].shape)
-        c = cache["tail"][0]["attn"][0]
-        out[f"{name}/cache_held"] = np.asarray(repr(held_of(c)))
-        out[f"{name}/cache_shape"] = np.asarray(c.shape)
+        if "attn" in shards["tail"][0]:
+            lay = shards["tail"][0]["attn"]
+            out[f"{name}/wk_held"] = np.asarray(repr(held_of(lay["wk"])))
+            out[f"{name}/wq_shape"] = np.asarray(lay["wq"].shape)
+            c = cache["tail"][0]["attn"][0]
+            out[f"{name}/cache_held"] = np.asarray(repr(held_of(c)))
+            out[f"{name}/cache_shape"] = np.asarray(c.shape)
     np.savez(os.path.join(out_dir, f"rank{dist.get_rank()}.npz"), **out)
 
 
@@ -452,3 +466,151 @@ def test_lm_serving_across_nccl_ranks(tmp_path):
     tmesh.spawn(_nccl_lm_worker, torch.cuda.device_count(),
                 tmp_path / "store", str(tmp_path), join_timeout=600)
     print((tmp_path / "nccl_lm.txt").read_text())
+
+
+# ------------------------------------------------- training on the card
+
+def _train_run(model, mesh, device, steps, batch_size, seq):
+    """`steps` train steps from seed 0 on one device (mesh None) or on
+    the mesh: (state, losses, step seconds after the first)."""
+    import time
+
+    from repro_torch.data.pipeline import SyntheticLMDataset, device_put_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.steps import build_train_step, make_train_state
+
+    data = SyntheticLMDataset(model.cfg.vocab_size, seq, batch_size, seed=0)
+    state = make_train_state(
+        model, torch.Generator(device=device).manual_seed(0), mesh=mesh)
+    step, _, bspecs = build_train_step(model, mesh, AdamWConfig())
+    losses, times = [], []
+    for i in range(steps):
+        b = device_put_batch(data.batch(i), device,
+                             None if mesh is None else bspecs, step.shards)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, b)
+        losses.append(met["loss"].item())
+        times.append(time.perf_counter() - t)
+    return state, losses, times[1:]
+
+
+def _state_list(state):
+    from repro_torch.optim.adamw import leaves
+
+    return leaves(state.params) + leaves(state.opt.m) + leaves(state.opt.v)
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_trains_as_one_device(tmp_path):
+    """World size 1 on NCCL, a (1, 1) mesh under deterministic algorithms:
+    reduced qwen1.5-0.5b and granite-moe (ZeRO rules, fp32, 3 steps) give
+    the one-device steps' losses and state bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with `pytest -m gpu` on the H100)")
+    from repro_torch.models import build_model
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    tmesh.join("cuda", rank=0, world_size=1, store_file=tmp_path / "store")
+    try:
+        mesh = tmesh.make_local_mesh(1)
+        for arch in ("qwen1.5-0.5b", "granite-moe-1b-a400m"):
+            model = build_model(get_config(arch).reduced(
+                compute_dtype="float32", zero_shard=True, scan_layers=True))
+            one, l_one, _ = _train_run(model, None, "cuda", 3, 4, 64)
+            mine, l_mesh, _ = _train_run(model, mesh, "cuda", 3, 4, 64)
+            assert l_one == l_mesh, arch
+            assert all(torch.equal(a, b) for a, b in zip(
+                _state_list(one), _state_list(mine))), arch
+    finally:
+        torch.use_deterministic_algorithms(False)
+        tmesh.leave()
+
+
+def _nccl_train_worker(device, out_dir):
+    """One NCCL rank of every card, an (n/2, 2) mesh ((2, 1) on two):
+    qwen1.5-0.5b and granite-moe at their published widths, (8, 512), 3
+    bf16 steps against one device on this card (losses within 1e-3
+    relative), each card's state bytes at most one device's over the
+    data dim plus the leaves "data" does not cut; then 2
+    layers of each in fp32 (losses within 1e-5 relative, parameters
+    within 1e-5 of the largest |p|).  A mismatch raises."""
+    import dataclasses
+    import faulthandler
+    import statistics
+
+    faulthandler.dump_traceback_later(900, exit=True)
+    import torch.distributed as dist
+
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.serving.engine import _slices
+    from repro_torch.sharding.activation import held_of
+    from repro_torch.training.steps import train_shards
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    mesh = tmesh.make_local_mesh(1 if n == 2 else 2)
+    dp = tmesh.mesh_dims(mesh)["data"]
+    lines = []
+    for arch in ("qwen1.5-0.5b", "granite-moe-1b-a400m"):
+        model = build_model(get_config(arch))
+        one, l_one, _ = _train_run(model, None, device, 3, 8, 512)
+        one_bytes = sum(t.numel() * t.element_size()
+                        for t in _state_list(one))
+        del one
+        torch.cuda.empty_cache()
+        mine, l_mesh, times = _train_run(model, mesh, device, 3, 8, 512)
+        rel = max(abs(a - b) / abs(a) for a, b in zip(l_one, l_mesh))
+        mine_bytes = sum(t.numel() * t.element_size()
+                         for t in _state_list(mine))
+        # the leaves "data" does not cut (the 1-D ones, biases): whole
+        # on every data rank, with their moments
+        whole = sum(3 * p.numel() * p.element_size()
+                    for p in leaves(mine.params)
+                    if "data" not in repr(held_of(p)))
+        assert rel <= 1e-3, (arch, rel)
+        assert mine_bytes <= one_bytes / dp + whole, (arch, mine_bytes)
+        ms = statistics.median(times) * 1e3
+        lines.append(f"{arch} bf16 (8, 512) on {tmesh.mesh_dims(mesh)}: "
+                     f"losses {l_mesh} within {rel:.3e} of one device's; "
+                     f"state {mine_bytes} B a card against {one_bytes} B "
+                     f"on one; step {ms:.2f} ms, "
+                     f"{8 * 512 / n / ms * 1e3:.0f} tokens/s a card")
+        del mine
+        torch.cuda.empty_cache()
+        small = build_model(dataclasses.replace(
+            get_config(arch), n_layers=2, compute_dtype="float32"))
+        one, l_one, _ = _train_run(small, None, device, 3, 8, 512)
+        mine, l_mesh, _ = _train_run(small, mesh, device, 3, 8, 512)
+        rel = max(abs(a - b) / abs(a) for a, b in zip(l_one, l_mesh))
+        ts = train_shards(small, mesh)
+        err = max(float((a[_slices(a.shape, held_of(b), ts)] - b).detach()
+                        .abs().max()) for a, b in zip(leaves(one.params),
+                                                      leaves(mine.params)))
+        scale = max(float(a.detach().abs().max())
+                    for a in leaves(one.params))
+        assert rel <= 1e-5 and err <= 1e-5 * scale, (arch, rel, err)
+        lines.append(f"{arch} fp32, 2 layers: losses within {rel:.3e}, "
+                     f"parameters within {err / scale:.3e} of the largest "
+                     f"|p|")
+        del one, mine
+        torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        with open(os.path.join(out_dir, "nccl_train.txt"), "w") as f:
+            f.write("\n".join(lines))
+
+
+@pytest.mark.gpu
+def test_training_across_nccl_ranks(tmp_path):
+    """Every card one NCCL rank (an even count, 2 or more): qwen1.5-0.5b
+    and granite-moe trained on an (n/2, 2) mesh ((2, 1) on two) against
+    one device (`_nccl_train_worker`)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2 \
+            or torch.cuda.device_count() % 2:
+        pytest.skip("needs an even number of CUDA cards, 2 or more")
+    tmesh.spawn(_nccl_train_worker, torch.cuda.device_count(),
+                tmp_path / "store", str(tmp_path), join_timeout=1200)
+    print((tmp_path / "nccl_train.txt").read_text())

@@ -19,7 +19,9 @@ per-step logits (both fed the reference's greedy tokens) within 1e-4 of
 max |logit| in fp32 and 2e-2 in bf16, the `forward` aux equal to the
 reference's within 1e-6 relative, and the greedy tokens of the port's
 `ServeEngine` identical to the reference's engine in fp32.  Then the
-CLI on the CPU, and the mesh refusal of every MoE, SSM and hybrid arch.
+CLI on the CPU, and every MoE, SSM and hybrid arch accepted on a mesh
+(its cache specs the reference's, the engine on one gloo rank, the CLI
+on two; tests/test_torch_lm_mesh.py holds them across four ranks).
 """
 import dataclasses
 import types
@@ -50,12 +52,13 @@ def jx():
     from repro.configs.inputs import make_batch
     from repro.launch.mesh import make_local_mesh
     from repro.models import build_model, layers, transformer
+    from repro.serving import engine as engine_mod
     from repro.serving.engine import ServeEngine as JServe
 
     return types.SimpleNamespace(
         jax=jax, jnp=jax.numpy, configs=configs, make_batch=make_batch,
         mesh=make_local_mesh, build_model=build_model, layers=layers,
-        transformer=transformer, ServeEngine=JServe)
+        transformer=transformer, ServeEngine=JServe, engine_mod=engine_mod)
 
 
 def _t(a):
@@ -256,17 +259,58 @@ def test_cli_serves_qwen2_moe_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-1b-a400m",
                                   "mamba2-2.7b", "recurrentgemma-2b"])
-def test_mesh_serving_raises_with_roadmap_pointer(arch):
-    """ServeEngine on a mesh and the CLI on ranks refuse these families
-    (before any rank is spawned); ROADMAP.md queue 1 item 12 (a)."""
-    cfg = tconfigs.get_config(arch).reduced()
+def test_mesh_serving_is_accepted(jx, arch, tmp_path, capfd):
+    """These families serve on a mesh: their cache specs are the
+    reference's on stand-in (1, 2) and (2, 2) meshes; `ServeEngine` on a
+    (1, 1) mesh of one gloo rank gives the one-device engine's tokens;
+    `serve --nproc 2 --model-axis 2` serves on two ranks and prints the
+    one-device run's first sequence."""
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.serving.engine import cache_specs
+
+    cfg = tconfigs.get_config(arch).reduced(compute_dtype="float32")
+    jm = jx.build_model(jx.configs.get_config(arch).reduced(
+        compute_dtype="float32"))
     model = Model(cfg)
+    for dims in ({"data": 1, "model": 2}, {"data": 2, "model": 2}):
+        stand = types.SimpleNamespace(shape=dims,
+                                      axis_names=tuple(dims))
+        want = jx.jax.tree.map(tuple, jx.engine_mod.cache_specs(
+            jm, stand, 2, 16), is_leaf=lambda x: isinstance(
+                x, jx.jax.sharding.PartitionSpec))
+        got = cache_specs(model, dims, 2, 16)
+        assert _plain(got) == _plain(want), dims
     params = model.init(torch.Generator().manual_seed(0))
-    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2},
-                                 axis_names=("data", "model"))
-    with pytest.raises(NotImplementedError, match=r"item 12 \(a\)"):
-        ServeEngine(model, params, 2, 16, mesh=mesh)
-    args = tserve.parse_args(["--arch", arch, "--reduced", "--device", "cpu",
-                              "--nproc", "2", "--model-axis", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.run(args)
+    batch = make_batch(cfg, 2, PROMPT, kind="serve", device="cpu")
+    one = ServeEngine(model, params, 2, PROMPT + GEN).generate(batch, GEN)
+    tmesh.join("cpu", rank=0, world_size=1, store_file=tmp_path / "store")
+    try:
+        eng = ServeEngine(model, params, 2, PROMPT + GEN,
+                          mesh=tmesh.make_local_mesh(1, "cpu"))
+        assert torch.equal(eng.generate(batch, GEN), one)
+        eng.close()
+    finally:
+        tmesh.leave()
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "4", "--gen", "2"]
+    assert tserve.main(argv + ["--nproc", "2", "--model-axis", "2"]) == 0
+    mesh_out = capfd.readouterr().out
+    assert tserve.main(argv) == 0
+    one_out = capfd.readouterr().out
+    assert mesh_out.count("mesh: {'data': 1, 'model': 2}") == 1
+    first = [x for x in mesh_out.splitlines() if x.startswith("first")]
+    assert first and first == [x for x in one_out.splitlines()
+                               if x.startswith("first")]
+
+
+def _plain(tree):
+    """Specs as tuples in dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_plain(v) for v in tree]
+    if isinstance(tree, tuple) and any(isinstance(v, (dict, list, tuple))
+                                       for v in tree):
+        return tuple(_plain(v) for v in tree)
+    return tuple(tree)

@@ -23,6 +23,7 @@ Tolerances:
     reference checkpoint continues with the reference's losses within
     rel 1e-5.
 """
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -42,7 +43,8 @@ from repro_torch.bridge import (_numpy_leaf,  # noqa: E402
 from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     restore_checkpoint, tree_leaves)
 from repro_torch.checkpoint.store import host_leaves  # noqa: E402
-from repro_torch.data.pipeline import SyntheticLMDataset  # noqa: E402
+from repro_torch.data.pipeline import (SyntheticLMDataset,  # noqa: E402
+                                       device_put_batch)
 from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.launch import elastic, train as ttrain  # noqa: E402
 from repro_torch.models import Model, trainable  # noqa: E402
@@ -248,7 +250,20 @@ def test_pallas_loss_has_no_backward_in_either_package(jx, fp32_ref):
 
 
 # ------------------------------------------------------------ the state ----
-def test_state_layout_specs_and_microbatches_follow_the_reference(jx):
+@contextlib.contextmanager
+def _one_rank(tmp):
+    """A (1, 1) (data, model) mesh of one gloo rank in this process."""
+    from repro_torch.launch import mesh as tmesh
+
+    tmesh.join("cpu", rank=0, world_size=1, store_file=tmp / "store")
+    try:
+        yield tmesh.make_local_mesh(1, "cpu")
+    finally:
+        tmesh.leave()
+
+
+def test_state_layout_specs_and_microbatches_follow_the_reference(
+        jx, tmp_path):
     jc, tc = _cfgs(jx, "granite-moe-1b-a400m", "float32")
     jm, tm = jx.build_model(jc), Model(tc)
     want = jx.steps.abstract_train_state(jm, compress=True)
@@ -272,8 +287,27 @@ def test_state_layout_specs_and_microbatches_follow_the_reference(jx):
                 assert tsteps.auto_microbatches(
                     tconfigs.get_config(arch), batch, seq, dims) == \
                     jx.steps.auto_microbatches(jcfg, batch, seq, mesh)
-    with pytest.raises(NotImplementedError, match=r"item 12 \(d\)"):
+    # a step over ranks runs on their DeviceMesh: a {dim: size} dict of
+    # two ranks raises; a (1, 1) mesh of one gloo rank runs the mesh path
+    # (its collectives among one rank) with the one-device step's bits
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsteps.build_train_step(tm, {"data": 2, "model": 1}, AdamWConfig())
+    batch = device_put_batch(SyntheticLMDataset(tc.vocab_size, 32, 2,
+                                                seed=0).batch(0), "cpu")
+    one = tsteps.make_train_state(tm, torch.Generator().manual_seed(0))
+    step, _, _ = tsteps.build_train_step(tm, None, AdamWConfig())
+    one, m_one = step(one, batch)
+    with _one_rank(tmp_path) as mesh:
+        mine = tsteps.make_train_state(tm, torch.Generator().manual_seed(0),
+                                       mesh=mesh)
+        step, sspecs, _ = tsteps.build_train_step(tm, mesh, AdamWConfig())
+        mine, m_mesh = step(mine, batch)
+        assert sspecs == tsteps.state_specs(tm, mesh)
+        # one gradient collective per leaf over the batch dims
+        assert sum(step.shards.grad_counts.values()) == len(
+            list(mine.params.parameters()))
+    assert torch.equal(m_one["loss"], m_mesh["loss"])
+    assert _same_bits(one, mine)
     with pytest.raises(ValueError, match="in place"):
         tsteps.build_train_step(tm, None, AdamWConfig(), donate=False)
 
@@ -396,12 +430,24 @@ def test_checkpoint_manager_snapshots_before_in_place_updates(tmp_path):
         assert np.array_equal(a, b)
 
 
-def test_train_loop_on_ranks_and_elastic_trainer(tmp_path):
+def test_train_loop_on_ranks_and_elastic_trainer(tmp_path, capsys):
     cfg = _small()
-    with pytest.raises(NotImplementedError, match=r"item 12 \(d\)"):
+    # on ranks the loop takes their DeviceMesh (a dict of two raises); on
+    # a (1, 1) mesh of one gloo rank it trains with the one-device bits
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TrainLoop(Model(cfg), {"data": 1, "model": 2}, AdamWConfig(),
                   TrainLoopConfig(ckpt_dir=str(tmp_path)),
                   SyntheticLMDataset(cfg.vocab_size, 32, 2), device="cpu")
+    one = _loop(tmp_path, "one", total_steps=3, ckpt_every=2)
+    s_one = one.run()
+    with _one_rank(tmp_path) as mesh:
+        ranks = TrainLoop(Model(cfg), mesh, AdamWConfig(), TrainLoopConfig(
+            total_steps=3, ckpt_every=2, ckpt_dir=str(tmp_path / "mesh")),
+            SyntheticLMDataset(cfg.vocab_size, 32, 2, seed=0), device="cpu")
+        s_mesh = ranks.run()
+    assert [m["loss"] for m in ranks.metrics] == \
+        [m["loss"] for m in one.metrics]
+    assert _same_bits(s_one, s_mesh)
     assert elastic.make_elastic_mesh(2) is None  # no process group
     trainer = elastic.ElasticTrainer(
         Model(cfg), AdamWConfig(), TrainLoopConfig(
@@ -411,9 +457,16 @@ def test_train_loop_on_ranks_and_elastic_trainer(tmp_path):
     assert len(loop.metrics) == 3
     loop, _ = trainer.run()   # the restart resumes the final step
     assert loop.metrics == []
-    with pytest.raises(NotImplementedError, match=r"item 12 \(d\)"):
+    # without ranks --model-axis clamps to the one device, as the
+    # reference's make_local_mesh does
+    assert ttrain.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device",
+                        "cpu", "--model-axis", "2", "--steps", "3",
+                        "--batch", "2", "--seq", "32", "--ckpt-dir",
+                        str(tmp_path / "cli")]) == 0
+    assert "devices=1 mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="need 256 devices"):
         ttrain.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device",
-                     "cpu", "--model-axis", "2"])
+                     "cpu", "--production-mesh"])
 
 
 def test_cli_crash_restart_end_to_end(tmp_path):

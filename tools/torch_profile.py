@@ -7,7 +7,7 @@
     PYTHONPATH=src python tools/torch_profile.py --lm [--attn-impl chunked]
         [--arch whisper-tiny]
     PYTHONPATH=src python tools/torch_profile.py --train
-        [--arch qwen1.5-0.5b] [--microbatches 1]
+        [--arch qwen1.5-0.5b] [--microbatches 1] [--mesh-shape 1,1]
     PYTHONPATH=src python tools/torch_profile.py --continuous \
         [--chunks-per-step 1]
 
@@ -49,7 +49,12 @@ their backward, their recompute in the backward (remat), the loss chunks
 (forward, recompute and backward), AdamW and the rest, and in each by
 kind (matmuls, copies and casts, elementwise and reductions); then the
 same step timed in pieces with CUDA events (the forward, the forward and
-backward, AdamW alone).
+backward, AdamW alone).  With `--mesh-shape d,m` (one NCCL rank: 1,1)
+the step runs on a (data, model) DeviceMesh, the path of `chip_smoke.py`
+phase 18a: the NCCL kernels are their own kind ("collectives"), the
+step's collectives are counted by kind, and the device time of NCCL
+kernels and of device-to-device memcpys (what NCCL runs among one rank)
+is printed, as it is for one device.
 
 `--lm` profiles LM serving instead: `--arch` (default whisper-tiny) at
 its published size, batch 16, prompt 32, 16 generated tokens
@@ -159,6 +164,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
 
+    if args.train and args.mesh_shape:
+        return profile_train_mesh(torch, args)
     if args.train:
         return profile_train(torch, args.arch or "qwen1.5-0.5b",
                              args.microbatches)
@@ -387,6 +394,8 @@ TRAIN_RANGES = ("train/superblock.recompute", "train/superblock",
 
 def _kind(name: str) -> str:
     low = name.lower()
+    if "nccl" in low:
+        return "collectives"
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")):
         return "matmuls"
     if "copy" in low:
@@ -439,8 +448,27 @@ def _wrap_ranges(torch):
     return undo
 
 
-def profile_train(torch, arch: str, microbatches: int) -> int:
-    """One warm train step of `arch` under the profiler, by stage."""
+def profile_train_mesh(torch, args) -> int:
+    """`profile_train` on a (data, model) mesh of one NCCL rank; the
+    process group is torn down whatever happens."""
+    import tempfile
+
+    from repro_torch.launch.mesh import _mesh, join, leave, parse_shape
+
+    with tempfile.TemporaryDirectory(prefix="torch_profile_") as tmp:
+        try:
+            join("cuda", rank=0, world_size=1,
+                 store_file=os.path.join(tmp, "store"))
+            mesh = _mesh(parse_shape(args.mesh_shape), ("data", "model"))
+            return profile_train(torch, args.arch or "qwen1.5-0.5b",
+                                 args.microbatches, mesh)
+        finally:
+            leave()
+
+
+def profile_train(torch, arch: str, microbatches: int, mesh=None) -> int:
+    """One warm train step of `arch` under the profiler, by stage (on
+    `mesh` when given)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -448,17 +476,22 @@ def profile_train(torch, arch: str, microbatches: int) -> int:
     from repro_torch.data.pipeline import SyntheticLMDataset, device_put_batch
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_update
-    from repro_torch.training.steps import build_train_step, make_train_state
+    from repro_torch.sharding.activation import activation_sharding
+    from repro_torch.training.steps import (_grads, build_train_step,
+                                            make_train_state)
 
     torch.use_deterministic_algorithms(True)
     cfg = get_config(arch)
     model = build_model(cfg)
-    state = make_train_state(model,
-                             torch.Generator(device="cuda").manual_seed(0))
-    step, _, _ = build_train_step(model, None, AdamWConfig(),
-                                  microbatches=microbatches)
+    state = make_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+    step, _, bspecs = build_train_step(model, mesh, AdamWConfig(),
+                                       microbatches=microbatches)
+    shards = step.shards
     data = SyntheticLMDataset(cfg.vocab_size, 512, 8, seed=0)
-    batches = [device_put_batch(data.batch(i), "cuda") for i in range(4)]
+    batches = [device_put_batch(data.batch(i), "cuda",
+                                bspecs if mesh is not None else None, shards)
+               for i in range(4)]
     state, met = step(state, batches[0])  # warm-up
     met["loss"].item()
     undo = _wrap_ranges(torch)
@@ -472,11 +505,20 @@ def profile_train(torch, arch: str, microbatches: int) -> int:
             wall = time.perf_counter() - t0
     finally:
         undo()
+    where = "one device" if mesh is None else \
+        f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} of NCCL ranks"
     print(f"profiled train step ({arch}, batch 8, seq 512, "
           f"{cfg.compute_dtype} on fp32 masters, {microbatches} "
-          f"microbatch(es)): loss {met['loss'].item():.6f}, peak "
+          f"microbatch(es), {where}): loss {met['loss'].item():.6f}, peak "
           f"{torch.cuda.max_memory_allocated()} B")
+    if shards is not None:
+        print(f"collectives of the step: {dict(shards.counts)}, of which "
+              f"gradient reductions {dict(shards.grad_counts)}")
     report(prof, wall, LM_STAGES)
+    print(f"device time of NCCL kernels {_named_us(prof, 'nccl') / 1e3:.2f} "
+          f"ms and of device-to-device memcpys (NCCL's among one rank, "
+          f"and the copies' own) "
+          f"{_named_us(prof, 'memcpy dtod') / 1e3:.2f} ms")
 
     events = prof.events()
     fwd_region = {}
@@ -514,16 +556,23 @@ def profile_train(torch, arch: str, microbatches: int) -> int:
     b = batches[2]
 
     def fwd():
-        model.loss_fn(state.params, b)
+        if shards is None:
+            model.loss_fn(state.params, b)
+            return
+        with activation_sharding(shards):
+            shards.gather_params(plist)
+            try:
+                model.loss_fn(state.params, b)
+            finally:
+                shards.memo = None
 
     def fwd_bwd():
-        loss, _ = model.loss_fn(state.params, b)
-        return torch.autograd.grad(loss, plist)
+        return _grads(model, state.params, b, shards)[2]
 
     grads = fwd_bwd()
     t_fwd, t_fb = timed(fwd), timed(fwd_bwd)
     t_opt = timed(lambda: adamw_update(grads, state.opt, state.params,
-                                       AdamWConfig()))
+                                       AdamWConfig(), shards))
     t_step = timed(lambda: step(state, batches[3]))
     print(f"CUDA events (ms, mean of 3 warm calls): forward {t_fwd:.2f}, "
           f"forward + backward {t_fb:.2f}, AdamW {t_opt:.2f}, step "
@@ -538,6 +587,15 @@ def _in_engine(e) -> bool:
             return True
         node = node.cpu_parent
     return False
+
+
+def _named_us(prof, part: str) -> float:
+    """Device microseconds of the events whose name holds `part`."""
+    from torch.autograd import DeviceType
+
+    return sum(_dev_us(e, self_only=True) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and part in e.key.lower())
 
 
 def report(prof, wall: float, stages_of) -> None:
