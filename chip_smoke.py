@@ -276,9 +276,21 @@ line):
    forward with attn_impl="pallas" on the mesh: one `flash_attention`
    launch per local layer (8), hidden states within 2e-4 of max |h| of
    the one-device forward; 0 B left after each arch.
+19. The multi-pod dry run (`launch/dryrun.py`).  19a: one qwen1.5-0.5b
+   train step at (8, 512) on one device, warm, under FlopCounterMode:
+   its FLOPs and the bytes of its state and batch equal the dry run's
+   trace of the same step exactly; the reckoned peak (arguments + traced
+   temp) beside the first step's `torch.cuda.max_memory_allocated`, the
+   report's H100 `bound_s` beside the measured step; 0 kernel launches,
+   0 B left.  19b, run in child processes beside 19a: the CLI at
+   `--arch qwen1.5-0.5b --shape train_4k --pods both`, `--arch
+   mamba2-2.7b --shape decode_32k` and `--msc 1024 --msc-gram --pods
+   both`: exit 0, every cell ok, one report a cell whose note says
+   fits-hbm or EXCEEDS-HBM against 80e9 B; the children set up no CUDA
+   and import neither jax nor the reference.
 Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
 beside their measured times (`roofline.H100`; reported, no bar).
-`--only 11,12,13,14,15,16,17,18` (any subset) runs the card and build phases
+`--only 11,12,13,14,15,16,17,18,19` (any subset) runs the card and build phases
 and the named phases alone (a development run: no result lines, exit code 3
 when they pass).
 
@@ -4111,17 +4123,184 @@ def _ranks_serve(torch, checks, smi, mesh, arch):
     return launches
 
 
+# ------------------------------------------------------------ phase 19 --
+# the dry run's trace of phase 17's step against the step on the card, and
+# the dry-run CLI on the card's host: (label, argv, reports it writes)
+DRY_CLIS = (
+    ("qwen train_4k", ["--arch", "qwen1.5-0.5b", "--shape", "train_4k",
+                       "--pods", "both"], 2),
+    ("mamba2 decode_32k", ["--arch", "mamba2-2.7b", "--shape",
+                           "decode_32k"], 1),
+    ("msc 1024", ["--msc", "1024", "--msc-gram", "--pods", "both"], 4),
+)
+DRY_CLI_TIMEOUT_S = 300
+
+
+def phase_dryrun(torch, checks, smi):
+    """Phase 19: 19a, the trace of one qwen1.5-0.5b train step at phase
+    17's (8, 512) against the step on the card (FLOPs and argument bytes
+    exact); 19b, the dry-run CLI on three cells, run in child processes
+    beside 19a: every cell ok, a report a cell with its HBM note, no CUDA
+    set up and neither jax nor the reference imported.  Returns {label:
+    launch counts}."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    log(f"dry run; card: {smi}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        procs = [(label, n, os.path.join(tmp, str(i)), _start_dry_cli(
+            argv + ["--out-dir", os.path.join(tmp, str(i))]))
+            for i, (label, argv, n) in enumerate(DRY_CLIS)]
+        try:
+            mods = _reset_counts()
+            _dry_step(torch, checks, smi)
+            counts = _read_counts(mods)
+            for label, n, out_dir, proc in procs:
+                _dry_cli(checks, label, n, out_dir, proc)
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+    _gate(checks, not any(counts.values()), "dry-run launches",
+          f"kernel launches on the traced step's path: {counts} (want none)")
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+    return {"dry run 19a": counts}
+
+
+def _start_dry_cli(argv):
+    """`python -m repro_torch.launch.dryrun argv` in a child process that
+    also fails if the run set up CUDA or imported jax or the reference."""
+    code = ("import sys, torch\n"
+            "from repro_torch.launch import dryrun\n"
+            f"rc = dryrun.main({argv!r})\n"
+            "if torch.cuda.is_initialized():\n"
+            "    sys.exit('the dry run set up CUDA')\n"
+            "if {'jax', 'repro'} & set(sys.modules):\n"
+            "    sys.exit('the dry run imported jax or the reference')\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="2")
+    return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _dry_cli(checks, label, n, out_dir, proc):
+    """19b: one CLI run's exit code, summary line and reports."""
+    try:
+        out, err = proc.communicate(timeout=DRY_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    want = f"=== dry-run complete: {n} cells ok, 0 failed ==="
+    reps = []
+    if os.path.isdir(out_dir):
+        for name in sorted(os.listdir(out_dir)):
+            with open(os.path.join(out_dir, name)) as f:
+                reps.append(json.load(f))
+    for r in reps:
+        ms = r["memory_stats"]
+        need = ms["argument_size_in_bytes"] + ms["temp_size_in_bytes"]
+        log(f"    {r['arch']} {r['shape']} {r['mesh']}: args+temp {need:.4e} "
+            f"B of 80e9 ({r['note'].split()[-1]}), dominant {r['dominant']}, "
+            f"bound {r['bound_s'] * 1e3:.3f} ms, model/traced flops "
+            f"{r['flops_ratio']:.4f}")
+    notes_ok = all(
+        r["hw"] == "nvidia-h100-sxm" and r["note"].split()[-1] == (
+            "fits-hbm" if r["memory_stats"]["argument_size_in_bytes"]
+            + r["memory_stats"]["temp_size_in_bytes"] <= 80e9
+            else "EXCEEDS-HBM") for r in reps)
+    ok = proc.returncode == 0 and want in out and len(reps) == n and notes_ok
+    _gate(checks, ok, f"dry-run CLI {label}",
+          f"dry-run CLI {label}: exit {proc.returncode}, {len(reps)} reports "
+          f"(want {n}), notes against 80e9 B: {notes_ok}; no CUDA set up, "
+          f"no jax")
+    if not ok:
+        log(out[-3000:] + err[-3000:])
+
+
+def _dry_step(torch, checks, smi):
+    """19a: one warm train step on the card against the dry run's trace of
+    the same step on one device."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ShapeConfig, build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.roofline import H100, model_flops, report_from_compiled
+    from repro_torch.roofline.trace import flop_counter, storage_bytes
+    from repro_torch.training.steps import build_train_step, make_train_state
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig(f"train_{TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B,
+                        "train")
+    t = time.perf_counter()
+    trace, _, _ = dryrun.lower_cell(TRAIN_ARCH, shape, None)
+    trace_s = time.perf_counter() - t
+    rep = report_from_compiled(trace, arch=TRAIN_ARCH, shape_name=shape.name,
+                               mesh_name="1", chips=1, hw=H100,
+                               model_fl=model_flops(cfg, shape, "train"))
+    model = build_model(cfg)
+    _warm_backward(torch)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = make_train_state(model, torch.Generator(device=DEVICE)
+                             .manual_seed(0))
+    batch = make_batch(cfg, TRAIN_B, TRAIN_S, device=DEVICE)
+    step, _, _ = build_train_step(model, None, AdamWConfig(),
+                                  global_batch=TRAIN_B, seq_len=TRAIN_S)
+    args = storage_bytes((state, batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    with flop_counter() as fc:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, metrics = step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    step_ms = sorted(times)[1]
+    _gate(checks, flops == trace.flops and args == trace.argument_bytes,
+          "dry-run step",
+          f"{TRAIN_ARCH} train step at ({TRAIN_B}, {TRAIN_S}) on one device: "
+          f"traced flops {trace.flops:.0f} (trace {trace_s:.1f} s on the "
+          f"host), the card's step {flops} under FlopCounterMode; argument "
+          f"bytes {trace.argument_bytes:.0f} traced, {args} on the card")
+    log(f"  peak: reckoned args + traced temp "
+        f"{trace.argument_bytes + trace.peak_bytes:.0f} B, the card's first "
+        f"step torch.cuda.max_memory_allocated {peak} B; H100 bound "
+        f"{rep.bound_s * 1e3:.3f} ms ({rep.dominant}: compute "
+        f"{rep.compute_s * 1e3:.3f}, memory {rep.memory_s * 1e3:.3f} ms) "
+        f"beside the measured warm step {step_ms:.2f} ms (median of 3, "
+        f"CUDA events); {smi}")
+    del state, batch, step, metrics
+    _freed(torch, checks, "dry-run 19a memory", base)
+
+
 def _only_phases():
-    """`--only 11,12,13,14,15,16,17,18`: the later phases to run alone
+    """`--only 11,12,13,14,15,16,17,18,19`: the later phases to run alone
     (development runs only; with no arguments every phase runs)."""
     if "--only" not in sys.argv:
         return []
     names = sys.argv[sys.argv.index("--only") + 1].split(",")
     bad = [n for n in names
-           if n not in ("11", "12", "13", "14", "15", "16", "17", "18")]
+           if n not in ("11", "12", "13", "14", "15", "16", "17", "18",
+                        "19")]
     if bad:
         raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14, 15, "
-                         f"16, 17, 18; got {bad}")
+                         f"16, 17, 18, 19; got {bad}")
     return names
 
 
@@ -4154,7 +4333,8 @@ def main() -> int:
         tiers = {"11": phase_cache, "12": phase_scheduler,
                  "13": phase_faults, "14": phase_autotune,
                  "15": phase_multihost, "16": phase_families,
-                 "17": phase_training, "18": phase_lm_ranks}
+                 "17": phase_training, "18": phase_lm_ranks,
+                 "19": phase_dryrun}
         for name in only:
             tiers[name](torch, checks, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s (phases "
@@ -4180,6 +4360,7 @@ def main() -> int:
     launches.update(phase_families(torch, checks, smi))
     launches.update(phase_training(torch, checks, smi))
     launches.update(phase_lm_ranks(torch, checks, smi))
+    launches.update(phase_dryrun(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

@@ -1,6 +1,10 @@
-"""Concrete input batches — counterpart of `repro/configs/inputs.py:make_batch`.
+"""Input stand-ins and concrete batches — counterpart of
+`repro/configs/inputs.py`.
 
-Deterministic from an explicit `torch.Generator` (the reference seeds
+`input_specs(cfg, shape)` gives the abstract inputs each step is traced
+with (`launch/dryrun.py`: no allocation): tensors on the `meta` device,
+the reference's ShapeDtypeStructs with the same keys, shapes and dtypes.
+`make_batch` gives a concrete batch.  Concrete batches are deterministic from an explicit `torch.Generator` (the reference seeds
 jax.random; the two give different numbers from one seed, so parity
 tests hand the reference's batch across through numpy instead).
 Modality frontends are stubs, as in the reference: VLM batches get
@@ -12,7 +16,57 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _extras_specs(cfg: ModelConfig, batch: int) -> Dict[str, Any]:
+    out = {}
+    if cfg.family == "vlm" and cfg.n_patches:
+        out["patches"] = _spec((batch, cfg.n_patches, cfg.d_model),
+                               cfg.cdtype)
+    if cfg.is_encdec:
+        out["frames"] = _spec((batch, cfg.enc_context, cfg.d_model),
+                              cfg.cdtype)
+    return out
+
+
+def train_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    return {
+        "tokens": _spec((b, s), torch.int32),
+        "labels": _spec((b, s), torch.int32),
+        **_extras_specs(cfg, b),
+    }
+
+
+def prefill_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    return {
+        "tokens": _spec((b, s), torch.int32),
+        **_extras_specs(cfg, b),
+    }
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Decode traces the serve step: ONE new token against a seq_len KV
+    cache."""
+    b = shape.global_batch
+    return {
+        "tokens": _spec((b, 1), torch.int32),
+        "cache_len": _spec((), torch.int32),
+    }
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    if shape.kind == "train":
+        return train_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_specs(cfg, shape)
+    return decode_specs(cfg, shape)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,

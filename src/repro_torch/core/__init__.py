@@ -29,7 +29,9 @@ from .parallel import (
     build_msc_batched,
     build_msc_parallel,
     build_msc_parallel_flat,
+    build_msc_parallel_grouped,
 )
+from repro_torch.launch.mesh import make_msc_mesh
 from .schedule import ModeSchedule, epilogue_rowsum
 from .extraction import extract_cluster, max_gap_init, trim_to_theorem
 from .metrics import recovery_rate, similarity_index, similarity_index_mode

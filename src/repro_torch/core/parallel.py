@@ -82,16 +82,17 @@ def agreed(mesh, value):
 
 
 def _resolve_auto(cfg: MSCConfig, shape, relayout: str, mesh=None,
-                  B: int = 1, device=None):
+                  B: int = 1, device=None, hw=None):
     """(cfg, relayout) for one tensor shape, "auto" resolved by the
-    roofline choosers on `device`'s spec (`roofline.target_hw`: V5E, the
-    reference's, on the CPU); a knob that is not "auto" passes through.
+    roofline choosers on `hw`, by default `device`'s spec
+    (`roofline.target_hw`: V5E, the reference's, on the CPU); a knob that
+    is not "auto" passes through.
     On a mesh every rank must resolve alike: the models are deterministic,
     and `agreed` checks it."""
     from repro_torch.roofline import (choose_epilogue, choose_relayout,
                                       target_hw)
 
-    hw = target_hw(_mesh_device(mesh, device))
+    hw = hw or target_hw(_mesh_device(mesh, device))
     sched = _flat_schedule(cfg, mesh)
     p, q = sched.slice_shards, sched.inner_shards
     if relayout == "auto":

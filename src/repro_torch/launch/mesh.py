@@ -244,7 +244,9 @@ def axes_group(mesh, axes):
     row-major order over `axes` (so block k of a dim sharded over the
     role sits on the rank the reference's composite axis gives it).
     Made once per mesh and role; every rank makes every group (as
-    `new_group` asks), in the same order.  None, 1, 0 for no dims."""
+    `new_group` asks), in the same order, on real tensors even inside a
+    `FakeTensorMode` (a traced step, `launch/dryrun.py`: the mesh's rank
+    table is a real tensor).  None, 1, 0 for no dims."""
     axes = tuple(axes)
     if not axes:
         return None, 1, 0
@@ -255,17 +257,19 @@ def axes_group(mesh, axes):
     cache = mesh.__dict__.setdefault("_role_groups", {})
     if axes not in cache:
         import torch.distributed as dist
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
 
         idx = [names.index(a) for a in axes]
         rest = [i for i in range(len(names)) if i not in idx]
-        ranks = mesh.mesh.permute(rest + idx).reshape(
-            -1, math.prod(mesh.size(i) for i in idx))
         me = dist.get_rank()
         mine = None
-        for row in ranks.tolist():
-            group = dist.new_group(row)
-            if me in row:
-                mine = (group, len(row), row.index(me))
+        with unset_fake_temporarily():
+            ranks = mesh.mesh.permute(rest + idx).reshape(
+                -1, math.prod(mesh.size(i) for i in idx))
+            for row in ranks.tolist():
+                group = dist.new_group(row)
+                if me in row:
+                    mine = (group, len(row), row.index(me))
         cache[axes] = mine
     return cache[axes]
 

@@ -53,6 +53,29 @@ def stack_defs(defs, n: int) -> Stacked:
     return Stacked(defs, n)
 
 
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def stacked_def(d: ParamDef, n: int) -> ParamDef:
+    """The reference's `stack_defs` leaf: a leading "layers" dim of n."""
+    return dataclasses.replace(d, shape=(n,) + d.shape,
+                               logical=("layers",) + d.logical)
+
+
+def map_defs(fn: Callable[[ParamDef], Any], defs, _stack: int = 0):
+    """fn over every def of a tree, shaped as the reference's tree: a
+    `Stacked` block is one dict whose defs carry the leading "layers"
+    dim, as the reference's `stack_defs` makes it."""
+    if is_def(defs):
+        return fn(stacked_def(defs, _stack) if _stack else defs)
+    if isinstance(defs, Stacked):
+        return map_defs(fn, defs.defs, defs.n)
+    if isinstance(defs, tuple):
+        return tuple(map_defs(fn, d, _stack) for d in defs)
+    return {k: map_defs(fn, v, _stack) for k, v in defs.items()}
+
+
 class ParamTree(nn.Module):
     """One block of parameters, read like the reference's dict."""
 

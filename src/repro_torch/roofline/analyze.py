@@ -8,12 +8,10 @@ the reference's `V5E` by default, so a call without it gives the
 reference's numbers; the port's call sites pass
 `hw.target_hw(device)` (`H100` on a card).  Also the LM side's model
 FLOPs (`model_flops`, `active_param_count`, every family) and the
-`RooflineReport` record with `save_report`.
-
-The reference builds a report from an XLA compiled object
-(`report_from_compiled`, through its HLO parser); the port's profile-based
-counterpart comes with `launch/dryrun.py` (ROADMAP.md queue 1 item 12
-(c)).
+`RooflineReport` record with `save_report`, and `report_from_compiled`,
+which builds one from a step traced on fake tensors
+(`roofline/trace.py:StepTrace`, the dry run's record) where the
+reference's reads XLA's compiled HLO.
 """
 from __future__ import annotations
 
@@ -74,6 +72,9 @@ class RooflineReport:
     xla_cost_analysis: Dict
     memory_stats: Dict
     note: str = ""
+    # the spec the terms were computed on (not in the JSON at the
+    # reference's V5E, so its reports read the same)
+    hw: HwSpec = dataclasses.field(default=V5E, repr=False)
 
     @property
     def bound_s(self) -> float:
@@ -90,11 +91,14 @@ class RooflineReport:
     @property
     def mfu_bound(self) -> float:
         """Upper bound on MFU: useful model FLOPs over peak×bound time."""
-        denom = self.chips * V5E.peak_flops_bf16 * self.bound_s
+        denom = self.chips * self.hw.peak_flops_bf16 * self.bound_s
         return self.model_flops / denom if denom > 0 else 0.0
 
     def to_json(self) -> Dict:
         d = dataclasses.asdict(self)
+        d.pop("hw")
+        if self.hw != V5E:
+            d["hw"] = self.hw.name
         d["bound_s"] = self.bound_s
         d["roofline_fraction"] = self.roofline_fraction
         d["mfu_bound"] = self.mfu_bound
@@ -715,6 +719,66 @@ def serving_model(shape, B: int, p: int, q: int = 1, *,
         "amortized_compile_s": compile_s / max(B, 1),
         "cold_batched_s": compile_s + batched_s,
     }
+
+
+def _memory_stats_dict(trace) -> Dict:
+    """The reference's `memory_analysis()` fields from a traced step:
+    arguments (the rank's state and batch), outputs, temp (the traced
+    peak of what the step allocated and held at once, new outputs
+    included) and aliases (outputs that are arguments updated in
+    place)."""
+    return {"argument_size_in_bytes": trace.argument_bytes,
+            "output_size_in_bytes": trace.output_bytes,
+            "temp_size_in_bytes": trace.peak_bytes,
+            "alias_size_in_bytes": trace.alias_bytes}
+
+
+def report_from_compiled(trace, *, arch: str, shape_name: str,
+                         mesh_name: str, chips: int,
+                         model_fl: float, hw: HwSpec = V5E,
+                         note: str = "") -> RooflineReport:
+    """A `RooflineReport` from one rank's traced step (`StepTrace`), the
+    reference's terms on `hw`: compute from the traced FLOPs times the
+    ranks, memory from the rank's operand and output bytes (eager
+    PyTorch's unfused traffic, an upper bound for a fused step), the
+    collective terms from the collectives it ran (operand bytes, and the
+    ring model's link bytes).  `unknown_trip_counts` is 0: a trace runs
+    every loop it takes.  `xla_cost_analysis` is empty: there is no XLA.
+    The note ends with fits-hbm or EXCEEDS-HBM: arguments + temp against
+    `hw.hbm_bytes`."""
+    n = max(trace.ranks, 1)
+    flops_g = trace.flops * n
+    bytes_pd = trace.traffic_bytes
+    coll_g = trace.collective_operand_bytes * n
+
+    compute_s = flops_g / (chips * hw.peak_flops_bf16)
+    memory_s = bytes_pd / hw.hbm_bw            # = bytes_g / (chips × bw)
+    collective_s = coll_g / (chips * hw.ici_bw)
+    collective_link_s = trace.collective_link_bytes / hw.ici_bw
+
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_link_s}
+    dominant = max(terms, key=terms.get)
+    mem_stats = _memory_stats_dict(trace)
+    fits = (mem_stats["argument_size_in_bytes"]
+            + mem_stats["temp_size_in_bytes"]) <= hw.hbm_bytes
+    return RooflineReport(
+        arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
+        compute_s=compute_s, memory_s=memory_s,
+        collective_s=collective_s, collective_link_s=collective_link_s,
+        dominant=dominant, model_flops=model_fl,
+        hlo_flops_global=flops_g,
+        flops_ratio=(model_fl / flops_g) if flops_g else 0.0,
+        bytes_per_device=bytes_pd,
+        collective_bytes_global=coll_g,
+        collectives_by_kind=trace.by_kind(),
+        unknown_trip_counts=0,
+        xla_cost_analysis={},
+        memory_stats=mem_stats,
+        note=" ".join(x for x in (note, "fits-hbm" if fits
+                                  else "EXCEEDS-HBM") if x),
+        hw=hw,
+    )
 
 
 def save_report(report: RooflineReport, path: str):

@@ -1,7 +1,10 @@
-"""Render the roofline table from experiments/dryrun/*.json — counterpart
-of `repro/roofline/table.py`: the same rows give the same text.
+"""Render the roofline table from the dry run's reports — counterpart of
+`repro/roofline/table.py`: the same rows give the same text.
+`render_pods` gives one row an arch and both production meshes in a
+cell, the fit read from each report's note.
 
-  PYTHONPATH=src python -m repro_torch.roofline.table [--dir experiments/dryrun]
+  PYTHONPATH=src python -m repro_torch.roofline.table \
+      [--dir experiments/dryrun_torch] [--pods]
 """
 from __future__ import annotations
 
@@ -76,13 +79,52 @@ def render(rows, mesh: str = "16x16") -> str:
     return "\n".join(out)
 
 
+def render_pods(rows, meshes=("16x16", "2x16x16")) -> str:
+    """One row an arch, one column a shape.  A cell reads "fit dominant
+    bound_s on each mesh (ratio)": fit ✓ when every mesh's report says
+    fits-hbm in its note (`report_from_compiled`, against its `hw`), else
+    ✗ and the largest need (arguments + temp) across meshes in GB; the
+    first mesh's dominant term, `bound_s` on each mesh, and the first
+    mesh's model/traced flops ratio."""
+    cells, archs, shapes = {}, [], []
+    for r in rows:
+        if r["arch"] not in archs:
+            archs.append(r["arch"])
+        if r["shape"] not in shapes:
+            shapes.append(r["shape"])
+        cells.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
+
+    def entry(by):
+        got = [by[m] for m in meshes if m in by]
+        fit = "✓"
+        if not all(r["note"].endswith("fits-hbm") for r in got):
+            need = max(r["memory_stats"]["argument_size_in_bytes"]
+                       + r["memory_stats"]["temp_size_in_bytes"]
+                       for r in got)
+            fit = f"✗ {need / 1e9:.0f} GB"
+        bounds = "/".join(fmt_s(r["bound_s"]).strip() for r in got)
+        return (f"{fit} {got[0]['dominant']} {bounds} "
+                f"({got[0]['flops_ratio']:.2f})")
+
+    out = ["| arch | " + " | ".join(shapes) + " |",
+           "|---|" + "---|" * len(shapes)]
+    for a in archs:
+        out.append(f"| {a} | " + " | ".join(
+            entry(cells[(a, s)]) if (a, s) in cells else "—"
+            for s in shapes) + " |")
+    return "\n".join(out)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="experiments/dryrun")
+    ap.add_argument("--dir", default="experiments/dryrun_torch")
     ap.add_argument("--mesh", default="16x16")
+    ap.add_argument("--pods", action="store_true",
+                    help="both meshes a row, the fit from each note")
     args = ap.parse_args()
     rows = load(args.dir)
-    print(render(rows, args.mesh))
+    print(render_pods(rows) if args.pods
+          else render(rows, args.mesh))
 
 
 if __name__ == "__main__":

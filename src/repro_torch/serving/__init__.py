@@ -4,7 +4,8 @@
 (`MSCContinuousEngine`, with its result cache, SLO scheduler and fault
 tolerance), and greedy LM generation (`ServeEngine`)."""
 from .msc_engine import MSCContinuousEngine, MSCServeEngine, ServeStats
-from .engine import ServeEngine
-from .faults import (FaultInjector, FaultPlan, InjectedFault, LoadShedError,
-                     corrupt_checkpoint_leaf, fail_all_from)
+from .engine import ServeEngine, build_serve_steps
+from .faults import (DistKillPlan, FaultInjector, FaultPlan, InjectedFault,
+                     LoadShedError, corrupt_checkpoint_leaf,
+                     corrupt_checkpoint_shard, fail_all_from)
 from .result_cache import MSCResultCache, NearHit

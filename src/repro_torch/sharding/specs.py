@@ -29,7 +29,7 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
-from repro_torch.models.params import ParamDef, Stacked
+from repro_torch.models.params import ParamDef, map_defs
 from repro_torch.sharding.activation import spec_entry
 
 Axes = Tuple[str, ...]
@@ -125,27 +125,11 @@ def spec_for_def(d: ParamDef, mesh, rules: ShardingRules) -> Spec:
     return tuple(parts)
 
 
-def stacked_def(d: ParamDef, n: int) -> ParamDef:
-    """The reference's `stack_defs` leaf: a leading "layers" dim of n."""
-    return dataclasses.replace(d, shape=(n,) + d.shape,
-                               logical=("layers",) + d.logical)
-
-
-def _map_defs(fn, defs, stack: int = 0):
-    if isinstance(defs, ParamDef):
-        return fn(stacked_def(defs, stack) if stack else defs)
-    if isinstance(defs, Stacked):
-        return _map_defs(fn, defs.defs, defs.n)
-    if isinstance(defs, tuple):
-        return tuple(_map_defs(fn, d, stack) for d in defs)
-    return {k: _map_defs(fn, v, stack) for k, v in defs.items()}
-
-
 def param_specs(defs, mesh, rules: ShardingRules = DEFAULT_RULES):
     """Tree of ParamDefs → tree of specs, shaped as the reference's: a
     `Stacked` block is one dict of specs with the leading "layers" dim
     (never sharded), as `stack_defs` makes it."""
-    return _map_defs(lambda d: spec_for_def(d, mesh, rules), defs)
+    return map_defs(lambda d: spec_for_def(d, mesh, rules), defs)
 
 
 def batch_spec(mesh, rules: ShardingRules = DEFAULT_RULES) -> Spec:
@@ -169,6 +153,21 @@ def batch_axes_for(n: int, mesh, rules: ShardingRules = DEFAULT_RULES
 
 
 # ---------------------------------------------------------------- MSC ----
+# The MSC tensor's logical dims (the reference's table):
+#   "msc_slice" — the slice index of the current unfolding, over "slice";
+#   "msc_inner" — the row dim of a slice, over "inner" when the mesh has
+#                 it (2-D within-slice sharding);
+#   "msc_col"   — the eigenvector dim c: never cut (the eigensolve and
+#                 the |V Vᵀ| epilogue need whole rows of V);
+#   "msc_mode"  — the grouped schedule's unfolding index, over "mode".
+MSC_TABLE: Dict[str, Candidates] = {
+    "msc_slice": (("slice",),),
+    "msc_inner": (("inner",), ()),
+    "msc_col": ((),),
+    "msc_mode": (("mode",),),
+}
+MSC_RULES = ShardingRules(table=MSC_TABLE, batch_axes=("slice",))
+
 
 def msc_axes(mesh, inner_axis: Optional[str] = "inner",
              mode_axis: str = "mode") -> Tuple[Axes, Axes]:

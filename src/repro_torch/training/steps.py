@@ -79,9 +79,14 @@ def train_shards(model: Model, mesh) -> LMShards:
     return LMShards(mesh, rules_for(model.cfg.zero_shard).batch_axes)
 
 
-def _shard_state(model: Model, state: "TrainState", mesh) -> "TrainState":
-    """The rank's shards of a whole state under `state_specs`."""
+def shard_train_state(model: Model, state: "TrainState",
+                      mesh) -> "TrainState":
+    """The rank's shards of a whole state under `state_specs` (on one
+    device, the state itself)."""
     from repro_torch.launch.mesh import mesh_device
+
+    if not _over_ranks(mesh):
+        return state
     from repro_torch.serving.engine import shard_params
 
     specs = state_specs(model, mesh, compress=state.compress is not None)
@@ -108,7 +113,7 @@ def make_train_state(model: Model, generator: torch.Generator,
     params = trainable(model.init(generator))
     state = TrainState(params=params, opt=adamw_init(params),
                        compress=compress_init(params) if compress else None)
-    return _shard_state(model, state, mesh) if _over_ranks(mesh) else state
+    return shard_train_state(model, state, mesh)
 
 
 def abstract_train_state(model: Model, compress: bool = False,
