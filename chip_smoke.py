@@ -288,11 +288,33 @@ line):
    both`: exit 0, every cell ok, one report a cell whose note says
    fits-hbm or EXCEEDS-HBM against 80e9 B; the children set up no CUDA
    and import neither jax nor the reference.
+20. The MSC schedule's stages in isolation (`core/schedule.py`).  First
+   their traced forms on fake process groups on the host
+   (`launch/dryrun.py`), printed beside the H100 models: both epilogues
+   at p = 4, 8, 32 and m = c = 1000 (collectives, link bytes, landing
+   buffer) and the mode stage at p = 4, m = 96, q = 1, 2, 4, 8 (argument
+   and temp bytes, all-reduces).  Then on a (1,) mesh of one NCCL rank
+   (phase 8's group): 20a, `build_epilogue_rowsum` on a (1000, 1000)
+   fp32 V (seed 0) under "allgather" and "ring" with kernels (one
+   `abs_rowsum` launch each), each held to the same stage on its plain
+   version within phase 3's `abs_rowsum` tolerance; the max |Δd| between
+   the two and the median of CUDA-event times of each.  20b,
+   `build_mode_runner` on mode 0 of phase 4's tensor (kernels on:
+   `power_iter` and `abs_rowsum` launched): d, λ and sweeps bit-identical
+   to the flat schedule's mode 0 on the same group; the traced argument
+   bytes of `lower_mode_stage` at p = q = 1 equal to the card's block
+   and mask bytes; the reckoned peak (arguments + traced temp) within 3%
+   of `torch.cuda.max_memory_allocated` over the call; its median time.
+   20c, with two cards or more: both stages over one NCCL rank a card
+   (real ring exchanges), d within 1e-4 of 20a's and the mode stage's d
+   and λ within 3e-5 of 20b's with equal sweeps; with four or more, the
+   (2, 2) NCCL tests of `tests/test_torch_lm_mesh.py`.  With one card
+   20c prints that it did not run and why.  0 B left.
 Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
 beside their measured times (`roofline.H100`; reported, no bar).
-`--only 11,12,13,14,15,16,17,18,19` (any subset) runs the card and build phases
-and the named phases alone (a development run: no result lines, exit code 3
-when they pass).
+`--only 11,12,13,14,15,16,17,18,19,20` (any subset) runs the card and
+build phases and the named phases alone (a development run: no result
+lines, exit code 3 when they pass).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -4289,18 +4311,345 @@ def _dry_step(torch, checks, smi):
     _freed(torch, checks, "dry-run 19a memory", base)
 
 
+# ------------------------------------------------------------ phase 20 --
+# the MSC schedule's stages in isolation (`core/schedule.py:
+# build_epilogue_rowsum`, `build_mode_runner`) on one NCCL rank, their
+# traced forms (`launch/dryrun.py:lower_epilogue`, `lower_mode_stage`)
+# on fake groups on the host, and (20c) both stages over every card
+STAGE_EPILOGUES = ("allgather", "ring")
+STAGE_TOL = 1e-4          # phase 3's abs_rowsum fp32 tolerance (of max |d|)
+STAGE_REPS = (20, 5)      # CUDA-event times a median: epilogue, mode stage
+STAGE_PEAK_TOL = 0.03     # reckoned peak against the card's
+STAGE_D_TOL = 3e-5        # 20c's d and λ against one rank's (relative)
+RANKS_TESTS = (
+    "tests/test_torch_lm_mesh.py::test_lm_serving_across_nccl_ranks",
+    "tests/test_torch_lm_mesh.py::test_training_across_nccl_ranks")
+
+
+def _median_ms(torch, fn, reps):
+    """The median of `reps` CUDA-event times of fn, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def phase_stages(torch, checks, smi):
+    """Phase 20: the traced stages on the host, 20a and 20b on a (1,) mesh
+    of one NCCL rank, 20c over every card when there are two or more; 0 B
+    left once the group and the tensors are freed.  Returns {label:
+    launch counts}."""
+    import gc
+    import tempfile
+
+    from repro_torch.launch.mesh import join, leave, make_msc_mesh
+
+    t0 = time.perf_counter()
+    log(f"the MSC stages in isolation; card: {smi}")
+    trace = _stage_traces()  # fake groups: before this process joins one
+    # the default stream's cuBLAS workspace (the plain epilogue's product)
+    # outlives the phase: made before the baseline when it runs alone
+    a = torch.ones((8, 8), device=DEVICE)
+    a @ a
+    del a
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    launches, keep = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stages_") as tmp:
+        try:
+            join("cuda", rank=0, world_size=1,
+                 store_file=os.path.join(tmp, "store"))
+            mesh = make_msc_mesh("flat", (1,))
+            launches["stages 20a"] = _stage_epilogues(torch, checks, mesh,
+                                                      keep)
+            launches["stages 20b"] = _stage_mode(torch, checks, mesh, trace,
+                                                 keep)
+        finally:
+            leave()
+        _stage_ranks(torch, checks, tmp, keep)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    _gate(checks, left == 0, "phase 20 memory",
+          f"{left} B left once the process group and the tensors are freed")
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _stage_traces():
+    """The traced stages on fake process groups on the host (no device):
+    both epilogues at the reference benchmark's p = 4, 8, 32 and m = c =
+    1000, the mode stage at its p = 4, m = 96, q = 1, 2, 4, 8, each beside
+    the H100 models' numbers; then the mode stage at 20b's cell (m = 1000,
+    (1,), kernels on), returned."""
+    from repro_torch.core import MSCConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.roofline import eigensolve_model, epilogue_model
+    from repro_torch.roofline.trace import fake_world
+
+    for p in (4, 8, 32):
+        with fake_world(p):
+            mesh = _mesh((p,), ("slice",), "cpu")
+            traces = {e: dryrun.lower_epilogue(M, M, mesh,
+                                               MSCConfig(epilogue=e))
+                      for e in STAGE_EPILOGUES}
+        for e, t in traces.items():
+            kind = dryrun.EPILOGUE_KINDS[e]
+            k = t.by_kind()[kind]
+            pred = epilogue_model(M, M, p, epilogue=e)
+            log(f"  traced {e} epilogue, p = {p}, m = c = {M} fp32: "
+                f"{int(k['count'])} {kind}, link {k['link_bytes']:.0f} B "
+                f"(model {pred['link_bytes']:.0f}), landing buffer "
+                f"{dryrun.landing_bytes(t, e):.0f} B (model "
+                f"{pred['peak_buffer_bytes']:.0f}), temp {t.peak_bytes:.0f} "
+                f"B; other kinds {sorted(set(t.by_kind()) - {kind})}")
+    for q in (1, 2, 4, 8):
+        with fake_world(4 * q):
+            mesh = _mesh((4, q), ("slice", "inner"), "cpu")
+            t = dryrun.lower_mode_stage(96, mesh, MSCConfig())
+        pred = eigensolve_model(96, 96, 96, 4, q, sweeps=60)
+        ar = t.by_kind().get("all-reduce", {})
+        log(f"  traced mode stage, (slice, inner) = (4, {q}), m = 96, 60 "
+            f"sweeps: argument {t.argument_bytes:.0f} B (model block "
+            f"{pred['block_bytes_per_device']:.0f} + the mask), temp "
+            f"{t.peak_bytes:.0f} B, {int(ar.get('count', 0))} all-reduces, "
+            f"link {ar.get('link_bytes', 0.0):.0f} B (model inner sums "
+            f"{pred['psum_link_bytes']:.0f})")
+    with fake_world(1):
+        mesh = _mesh((1,), ("slice",), "cpu")
+        t = dryrun.lower_mode_stage(M, mesh,
+                                    main_cfg().with_(use_kernels=True))
+    log(f"  traced mode stage, (1,), m = {M}: argument "
+        f"{t.argument_bytes:.0f} B, temp {t.peak_bytes:.0f} B, "
+        f"collectives {t.counts()}")
+    return t
+
+
+def _stage_epilogues(torch, checks, mesh, keep):
+    """20a: both epilogues at m = c = 1000 fp32 with kernels (abs_rowsum),
+    each against the same stage on its plain version; the gathered d
+    whole; max |Δd| between them and the median times."""
+    from repro_torch.core import MSCConfig, build_epilogue_rowsum
+
+    v = torch.randn((M, M), generator=torch.Generator(device=DEVICE)
+                    .manual_seed(SEED), device=DEVICE)
+    keep["v"] = v.cpu()
+    total = dict.fromkeys(KERNELS, 0)
+    d = {}
+    for epi in STAGE_EPILOGUES:
+        stage = build_epilogue_rowsum(mesh, MSCConfig(epilogue=epi,
+                                                      use_kernels=True))
+        plain = build_epilogue_rowsum(mesh, MSCConfig(epilogue=epi))
+        rows = stage.rows(v)
+        torch.cuda.synchronize()
+        mods = _reset_counts()
+        d[epi] = stage(rows)
+        torch.cuda.synchronize()
+        counts = _read_counts(mods)
+        for n, c in counts.items():
+            total[n] += c
+        _gate(checks, counts["abs_rowsum"] == 1 and sum(counts.values())
+              == 1, f"stage 20a {epi}",
+              f"20a {epi} epilogue, one rank: launches {counts} (want one "
+              f"abs_rowsum)")
+        checks.compare("abs_rowsum", f"stage 20a {epi} epilogue, (1,) mesh, "
+                       f"V ({M}, {M}) fp32", (d[epi],), (plain(rows),),
+                       STAGE_TOL)
+        whole = stage.gather(d[epi], M)
+        _gate(checks, torch.equal(whole, d[epi]), f"stage 20a {epi}",
+              f"20a {epi}: the gathered d is the rank's d")
+        ms = _median_ms(torch, lambda: stage(rows), STAGE_REPS[0])
+        plain_ms = _median_ms(torch, lambda: plain(rows), STAGE_REPS[0])
+        log(f"  20a {epi}: {ms:.4f} ms with abs_rowsum, {plain_ms:.4f} ms "
+            f"plain (median of {STAGE_REPS[0]}, CUDA events)")
+        keep[epi] = d[epi].cpu()
+    diff = (d["allgather"] - d["ring"]).abs().max().item()
+    log(f"  20a max |d_allgather - d_ring| = {diff:.3e} (max d "
+        f"{d['ring'].abs().max().item():.4e})")
+    return total
+
+
+def _stage_mode(torch, checks, mesh, trace, keep):
+    """20b: the mode runner on mode 0 of the main path's tensor (kernels
+    on) against the flat schedule's mode 0 on the same group, bit for
+    bit; the traced argument bytes exact and the reckoned peak within 3%
+    of the card's; the median time."""
+    import gc
+
+    from repro_torch.core import build_msc_parallel
+    from repro_torch.core.msc import mode_slices
+    from repro_torch.core.parallel import _flat_schedule
+    from repro_torch.core.schedule import build_mode_runner
+    from repro_torch.roofline.trace import storage_bytes
+
+    cfg = main_cfg().with_(use_kernels=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tensor = _planted(torch, SEED, M, GAMMA)
+    sched = _flat_schedule(cfg, mesh)
+    run = build_mode_runner(sched)
+    block, valid = sched.local_block(mode_slices(tensor, 0))
+    args = storage_bytes((block, valid))
+    run(block, valid)  # warm: the kernels' first calls set them up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mods = _reset_counts()
+    d, lam, iters = run(block, valid)
+    torch.cuda.synchronize()
+    counts = _read_counts(mods)
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = _median_ms(torch, lambda: run(block, valid), STAGE_REPS[1])
+    flat = build_msc_parallel(cfg, "flat", mesh=mesh)(tensor)[0]
+    same = (torch.equal(d, flat.d) and torch.equal(lam, flat.lambdas)
+            and int(iters.max()) == int(flat.power_iters_run))
+    reckoned = trace.argument_bytes + trace.peak_bytes
+    _gate(checks, counts["power_iter"] > 0 and counts["abs_rowsum"] > 0
+          and not counts["batched_gram"] and not counts["flash_attention"],
+          "stage 20b", f"20b launches {counts} (want power_iter and "
+          f"abs_rowsum)")
+    _gate(checks, same, "stage 20b",
+          f"20b d, λ and sweeps ({int(iters.max())}) of the mode runner "
+          f"bit-identical to the flat schedule's mode 0 on the same group")
+    _gate(checks, args == trace.argument_bytes, "stage 20b",
+          f"20b argument bytes: traced {trace.argument_bytes:.0f}, the "
+          f"card's block and mask {args}")
+    _gate(checks, abs(reckoned - peak) <= STAGE_PEAK_TOL * peak,
+          "stage 20b", f"20b peak: reckoned args + traced temp "
+          f"{reckoned:.0f} B, the card's max_memory_allocated over the call "
+          f"{peak} B ({(reckoned - peak) / peak:+.4%})")
+    log(f"  20b mode 0 stage at m = {M}: {ms:.2f} ms (median of "
+        f"{STAGE_REPS[1]}, CUDA events), {int(iters.max())} sweeps")
+    keep["mode"] = (d.cpu(), lam.cpu(), iters.cpu())
+    del tensor, block, valid, d, lam, iters, flat
+    return counts
+
+
+def _stage_ranks(torch, checks, tmp, keep):
+    """20c: both stages over n NCCL ranks (one a card) with real ring
+    exchanges, held to 20a and 20b; with four cards or more, the (2, 2)
+    LM tests across NCCL ranks."""
+    from repro_torch.launch import mesh as tmesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"  20c did not run: it needs two cards or more (NCCL takes one "
+            f"rank a card) and this machine has {n}; the (2, 2) NCCL tests "
+            f"{', '.join(t.split('::')[1] for t in RANKS_TESTS)} did not run "
+            f"either")
+        return
+    ref = os.path.join(tmp, "stage_ref.pt")
+    out = os.path.join(tmp, "stage_ranks.json")
+    torch.save(keep, ref)
+    tmesh.spawn(_stage_rank, n, os.path.join(tmp, "store_20c"), ref, out, M,
+                join_timeout=900)
+    with open(out) as f:
+        res = json.load(f)
+    for epi in STAGE_EPILOGUES:
+        _gate(checks, res[epi] <= STAGE_TOL, f"stage 20c {epi}",
+              f"20c {epi} over {n} ranks: d within {res[epi]:.3e} of 20a's "
+              f"(of max d); {res[epi + '_ms']:.4f} ms on rank 0 (median)")
+    _gate(checks, res["mode_d"] <= STAGE_D_TOL and res["mode_lam"]
+          <= STAGE_D_TOL and res["mode_sweeps_equal"], "stage 20c mode",
+          f"20c mode stage over {n} ranks: d and λ within "
+          f"{res['mode_d']:.3e} / {res['mode_lam']:.3e} of 20b's, sweeps "
+          f"equal {res['mode_sweeps_equal']}; {res['mode_ms']:.2f} ms on "
+          f"rank 0 (median)")
+    if n < 4:
+        log(f"  the (2, 2) NCCL tests did not run: {n} cards, they need 4")
+        return
+    # the repository's pytest settings add -q: the last line is the
+    # summary ("2 passed in ...")
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-m", "gpu", "-rA", "-p",
+         "no:cacheprovider", *RANKS_TESTS], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=900)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    _gate(checks, proc.returncode == 0 and tail[0].startswith("2 passed"),
+          "stage 20c NCCL tests",
+          f"the (2, 2) NCCL tests on {n} cards: exit {proc.returncode}, "
+          f"{tail[0]}")
+    if proc.returncode:
+        log(proc.stdout[-6000:] + proc.stderr[-3000:])
+
+
+def _stage_rank(device, ref_path, out_path, m):
+    """20c, one rank of n: both epilogues and the mode runner on an (n,)
+    mesh, each rank on its rows of 20a's V or its block of the main
+    path's tensor (made on every rank from the seed); rank 0 holds the
+    joined results to one rank's (20a, 20b) and writes them to
+    out_path."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import (MSCConfig, PlantedSpec,
+                                  build_epilogue_rowsum, make_planted_tensor)
+    from repro_torch.core.msc import mode_slices
+    from repro_torch.core.parallel import _flat_schedule
+    from repro_torch.core.schedule import build_mode_runner
+    from repro_torch.launch.mesh import make_msc_mesh
+
+    def rel(got, want):
+        return ((got.cpu() - want).abs().max()
+                / want.abs().max().clamp(min=1e-30)).item()
+
+    keep = torch.load(ref_path)
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_msc_mesh("flat", (n,))
+    timed = device.type == "cuda"
+    res = {"ranks": n}
+    v = keep["v"].to(device)
+    for epi in STAGE_EPILOGUES:
+        stage = build_epilogue_rowsum(mesh, MSCConfig(epilogue=epi,
+                                                      use_kernels=True))
+        rows = stage.rows(v)
+        res[epi] = rel(stage.gather(stage(rows), m), keep[epi])
+        res[epi + "_ms"] = _median_ms(torch, lambda: stage(rows),
+                                      STAGE_REPS[0]) if timed else 0.0
+    cfg = MSCConfig(epsilon=0.5 / (m - m // 10) ** 2, max_extraction_iters=m,
+                    use_kernels=True)
+    tensor = make_planted_tensor(torch.Generator(device=device)
+                                 .manual_seed(SEED), PlantedSpec.paper(m, m))
+    sched = _flat_schedule(cfg, mesh)
+    block, valid = sched.local_block(mode_slices(tensor, 0))
+    del tensor
+    run = build_mode_runner(sched)
+    d, lam, iters = sched.gather(*run(block, valid))
+    want_d, want_lam, want_iters = keep["mode"]
+    res["mode_d"] = rel(d[:m], want_d)
+    res["mode_lam"] = rel(lam[:m], want_lam)
+    res["mode_sweeps_equal"] = int(iters.max()) == int(want_iters.max())
+    res["mode_ms"] = _median_ms(torch, lambda: run(block, valid),
+                                STAGE_REPS[1]) if timed else 0.0
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+
+
 def _only_phases():
-    """`--only 11,12,13,14,15,16,17,18,19`: the later phases to run alone
-    (development runs only; with no arguments every phase runs)."""
+    """`--only 11,12,13,14,15,16,17,18,19,20`: the later phases to run
+    alone (development runs only; with no arguments every phase runs)."""
     if "--only" not in sys.argv:
         return []
     names = sys.argv[sys.argv.index("--only") + 1].split(",")
     bad = [n for n in names
            if n not in ("11", "12", "13", "14", "15", "16", "17", "18",
-                        "19")]
+                        "19", "20")]
     if bad:
         raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14, 15, "
-                         f"16, 17, 18, 19; got {bad}")
+                         f"16, 17, 18, 19, 20; got {bad}")
     return names
 
 
@@ -4334,7 +4683,7 @@ def main() -> int:
                  "13": phase_faults, "14": phase_autotune,
                  "15": phase_multihost, "16": phase_families,
                  "17": phase_training, "18": phase_lm_ranks,
-                 "19": phase_dryrun}
+                 "19": phase_dryrun, "20": phase_stages}
         for name in only:
             tiers[name](torch, checks, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s (phases "
@@ -4361,6 +4710,7 @@ def main() -> int:
     launches.update(phase_training(torch, checks, smi))
     launches.update(phase_lm_ranks(torch, checks, smi))
     launches.update(phase_dryrun(torch, checks, smi))
+    launches.update(phase_stages(torch, checks, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if checks.failures:
         for f in checks.failures:

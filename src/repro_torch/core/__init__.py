@@ -32,7 +32,7 @@ from .parallel import (
     build_msc_parallel_grouped,
 )
 from repro_torch.launch.mesh import make_msc_mesh
-from .schedule import ModeSchedule, epilogue_rowsum
+from .schedule import ModeSchedule, build_epilogue_rowsum, epilogue_rowsum
 from .extraction import extract_cluster, max_gap_init, trim_to_theorem
 from .metrics import recovery_rate, similarity_index, similarity_index_mode
 from .stats import (

@@ -43,7 +43,8 @@ import torch
 
 from .msc import MODE_PERMS
 from .power_iter import SolveState
-from .schedule import (ModeSchedule, _exchange, gather_shards, pad_to,
+from .schedule import (ModeSchedule, _exchange,  # noqa: F401
+                       build_epilogue_rowsum, gather_shards, pad_to,
                        take_block)
 from .types import MSCConfig, MSCResult, resolve_device
 

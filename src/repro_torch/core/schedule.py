@@ -36,6 +36,12 @@ Chunk-resumable entry points (`init_mode_carry`, `chunk_local`,
 `finalize_local`, `repack_local`, `export_carry`, `import_carry`) are
 the continuous engine's per-mode body (`parallel.MSCChunkPlan`), on one
 device or on each rank of a mesh.
+
+Stages in isolation: `build_mode_runner` (one mode's eigensolve and epilogue
+on a rank's block) and `build_epilogue_rowsum` (the epilogue alone on a
+rank's rows of V), each a stage in isolation for the traced stage
+reports (`launch/dryrun.py:lower_mode_stage`, `lower_epilogue`) and the
+stage-level tests.
 """
 from __future__ import annotations
 
@@ -593,3 +599,77 @@ class ModeSchedule:
             iters=torch.from_numpy(np.asarray(host.iters, np.int32)).to(
                 device),
             done=torch.from_numpy(np.asarray(host.done, bool)).to(device))
+
+
+# ------------------------------------------------------ stages in isolation
+
+def build_mode_runner(sched: ModeSchedule, c_valid: Optional[int] = None):
+    """(block_local, valid_local) → (d_local, λ_local, iters): one mode's
+    eigensolve + similarity epilogue stage in isolation, its inputs
+    already distributed to the schedule's ranks.
+
+    The reference commits its inputs to the schedule's shardings, so that
+    the compiled stage receives the block already cut, as at production
+    scale; here a rank is handed only its own block, never the whole
+    tensor: `ModeSchedule.local_block`'s (m'/p, r'/q, c) and its slice
+    mask (m'/p,).  Every rank calls it (the stage's collectives run over
+    the schedule's groups).  `launch/dryrun.py:lower_mode_stage` traces it
+    for the per-rank eigensolve working set; the tests use it for
+    stage-level parity."""
+    def run(block: torch.Tensor, valid_local: torch.Tensor):
+        return sched.mode_local(block, valid_local, c_valid=c_valid)
+
+    return run
+
+
+@dataclasses.dataclass(frozen=True)
+class EpilogueStage:
+    """The similarity epilogue alone over the rows of V that one group's
+    ranks hold (`build_epilogue_rowsum`).  Called on this rank's rows
+    (m_pad/p, c) it returns this rank's rows of d: `epilogue_rowsum` and
+    nothing else, so a trace of one call holds only the epilogue's own
+    collectives.  `rows` and `gather` cut V and join d around it."""
+
+    cfg: MSCConfig
+    group: object
+    shards: int
+    index: int
+
+    def __call__(self, v_rows: torch.Tensor) -> torch.Tensor:
+        return epilogue_rowsum(v_rows, cfg=self.cfg, group=self.group)
+
+    def rows(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole V (m, c), padded with zero rows to
+        even shards (the reference's `pad_to`)."""
+        b = pad_to(v.shape[0], self.shards) // self.shards
+        return take_block(v, ((self.index * b, b), (0, v.shape[1])))
+
+    def gather(self, d_rows: torch.Tensor, m: int) -> torch.Tensor:
+        """d (m,) whole on every rank from each rank's rows: one
+        all_gather over the group (`gather_stack`), the padding dropped.
+        Every rank calls it; it is not part of the stage."""
+        if self.group is None:
+            return d_rows[:m]
+        return gather_stack(d_rows, self.group).reshape(-1)[:m]
+
+
+def build_epilogue_rowsum(mesh, cfg: MSCConfig,
+                          axis_name=None) -> EpilogueStage:
+    """The similarity epilogue in isolation: an `EpilogueStage` over the
+    group of the mesh dims `axis_name` (a dim name or a tuple of them; by
+    default every dim of the mesh, one group over them row-major,
+    `launch/mesh.py:axes_group`), under cfg.epilogue.
+
+    `launch/dryrun.py:lower_epilogue` traces it to set the all-gather's
+    traffic and landing buffer beside the ring's (the reference's
+    benchmarks/ring_epilogue.py); the tests use it for epilogue-only
+    parity."""
+    from repro_torch.launch.mesh import axes_group
+
+    if axis_name is None:
+        axes = tuple(mesh.mesh_dim_names)
+    else:
+        axes = (axis_name,) if isinstance(axis_name, str) else tuple(
+            axis_name)
+    group, shards, index = axes_group(mesh, axes)
+    return EpilogueStage(cfg, group, shards, index)

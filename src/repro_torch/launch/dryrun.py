@@ -19,7 +19,11 @@ For every (architecture × input shape) cell this entry point:
 The paper's own workload, the flat MSC step, runs the same way with
 --msc M, on an m³ fp32 tensor, with the gate off (`power_tol=0`: the gate's
 host read has no answer in a trace), so every mode runs `power_iters`
-sweeps, the most any request runs.
+sweeps, the most any request runs.  Two stages of that step trace
+alone as well, the counterparts of the reference benchmarks' compiled
+stages: `lower_epilogue` (the similarity epilogue: collectives, link
+bytes, landing buffer) and `lower_mode_stage` (one mode's eigensolve and
+epilogue on a rank's block: argument and temp bytes, all-reduces).
 
 The link term charges `H100.ici_bw` (NVLink) for every group, as the
 reference's models charge one rate; a 16 x 16 mesh spans 32 hosts and a
@@ -211,6 +215,67 @@ def lower_msc(m: int, mesh, *, matrix_free: bool = True,
     return trace, cfg
 
 
+# the collective each epilogue runs (the reference's HLO kinds)
+EPILOGUE_KINDS = {"allgather": "all-gather", "ring": "collective-permute"}
+
+
+def lower_epilogue(m: int, c: int, mesh, cfg, axis_name=None):
+    """Trace the similarity epilogue alone (`core/schedule.py:
+    build_epilogue_rowsum` under cfg.epilogue) as this rank of `mesh` on
+    its rows of an (m, c) fp32 V, padded to even shards.  Returns the
+    StepTrace: its collectives by kind (`by_kind`: counts and link bytes)
+    and the epilogue's landing buffer (`landing_bytes`).  The counterpart
+    of the reference's compiled epilogue in benchmarks/ring_epilogue.py."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.schedule import build_epilogue_rowsum, pad_to
+
+    stage = build_epilogue_rowsum(mesh, cfg, axis_name)
+    rows = pad_to(m, stage.shards) // stage.shards
+    with FakeTensorMode():
+        v = torch.empty((rows, c), dtype=torch.float32, device=DEVICE)
+        trace, _ = trace_step(stage, (v,), _ranks(mesh))
+    return trace
+
+
+def landing_bytes(trace, epilogue: str) -> float:
+    """The largest buffer one of the epilogue's collectives writes on this
+    rank: the whole gathered V for "allgather", one chunk for "ring" (the
+    reference's measured_buffer_bytes)."""
+    kind = EPILOGUE_KINDS[epilogue]
+    return max((c.output_bytes for c in trace.collectives if c.kind == kind),
+               default=0.0)
+
+
+def lower_mode_stage(m: int, mesh, cfg):
+    """Trace one mode's eigensolve + epilogue stage (`core/schedule.py:
+    build_mode_runner`) as this rank of `mesh` (the flat schedule's roles:
+    "inner" shards rows when the mesh has it) on its block of an m³ fp32
+    tensor's unfolding, (m_pad/p, r_pad/q, m), and its slice mask, the
+    gate off (`power_tol=0`: the gate's host read has no answer in a
+    trace, so every slice runs `power_iters` sweeps).  Returns the
+    StepTrace: `argument_bytes` is the block's and the mask's bytes (the
+    reference's measured_block_bytes, in benchmarks/inner_shard.py),
+    `peak_bytes` the stage's temp, `by_kind()["all-reduce"]` the λ max
+    and the inner sums."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.parallel import _flat_schedule
+    from repro_torch.core.schedule import build_mode_runner
+
+    sched = _flat_schedule(cfg.with_(power_tol=0.0), mesh)
+    m_pad, r_pad = sched.pad_amounts(m, m)
+    run = build_mode_runner(sched)
+    with FakeTensorMode():
+        block = torch.empty((m_pad // sched.slice_shards,
+                             r_pad // sched.inner_shards, m),
+                            dtype=torch.float32, device=DEVICE)
+        valid = torch.empty((m_pad // sched.slice_shards,),
+                            dtype=torch.bool, device=DEVICE)
+        trace, _ = trace_step(run, (block, valid), _ranks(mesh))
+    return trace
+
+
 def msc_model_flops(m: int, power_iters: int, matrix_free: bool) -> float:
     """Useful FLOPs of one MSC run on an m³ tensor (3 modes).
 
@@ -247,8 +312,8 @@ def run_cell(arch: str, shape: ShapeConfig, *, multi_pod: bool,
     _print_memory(trace, f" out={trace.output_bytes/2**30:.3f}GiB  per "
                   f"device (HBM {H100.hbm_bytes/2**30:.0f}GiB)")
     print(f"    cost_analysis:   flops={trace.flops:.3e} "
-          f"bytes={trace.traffic_bytes:.3e}  (per device, every loop "
-          f"traced)")
+          f"bytes={trace.traffic_bytes:.3e}  (per device, the per-token "
+          f"recurrences trip-counted)")
     rep = report_from_compiled(
         trace, arch=arch, shape_name=shape.name, mesh_name=mname,
         chips=chips, model_fl=model_flops(cfg, shape, shape.kind), hw=H100,

@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.roofline.trace import scan_steps
 from repro_torch.sharding.activation import (current, on_model,
                                              psum_model, to_model, use,
                                              use_block)
@@ -117,12 +118,11 @@ def rglru_block(p, x, cfg: ModelConfig, cache: Tuple = None):
     if cache is None:
         h = linear_scan(a, b)
     else:
-        hs = cache[1].float()
-        hh = []
-        for t in range(a.shape[1]):
+        def token(hs, t):
             hs = a[:, t] * hs + b[:, t]
-            hh.append(hs)
-        h = torch.stack(hh, dim=1)
+            return hs, hs
+
+        hs, h = scan_steps(token, cache[1].float(), a.shape[1])
         cache[0].copy_(tail)
         cache[1].copy_(hs)
 

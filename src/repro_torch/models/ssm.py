@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.roofline.trace import scan_steps
 from repro_torch.sharding.activation import (current, model_part,
                                              on_model, psum_model, to_model,
                                              use, use_whole)
@@ -203,16 +204,15 @@ def ssd_decode(p, x, cache: Tuple, cfg: ModelConfig):
     bm, cm = bm.float(), cm.float()
     dt, a = _dt_and_a(p, dt_raw)                      # (b,s,h), (h,)
 
-    st = ssm_state.float()
-    ys = []
-    for t in range(s):
+    def token(st, t):
         dt_t = dt[:, t]                                         # (b,h)
         decay = torch.exp(dt_t * a[None, :])
         upd = (dt_t[:, :, None, None] * bm[:, t, None, None, :]
                * xs[:, t, :, :, None])                          # (b,h,p,n)
         st = st * decay[:, :, None, None] + upd
-        ys.append(torch.einsum("bn,bhpn->bhp", cm[:, t], st))
-    y = torch.stack(ys, dim=1)                                  # (b,s,h,p)
+        return st, torch.einsum("bn,bhpn->bhp", cm[:, t], st)
+
+    st, y = scan_steps(token, ssm_state.float(), s)             # (b,s,h,p)
     y = y + use_whole(p["d_skip"], 0).float()[None, None, :, None] * xs
     y = y.reshape(b, s, d_inner)
     conv_state.copy_(tail)

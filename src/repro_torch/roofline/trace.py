@@ -25,9 +25,13 @@ storage, no kernel), and `StepTrace` records what it ran:
     the reference's donated aliases), and the peak of the bytes the step
     allocated and held at once (the reference's temp).
 
-A trace runs every loop the step takes, so nothing is a loop of unknown
-trip count.  Every count is this rank's; `ranks` scales them to the mesh.
-Nothing here touches a device: a traced op allocates no storage.
+A trace runs every Python loop the step takes but the per-token
+recurrences, which step through `scan_steps`: on fake tensors under the
+recorder it runs the step once and multiplies what that step did by the
+trip count (the reference's `known_trip_count` multiplier), so a
+32768-token prefill traces one token a layer.  Every count is this
+rank's; `ranks` scales them to the mesh.  Nothing here touches a device:
+a traced op allocates no storage.
 """
 from __future__ import annotations
 
@@ -96,6 +100,7 @@ class CollectiveStat:
     operand_bytes: float
     output_bytes: float
     ranks: tuple              # the group's global ranks
+    count: float = 1.0        # executed count (trip-multiplied)
 
     @property
     def group_size(self) -> int:
@@ -135,11 +140,11 @@ class StepTrace:
 
     @property
     def collective_operand_bytes(self) -> float:
-        return sum(c.operand_bytes for c in self.collectives)
+        return sum(c.operand_bytes * c.count for c in self.collectives)
 
     @property
     def collective_link_bytes(self) -> float:
-        return sum(c.link_bytes for c in self.collectives)
+        return sum(c.link_bytes * c.count for c in self.collectives)
 
     def by_kind(self) -> Dict[str, Dict[str, float]]:
         """{kind: count, operand_bytes, output_bytes, link_bytes}, the
@@ -149,10 +154,10 @@ class StepTrace:
             d = out.setdefault(c.kind, {"count": 0.0, "operand_bytes": 0.0,
                                         "output_bytes": 0.0,
                                         "link_bytes": 0.0})
-            d["count"] += 1
-            d["operand_bytes"] += c.operand_bytes
-            d["output_bytes"] += c.output_bytes
-            d["link_bytes"] += c.link_bytes
+            d["count"] += c.count
+            d["operand_bytes"] += c.operand_bytes * c.count
+            d["output_bytes"] += c.output_bytes * c.count
+            d["link_bytes"] += c.link_bytes * c.count
         return out
 
     def counts(self) -> Dict[str, int]:
@@ -203,12 +208,16 @@ def _group_ranks(args) -> tuple:
 class _Recorder(TorchDispatchMode):
     """Bytes, collectives and live storages of every dispatched op."""
 
-    def __init__(self, trace: StepTrace, held: set):
+    def __init__(self, trace: StepTrace, held: set, counter,
+                 trip_count: bool):
         super().__init__()
         self.trace = trace
         self.held = held        # storages of the arguments
+        self.counter = counter  # the step's FlopCounterMode
+        self.trip_count = trip_count  # `scan_steps` traces one step
         self.live: Dict[int, int] = {}
         self.now = 0
+        self.high = 0           # the most held since `scan` last set it
 
     def _release(self, key: int) -> None:
         self.now -= self.live.pop(key, 0)
@@ -222,7 +231,37 @@ class _Recorder(TorchDispatchMode):
             self.live[key] = st.nbytes()
             self.now += st.nbytes()
             weakref.finalize(st, self._release, key)
+        self.high = max(self.high, self.now)
         self.trace.peak_bytes = max(self.trace.peak_bytes, self.now)
+
+    def scan(self, step, box: list, length: int):
+        """`scan_steps` traced: step 0 run once on the carry in `box`,
+        what it did counted `length` times (see there)."""
+        trace, flops = self.trace, self.counter.flop_counts["Global"]
+        flops0, traffic0 = dict(flops), trace.traffic_bytes
+        n0 = len(trace.collectives)
+        start = self.high = self.now
+        carry, y = step(box.pop(), 0)
+        rise = self.high - start    # a step's high above what it started on
+        more = length - 1
+        for op, n in list(flops.items()):
+            flops[op] = n + more * (n - flops0.get(op, 0))
+        trace.traffic_bytes += more * (trace.traffic_bytes - traffic0)
+        for c in trace.collectives[n0:]:
+            c.count *= length
+        # the unrolled loop keeps each step's y for the stack: its last
+        # step starts on `more - 1` more of them than the first step left
+        y_bytes = storage_bytes(y)
+        trace.peak_bytes = max(trace.peak_bytes,
+                               self.now + (more - 1) * y_bytes + rise)
+        self.now += more * y_bytes
+        # the stack: its whole output allocated, `length` ys read and the
+        # output written (one allocation here, not `length` views and a
+        # cat of `length` inputs)
+        ys = y.new_empty(tuple(y.shape[:1]) + (length,) + tuple(y.shape[1:]))
+        trace.traffic_bytes += length * _nbytes(y) + _nbytes(ys)
+        self.now -= more * y_bytes
+        return carry, ys
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -282,15 +321,52 @@ def storage_bytes(tree) -> int:
     return sum(seen.values())
 
 
-def trace_step(fn, args, ranks: int = 1):
+def _recorder() -> Optional[_Recorder]:
+    """The `_Recorder` of the `trace_step` that runs this code, if any."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        if isinstance(mode, _Recorder):
+            return mode
+    return None
+
+
+def scan_steps(step, carry, length: int):
+    """(carry, ys): `carry, y = step(carry, t)` for t in range(length),
+    the ys stacked on dim 1 — a per-token recurrence.
+
+    On real tensors this is that Python loop and `torch.stack`, op for op.
+    Traced on fake tensors (`trace_step`) it runs step 0 alone and counts
+    it `length` times: its FLOPs (FlopCounterMode's totals, by op), its
+    traffic bytes and its collectives; toward the peak, the ys the
+    unrolled loop holds; and the stack reads `length` ys and writes the
+    whole output, as the unrolled stack does.  The carry it returns is
+    step 0's (a fake tensor of the carry's shape)."""
+    rec = _recorder()
+    if rec is not None and rec.trip_count and length > 1:
+        carry = [carry]  # so that step 0's input is freed as in the loop
+        return rec.scan(step, carry, length)
+    ys = []
+    for t in range(length):
+        carry, y = step(carry, t)
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
+def trace_step(fn, args, ranks: int = 1, unroll: bool = False):
     """(StepTrace, out): fn(*args) run and recorded as one rank of
     `ranks`, `args` being the step's state and batch (a tree of tensors
     and modules).  Run it inside a `FakeTensorMode` (or on real tensors:
-    the counts are the same)."""
+    the counts are the same, every loop run).  `unroll` runs every step
+    of a `scan_steps` on fake tensors too (the tests hold the trip count
+    to it)."""
+    from torch._guards import detect_fake_mode
+
     trace = StepTrace(ranks=ranks, argument_bytes=float(storage_bytes(args)))
     held = {_storage_key(t) for t in _tensors(args)}
     counter = flop_counter()
-    with counter, _Recorder(trace, held):
+    trip_count = not unroll and detect_fake_mode() is not None
+    with counter, _Recorder(trace, held, counter, trip_count):
         out = fn(*args)
     trace.flops = float(counter.get_total_flops())
     seen, alias = {}, {}
