@@ -308,8 +308,13 @@ line):
    20c, with two cards or more: both stages over one NCCL rank a card
    (real ring exchanges), d within 1e-4 of 20a's and the mode stage's d
    and λ within 3e-5 of 20b's with equal sweeps; with four or more, the
-   (2, 2) NCCL tests of `tests/test_torch_lm_mesh.py`.  With one card
-   20c prints that it did not run and why.  0 B left.
+   (2, 2) NCCL tests of `tests/test_torch_lm_mesh.py` (`RANKS_TESTS`:
+   every family served and qwen1.5-0.5b and granite-moe trained on (2,
+   2) against one device, the training gap traced to the gradients, the
+   training CLI's crash and resume over four ranks), one pytest run
+   bounded by the sum of the tests' own bounds (`RANKS_TIMEOUT_S`), its
+   output printed.  With one card 20c prints that it did not run and
+   why.  0 B left.
 Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
 beside their measured times (`roofline.H100`; reported, no bar).
 `--only 11,12,13,14,15,16,17,18,19,20` (any subset) runs the card and
@@ -4323,7 +4328,11 @@ STAGE_PEAK_TOL = 0.03     # reckoned peak against the card's
 STAGE_D_TOL = 3e-5        # 20c's d and λ against one rank's (relative)
 RANKS_TESTS = (
     "tests/test_torch_lm_mesh.py::test_lm_serving_across_nccl_ranks",
-    "tests/test_torch_lm_mesh.py::test_training_across_nccl_ranks")
+    "tests/test_torch_lm_mesh.py::test_training_across_nccl_ranks",
+    "tests/test_torch_lm_mesh.py::test_training_cli_resumes_across_nccl_ranks")
+# the pytest run of RANKS_TESTS: the sum of the tests' own bounds
+# (tests/test_torch_lm_mesh.py: SERVE_JOIN, TRAIN_JOIN, 2 × CLI_TIMEOUT)
+RANKS_TIMEOUT_S = 300 + 400 + 2 * 400
 
 
 def _median_ms(torch, fn, reps):
@@ -4569,20 +4578,27 @@ def _stage_ranks(torch, checks, tmp, keep):
     if n < 4:
         log(f"  the (2, 2) NCCL tests did not run: {n} cards, they need 4")
         return
+    # the tests' ranks take every card, this process's first one too
+    torch.cuda.empty_cache()
     # the repository's pytest settings add -q: the last line is the
-    # summary ("2 passed in ...")
+    # summary ("3 passed in ...")
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-m", "gpu", "-rA", "-p",
          "no:cacheprovider", *RANKS_TESTS], cwd=HERE,
         env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
-        text=True, timeout=900)
+        text=True, timeout=RANKS_TIMEOUT_S)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    _gate(checks, proc.returncode == 0 and tail[0].startswith("2 passed"),
+    _gate(checks, proc.returncode == 0
+          and tail[0].startswith(f"{len(RANKS_TESTS)} passed"),
           "stage 20c NCCL tests",
           f"the (2, 2) NCCL tests on {n} cards: exit {proc.returncode}, "
-          f"{tail[0]}")
-    if proc.returncode:
-        log(proc.stdout[-6000:] + proc.stderr[-3000:])
+          f"{tail[0]} ({time.perf_counter() - t0:.1f} s)")
+    # what the tests printed (the passes' captured output), or the failure
+    out = proc.stdout
+    if not proc.returncode and "= PASSES =" in out:
+        out = out[out.index("= PASSES ="):]
+    log(out[-12000:] + (proc.stderr[-3000:] if proc.returncode else ""))
 
 
 def _stage_rank(device, ref_path, out_path, m):

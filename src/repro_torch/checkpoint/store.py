@@ -603,14 +603,16 @@ class CheckpointManager:
         none does."""
         self.wait()
         if self.shards is not None:
-            # every rank reads what the writing rank has finished
+            # every rank reads what the writing rank has finished: the
+            # writer joins the barrier once written, and the host reads
+            # its result (an NCCL all_reduce returns before it ends)
             dims = tuple(self.shards.dims)
             from repro_torch.launch.mesh import mesh_device
             from repro_torch.sharding.activation import spec_entry
 
             self.shards._all_reduce(
                 torch.zeros(1, device=mesh_device(self.shards.mesh)),
-                spec_entry(dims))
+                spec_entry(dims)).item()
             shardings = self.shards
         for step in restorable_steps(self.directory, verify_sha=False):
             try:

@@ -1758,8 +1758,11 @@ class MSCContinuousEngine:
             import torch.distributed as dist
 
             # the others wait for rank 0's write: a one-element all_reduce
-            # on the engine's device is the barrier
-            dist.all_reduce(torch.zeros(1, device=self.device))
+            # on the engine's device is the barrier, its result read on
+            # the host (an NCCL all_reduce returns before it ends)
+            done = torch.zeros(1, device=self.device)
+            dist.all_reduce(done)
+            done.item()
         self._chunks_since_ckpt = 0
         self._bump(checkpoints_written=1)
         return path
