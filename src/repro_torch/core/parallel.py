@@ -41,6 +41,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 from .msc import MODE_PERMS
 from .power_iter import SolveState
 from .schedule import (ModeSchedule, _exchange,  # noqa: F401
@@ -177,10 +179,11 @@ def _a2a(x: torch.Tensor, group, split: int, concat: int,
     xs = x.movedim(split, 0)
     xs = xs.reshape((p, xs.shape[0] // p) + tuple(xs.shape[1:])).contiguous()
     out = torch.empty_like(xs)
-    if stream:
-        _stream_all_to_all(out, xs, group)
-    else:
-        dist.all_to_all_single(out, xs, group=group)
+    with spans.span("msc.collective", kind="all_to_all"):
+        if stream:
+            _stream_all_to_all(out, xs, group)
+        else:
+            dist.all_to_all_single(out, xs, group=group)
     del xs
     # out (p, part, *rest): rest is x's dims without the split one; put the
     # source rank beside the concat dim and merge them, rank-major
@@ -216,18 +219,23 @@ def _collective_blocks(sched: ModeSchedule, t: torch.Tensor, stream: bool):
     p, q = sched.slice_shards, sched.inner_shards
     m1p, m2p, m3p = collective_pads(sched, t.shape[lead:])
     b1, r1 = m1p // p, m2p // q
-    blk = take_block(t, ((sched.slice_index * b1, b1),
-                         (sched.inner_index * r1, r1), (0, m3p)))
+    with spans.span("msc.unfold"):
+        blk = take_block(t, ((sched.slice_index * b1, b1),
+                             (sched.inner_index * r1, r1), (0, m3p)))
     yield blk
     if sched.inner_group is not None:  # step A: free the inner-sharded dim
         blk = _a2a(blk, sched.inner_group, lead, lead + 1, stream)
     keep = tuple(range(lead))
     b2 = _a2a(blk, sched.slice_group, lead + 1, lead, stream)
-    yield b2.permute(keep + (lead + 1, lead, lead + 2)).contiguous()
+    with spans.span("msc.unfold"):
+        b2 = b2.permute(keep + (lead + 1, lead, lead + 2)).contiguous()
+    yield b2
     del b2
     b3 = _a2a(blk, sched.slice_group, lead + 2, lead, stream)
     del blk
-    yield b3.permute(keep + (lead + 2, lead, lead + 1)).contiguous()
+    with spans.span("msc.unfold"):
+        b3 = b3.permute(keep + (lead + 2, lead, lead + 1)).contiguous()
+    yield b3
 
 
 # ------------------------------------------------------ the build functions
@@ -250,12 +258,17 @@ def build_msc_parallel_flat(cfg: MSCConfig, mesh=None,
                                       stream=relayout == "collective_stream")
 
     def run(tensor) -> MSCResult:
-        t = torch.as_tensor(tensor).to(dev)
-        modes = []
-        for j in range(3):
-            d, lam, iters, valid, m = sched.run_mode(t.permute(MODE_PERMS[j]))
-            modes.append(sched.finalize_mode(d, lam, iters, valid, m))
-        return MSCResult(modes=tuple(modes))
+        with spans.span("msc.solve") as sp:
+            t = torch.as_tensor(tensor).to(dev)
+            sp.set(shape=tuple(t.shape))
+            modes = []
+            for j in range(3):
+                with spans.span("msc.mode", mode=j):
+                    d, lam, iters, valid, m = sched.run_mode(
+                        t.permute(MODE_PERMS[j]))
+                    modes.append(sched.finalize_mode(d, lam, iters, valid,
+                                                     m))
+            return MSCResult(modes=tuple(modes))
 
     return run
 
@@ -272,25 +285,28 @@ def _collective_modes(sched: ModeSchedule, t: torch.Tensor, dev, stream: bool,
     pads = collective_pads(sched, t.shape[t.dim() - 3:])
     modes = []
     for j, block in enumerate(_collective_blocks(sched, t, stream)):
-        m, c_valid = sizes(j)
-        d, lam, iters = sched.mode_local(
-            block, sched.slice_mask(pads[j], m, dev), c_valid=c_valid)
-        del block
-        whole = torch.arange(pads[j], device=dev)
-        valid = (whole < m if isinstance(m, int)
-                 else whole[None, :] < m[:, None])
-        modes.append(finalize(d, lam, iters, valid, m))
+        with spans.span("msc.mode", mode=j):
+            m, c_valid = sizes(j)
+            d, lam, iters = sched.mode_local(
+                block, sched.slice_mask(pads[j], m, dev), c_valid=c_valid)
+            del block
+            whole = torch.arange(pads[j], device=dev)
+            valid = (whole < m if isinstance(m, int)
+                     else whole[None, :] < m[:, None])
+            modes.append(finalize(d, lam, iters, valid, m))
     return MSCResult(modes=tuple(modes))
 
 
 def _build_flat_collective(sched: ModeSchedule, dev, stream: bool):
     """The flat schedule with the all_to_all relayout."""
     def run(tensor) -> MSCResult:
-        t = torch.as_tensor(tensor).to(dev)
-        shape = tuple(t.shape)
-        return _collective_modes(
-            sched, t, dev, stream, lambda j: (shape[j], shape[C_OF[j]]),
-            sched.finalize_mode)
+        with spans.span("msc.solve") as sp:
+            t = torch.as_tensor(tensor).to(dev)
+            shape = tuple(t.shape)
+            sp.set(shape=shape)
+            return _collective_modes(
+                sched, t, dev, stream, lambda j: (shape[j], shape[C_OF[j]]),
+                sched.finalize_mode)
 
     return run
 

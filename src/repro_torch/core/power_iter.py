@@ -37,6 +37,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import spans
+
 PRECISIONS = ("fp32", "bf16_fp32")
 
 def compute_dtype(precision: str) -> torch.dtype:
@@ -111,7 +113,8 @@ def _psum_inner(x: torch.Tensor, inner_group=None) -> torch.Tensor:
     if inner_group is not None:
         import torch.distributed as dist
 
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=inner_group)
+        with spans.span("msc.collective", kind="inner_all_reduce"):
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=inner_group)
     return x
 
 
@@ -131,7 +134,8 @@ def convergence_gate(lam: torch.Tensor, resid: torch.Tensor, tol: float,
         import torch.distributed as dist
 
         both = torch.stack([weighted, lam_max])
-        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=slice_group)
+        with spans.span("msc.collective", kind="gate_all_reduce"):
+            dist.all_reduce(both, op=dist.ReduceOp.MAX, group=slice_group)
         weighted, lam_max = both[0], both[1]
     return weighted <= tol * torch.clamp(lam_max, min=1e-30)
 
@@ -187,8 +191,11 @@ def step_chunk(chunk_fn, state: SolveState, *, k: int, n_iters: int,
 
 
 def _any_active(state: SolveState, n_iters: int) -> bool:
-    """The gated loop's one host sync per chunk: is any request still live?"""
-    return bool(torch.any(~state.exhausted(n_iters)))
+    """The gated loop's one host sync per chunk: is any request still live?
+    (An `msc.gate_read` span, counted in `msc.gate_reads`.)"""
+    with spans.span("msc.gate_read"):
+        spans.count("msc.gate_reads")
+        return bool(torch.any(~state.exhausted(n_iters)))
 
 
 def _gated_loop(step, state: SolveState, n_iters: int) -> SolveState:
@@ -197,7 +204,8 @@ def _gated_loop(step, state: SolveState, n_iters: int) -> SolveState:
     step (a CUDA graph replayed, `serving/msc_engine.py`) updates `state`
     in place and returns it."""
     while _any_active(state, n_iters):
-        state = step(state)
+        with spans.span("msc.gate_chunk"):
+            state = step(state)
     return state
 
 
@@ -303,7 +311,8 @@ def matvec_matrix_free(slices: torch.Tensor, precision: str = "fp32",
         work = dist.all_reduce(wa, op=dist.ReduceOp.SUM, group=inner_group,
                                async_op=True)
         wb = _psum_inner(local(s[..., h:, :, :], v[..., h:, :]), inner_group)
-        work.wait()
+        with spans.span("msc.collective", kind="inner_all_reduce"):
+            work.wait()
         return torch.cat([wa, wb], dim=-2)
 
     return matvec

@@ -51,6 +51,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 from .extraction import extract_cluster
 from .power_iter import (SolveState, _init_vectors, build_chunk_fn,
                          compute_dtype, merge_warm_start, plan_eigensolve,
@@ -82,9 +84,11 @@ def take_block(x: torch.Tensor, spans) -> torch.Tensor:
 
 # ------------------------------------------------------------- collectives
 
-def gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+def gather_stack(x: torch.Tensor, group, kind: str = "all_gather"
+                 ) -> torch.Tensor:
     """(n, *x.shape): x from each of the group's n ranks, in group-rank
-    order (one all_gather_into_tensor)."""
+    order (one all_gather_into_tensor, an `msc.collective` span of
+    `kind`)."""
     import torch.distributed as dist
 
     n = dist.get_world_size(group)
@@ -94,7 +98,8 @@ def gather_stack(x: torch.Tensor, group) -> torch.Tensor:
     # same call under its old one
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    gather(out, x, group=group)
+    with spans.span("msc.collective", kind=kind):
+        gather(out, x, group=group)
     return out.reshape((n,) + tuple(x.shape))
 
 
@@ -165,8 +170,9 @@ def _ring_rowsum(v_local: torch.Tensor, cfg: MSCConfig, group
     d = _chunk_rowsum(v_local, v_local, None, cfg)
     for k in range(1, p):
         chunk, works = pending
-        for w in works:
-            w.wait()
+        with spans.span("msc.collective", kind="ring"):
+            for w in works:
+                w.wait()
         if k < p - 1:
             buf = torch.empty_like(chunk)
             pending = (buf, _exchange(chunk, nxt, buf, prv, group))
@@ -205,7 +211,7 @@ def gather_shards(d: torch.Tensor, lam: torch.Tensor, iters: torch.Tensor,
     fp32); a device collective, no host read."""
     b = d.shape[-1]
     packed = torch.cat([d, lam, iters.to(d.dtype)], dim=-1)
-    g = gather_stack(packed, group)  # (n, ..., 2b + 1)
+    g = gather_stack(packed, group, "gather")  # (n, ..., 2b + 1)
 
     def rows(x):
         return x.movedim(0, -2).reshape(tuple(x.shape[1:-1]) + (-1,))
@@ -311,9 +317,10 @@ class ModeSchedule:
         m, r = slices.shape[-3:-1]
         m_pad, r_pad = self.pad_amounts(m, r)
         b, rq = m_pad // self.slice_shards, r_pad // self.inner_shards
-        block = take_block(slices, ((self.slice_index * b, b),
-                                    (self.inner_index * rq, rq),
-                                    (0, slices.shape[-1])))
+        with spans.span("msc.unfold"):
+            block = take_block(slices, ((self.slice_index * b, b),
+                                        (self.inner_index * rq, rq),
+                                        (0, slices.shape[-1])))
         return block, self.slice_mask(m_pad, m if m_req is None else m_req,
                                       slices.device)
 
@@ -323,29 +330,34 @@ class ModeSchedule:
         """Eigensolve + similarity tail on this rank's block (b, r_local,
         c) or (B, b, r_local, c).  Returns (d_local, λ_local, iters (1,) or
         (B, 1)), the sweeps equal on every slice rank (lockstep gate)."""
-        lam, vec, iters = plan_eigensolve(
-            block, self.cfg, c_valid=c_valid, slice_group=self.slice_group,
-            inner_group=self.inner_group).run()
+        with spans.span("msc.eigensolve"):
+            lam, vec, iters = plan_eigensolve(
+                block, self.cfg, c_valid=c_valid,
+                slice_group=self.slice_group,
+                inner_group=self.inner_group).run()
         d, lam = self._similarity_tail(lam, vec, valid_local)
         return d, lam, iters[..., None]
 
     def _similarity_tail(self, lam, vec, valid_local):
         """λ-max normalize + epilogue; padding slices zeroed in d and λ."""
-        zero = torch.zeros((), dtype=torch.float32, device=lam.device)
-        lam = torch.where(valid_local, lam, zero)
-        lam_max = torch.amax(lam, dim=-1)
-        group = self.slice_group
-        if group is not None:
-            import torch.distributed as dist
+        with spans.span("msc.epilogue"):
+            zero = torch.zeros((), dtype=torch.float32, device=lam.device)
+            lam = torch.where(valid_local, lam, zero)
+            lam_max = torch.amax(lam, dim=-1)
+            group = self.slice_group
+            if group is not None:
+                import torch.distributed as dist
 
-            # MPI_Allreduce(λ, MAX) over the group, fp32 whatever the
-            # precision
-            dist.all_reduce(lam_max, op=dist.ReduceOp.MAX, group=group)
-        scale = lam / torch.clamp(lam_max, min=1e-30)[..., None]
-        v_local = torch.where(valid_local[..., None], scale[..., None] * vec,
-                              zero)
-        d = epilogue_rowsum(v_local, cfg=self.cfg, group=group)
-        return torch.where(valid_local, d, zero), lam
+                # MPI_Allreduce(λ, MAX) over the group, fp32 whatever the
+                # precision
+                with spans.span("msc.collective", kind="lam_all_reduce"):
+                    dist.all_reduce(lam_max, op=dist.ReduceOp.MAX,
+                                    group=group)
+            scale = lam / torch.clamp(lam_max, min=1e-30)[..., None]
+            v_local = torch.where(valid_local[..., None],
+                                  scale[..., None] * vec, zero)
+            d = epilogue_rowsum(v_local, cfg=self.cfg, group=group)
+            return torch.where(valid_local, d, zero), lam
 
     def run_mode(self, slices: torch.Tensor):
         """One mode of the flat schedule from its slice-major unfolding
@@ -376,7 +388,8 @@ class ModeSchedule:
         """d and λ gathered to every rank, then the extraction on each
         (the paper's Gatherv to a root, run everywhere instead): every
         rank holds the same result."""
-        return self.extract_mode(*self.gather(d, lam, iters), valid, m)
+        with spans.span("msc.extract"):
+            return self.extract_mode(*self.gather(d, lam, iters), valid, m)
 
     def plan_mode_batched(self, slices: torch.Tensor, m_req: torch.Tensor,
                           c_req: torch.Tensor):
@@ -650,7 +663,7 @@ class EpilogueStage:
         Every rank calls it; it is not part of the stage."""
         if self.group is None:
             return d_rows[:m]
-        return gather_stack(d_rows, self.group).reshape(-1)[:m]
+        return gather_stack(d_rows, self.group, "gather").reshape(-1)[:m]
 
 
 def build_epilogue_rowsum(mesh, cfg: MSCConfig,

@@ -74,6 +74,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.checkpoint.store import (gc_checkpoints, load_leaves,
                                           restorable_steps, save_checkpoint)
 from repro_torch.core.autotune import AutotuneCache
@@ -1298,60 +1299,64 @@ class MSCContinuousEngine:
         when `slo_chunks` is set and the request's predicted wait exceeds
         it.  A tier-1 cache hit is answered without the device (even
         while recovering)."""
-        if priority < 0:
-            raise ValueError(f"priority must be >= 0, got {priority}")
-        if deadline_chunks is not None and deadline_chunks < 1:
-            raise ValueError(f"deadline_chunks must be >= 1, "
-                             f"got {deadline_chunks}")
-        if not isinstance(tensor, torch.Tensor):
-            tensor = torch.from_numpy(np.array(tensor))
-        cache = self.result_cache
-        key = arr = None
-        if cache is not None:
-            if self._salt is None:
-                self._salt = cache_salt()
-            arr = host_array(tensor, _np_dtype(self.dtype))
-            key = result_cache_key(arr, self.cfg, salt=self._salt)
-            res = cache.get(key)
-            if res is not None:
-                rid = self._next_rid
-                self._next_rid += 1
-                self._ready[rid] = res
-                self._bump(requests=1, cache_hits=1)
-                return rid
-        if self._recovering:
-            self._bump(shed_requests=1)
-            raise LoadShedError(
-                f"engine is recovering from a dispatch failure on "
-                f"bucket(s) {sorted(self._recovering)}; resubmit after "
-                f"recovery")
-        bucket = self.bucket_of(tuple(tensor.shape))
-        tb = self._table(bucket)
-        if self.slo_chunks is not None:
-            pred = self._predicted_wait(tb, int(priority))
-            if pred > self.slo_chunks:
-                self._bump(shed_requests=1, slo_sheds=1)
+        with spans.span("serve.submit"):
+            if priority < 0:
+                raise ValueError(f"priority must be >= 0, got {priority}")
+            if deadline_chunks is not None and deadline_chunks < 1:
+                raise ValueError(f"deadline_chunks must be >= 1, "
+                                 f"got {deadline_chunks}")
+            if not isinstance(tensor, torch.Tensor):
+                tensor = torch.from_numpy(np.array(tensor))
+            cache = self.result_cache
+            key = arr = None
+            if cache is not None:
+                if self._salt is None:
+                    self._salt = cache_salt()
+                arr = host_array(tensor, _np_dtype(self.dtype))
+                key = result_cache_key(arr, self.cfg, salt=self._salt)
+                res = cache.get(key)
+                if res is not None:
+                    rid = self._next_rid
+                    self._next_rid += 1
+                    self._ready[rid] = res
+                    self._bump(requests=1, cache_hits=1)
+                    spans.open("serve.request", rid)
+                    return rid
+            if self._recovering:
+                self._bump(shed_requests=1)
                 raise LoadShedError(
-                    f"predicted queue wait {pred:.1f} chunks exceeds the "
-                    f"SLO bound {self.slo_chunks} for bucket {bucket} "
-                    f"(priority {priority}); resubmit later")
-        rid = self._next_rid
-        self._next_rid += 1
-        self._pending[rid] = tensor
-        deadline = (-1 if deadline_chunks is None
-                    else self._tick + int(deadline_chunks))
-        tb.queue_for(priority).append((rid, self._tick, deadline))
-        self._bump(requests=1)
-        if cache is not None:
-            self._bump(cache_misses=1)
-            self._req_key[rid] = key
-            if self.warm_start:
-                sketch = spectral_sketch(arr, r=cache.sketch_r)
-                self._req_sketch[rid] = sketch
-                hit = cache.lookup_near(sketch, arr.shape)
-                if hit is not None:
-                    self._warm_pending[rid] = hit
-        return rid
+                    f"engine is recovering from a dispatch failure on "
+                    f"bucket(s) {sorted(self._recovering)}; resubmit after "
+                    f"recovery")
+            bucket = self.bucket_of(tuple(tensor.shape))
+            tb = self._table(bucket)
+            if self.slo_chunks is not None:
+                pred = self._predicted_wait(tb, int(priority))
+                if pred > self.slo_chunks:
+                    self._bump(shed_requests=1, slo_sheds=1)
+                    raise LoadShedError(
+                        f"predicted queue wait {pred:.1f} chunks exceeds the "
+                        f"SLO bound {self.slo_chunks} for bucket {bucket} "
+                        f"(priority {priority}); resubmit later")
+            rid = self._next_rid
+            self._next_rid += 1
+            self._pending[rid] = tensor
+            deadline = (-1 if deadline_chunks is None
+                        else self._tick + int(deadline_chunks))
+            tb.queue_for(priority).append((rid, self._tick, deadline))
+            spans.open("serve.request", rid)
+            spans.open("serve.queued", rid)
+            self._bump(requests=1)
+            if cache is not None:
+                self._bump(cache_misses=1)
+                self._req_key[rid] = key
+                if self.warm_start:
+                    sketch = spectral_sketch(arr, r=cache.sketch_r)
+                    self._req_sketch[rid] = sketch
+                    hit = cache.lookup_near(sketch, arr.shape)
+                    if hit is not None:
+                        self._warm_pending[rid] = hit
+            return rid
 
     def has_work(self) -> bool:
         return bool(self._ready) or any(tb.has_work()
@@ -1365,33 +1370,36 @@ class MSCContinuousEngine:
         step, evict finished slots; then a periodic checkpoint when due.
         Returns the requests that finished this tick; the engine keeps no
         copy."""
-        finished: Dict[int, MSCResult] = {}
-        self._tick += 1
-        if self._ready:
-            finished.update(self._ready)
-            self._ready.clear()
-        ready = [tb for tb in self._tables.values() if tb.has_work()]
-        runnable = ready
-        if any(tb.retry_at for tb in ready):
-            now = self._clock()
-            runnable = [tb for tb in ready
-                        if not tb.retry_at or now >= tb.retry_at]
-        if (self.bucket_policy == "weighted" and len(ready) > 1
-                and runnable):
-            # credit grows on every bucket with work, so a skipped
-            # bucket's claim grows; ties break on the bucket
-            for tb in ready:
-                tb.credit += tb.live + tb.queue_len()
-            chosen = max(runnable, key=lambda t: (t.credit, t.bucket))
-            chosen.credit = 0.0
-            finished.update(self._step_table(chosen))
-        else:
-            for tb in ready:
-                finished.update(self._step_table(tb))
-        if (self.checkpoint_dir is not None and self.ckpt_every_chunks > 0
-                and self._chunks_since_ckpt >= self.ckpt_every_chunks):
-            self.checkpoint()
-        return finished
+        with spans.span("serve.tick", tick=self._tick + 1):
+            finished: Dict[int, MSCResult] = {}
+            self._tick += 1
+            if self._ready:
+                finished.update(self._ready)
+                self._ready.clear()
+            ready = [tb for tb in self._tables.values() if tb.has_work()]
+            runnable = ready
+            if any(tb.retry_at for tb in ready):
+                now = self._clock()
+                runnable = [tb for tb in ready
+                            if not tb.retry_at or now >= tb.retry_at]
+            if (self.bucket_policy == "weighted" and len(ready) > 1
+                    and runnable):
+                # credit grows on every bucket with work, so a skipped
+                # bucket's claim grows; ties break on the bucket
+                for tb in ready:
+                    tb.credit += tb.live + tb.queue_len()
+                chosen = max(runnable, key=lambda t: (t.credit, t.bucket))
+                chosen.credit = 0.0
+                finished.update(self._step_table(chosen))
+            else:
+                for tb in ready:
+                    finished.update(self._step_table(tb))
+            if (self.checkpoint_dir is not None and self.ckpt_every_chunks > 0
+                    and self._chunks_since_ckpt >= self.ckpt_every_chunks):
+                self.checkpoint()
+            for rid in finished:
+                spans.close("serve.request", rid)
+            return finished
 
     def run(self, tensors: Sequence, *,
             priorities: Optional[Sequence[int]] = None,
@@ -1478,138 +1486,147 @@ class MSCContinuousEngine:
         host (re-queued at the front of their class), free both, permute
         and admit: one run of the refill program (cold, warm and resumed
         admissions alike).  Returns the evicted requests' results."""
-        old_dims = tb.dims.copy()
-        old_deadline = tb.deadline.copy()
-        old_warm_meta = list(tb.warm_meta)
-        evicted = [(s, tb.slot_req[s]) for s in evict]
-        cache = self.result_cache
-        state = tb.state
-        # the evicted slots' frozen iterates, read before the refill
-        # overwrites them, become tier-2 donors; preempted slots are not
-        # read (their iterates are mid-solve), nor is anything on a mesh
-        # that spans processes (the reference's policy)
-        capture = None
-        if cache is not None and evicted and not self._plan.replicate_outputs:
-            capture = [h.v for h in self._plan.export_carries(
-                tb.bucket, state.carries)]
-        for s in preempt:
-            rid = tb.slot_req[s]
-            tb.parked[rid] = {
-                "arr": tb.arrs[s],
-                "carries": self._plan.export_slot(tb.bucket, state.carries,
-                                                  s),
-                "priority": int(tb.prio[s]), "deadline": int(tb.deadline[s]),
-                "warm_meta": tb.warm_meta[s], "progress": int(tb.progress[s]),
-            }
-            # the class's oldest work; its wait restarts now
-            tb.queue_for(tb.prio[s]).appendleft(
-                (rid, self._tick, int(tb.deadline[s])))
-        for s in evict + preempt:
-            tb.slot_req[s] = None
-            tb.arrs[s] = None
-            tb.warm_meta[s] = None
-            tb.prio[s] = 0
-            tb.deadline[s] = -1
-            tb.progress[s] = 0
-        perm = self._permutation(tb)
-        tb.slot_req = [tb.slot_req[p] for p in perm]
-        tb.arrs = [tb.arrs[p] for p in perm]
-        tb.dims = tb.dims[perm]
-        tb.fin = tb.fin[perm]
-        tb.warm_meta = [tb.warm_meta[p] for p in perm]
-        tb.prio = tb.prio[perm]
-        tb.deadline = tb.deadline[perm]
-        tb.progress = tb.progress[perm]
-        B = self.slots
-        new_dims = np.tile(np.int32(_FILLER_DIMS), (B, 1))
-        take_new = np.zeros(B, bool)
-        new_done = np.ones(B, bool)
-        use_warm = np.zeros(B, bool)
-        use_resume = np.zeros(B, bool)
-        resume_iters = np.zeros((B, 3), np.int32)
-        resume_done = np.zeros((B, 3), bool)
-        waits: List[Tuple[int, int]] = []
-        n_resumes = 0
-        state.clear_staging()
-        for s in tb.free:
-            entry = tb.pop_best(self._tick, self.aging_chunks)
-            if entry is None:
-                break
-            pr, rid, submitted, deadline = entry
-            parked = tb.parked.pop(rid, None)
-            if parked is not None:
-                arr = parked["arr"]
-                state.admit_write(s, arr)
-                state.import_slot(s, parked["carries"], resume_iters,
-                                  resume_done)
-                use_resume[s] = True
-                tb.warm_meta[s] = parked["warm_meta"]
-                tb.progress[s] = parked["progress"]
-                n_resumes += 1
-            else:
-                arr = self._pending.pop(rid)
-                state.admit_write(s, arr)
+        with spans.span("serve.refill", evicted=len(evict)) as sp:
+            old_dims = tb.dims.copy()
+            old_deadline = tb.deadline.copy()
+            old_warm_meta = list(tb.warm_meta)
+            evicted = [(s, tb.slot_req[s]) for s in evict]
+            cache = self.result_cache
+            state = tb.state
+            # the evicted slots' frozen iterates, read before the refill
+            # overwrites them, become tier-2 donors; preempted slots are not
+            # read (their iterates are mid-solve), nor is anything on a mesh
+            # that spans processes (the reference's policy)
+            capture = None
+            if (cache is not None and evicted
+                    and not self._plan.replicate_outputs):
+                capture = [h.v for h in self._plan.export_carries(
+                    tb.bucket, state.carries)]
+            for s in preempt:
+                rid = tb.slot_req[s]
+                tb.parked[rid] = {
+                    "arr": tb.arrs[s],
+                    "carries": self._plan.export_slot(tb.bucket, state.carries,
+                                                      s),
+                    "priority": int(tb.prio[s]),
+                    "deadline": int(tb.deadline[s]),
+                    "warm_meta": tb.warm_meta[s],
+                    "progress": int(tb.progress[s]),
+                }
+                # the class's oldest work; its wait restarts now
+                tb.queue_for(tb.prio[s]).appendleft(
+                    (rid, self._tick, int(tb.deadline[s])))
+                spans.open("serve.queued", rid)
+            for s in evict + preempt:
+                tb.slot_req[s] = None
+                tb.arrs[s] = None
+                tb.warm_meta[s] = None
+                tb.prio[s] = 0
+                tb.deadline[s] = -1
                 tb.progress[s] = 0
-                hit = self._warm_pending.pop(rid, None)
-                if hit is not None:
-                    state.write_warm(s, hit.vectors)
-                    use_warm[s] = True
-                    tb.warm_meta[s] = hit.donor_iters
-                    self._bump(warm_starts=1)
+            perm = self._permutation(tb)
+            tb.slot_req = [tb.slot_req[p] for p in perm]
+            tb.arrs = [tb.arrs[p] for p in perm]
+            tb.dims = tb.dims[perm]
+            tb.fin = tb.fin[perm]
+            tb.warm_meta = [tb.warm_meta[p] for p in perm]
+            tb.prio = tb.prio[perm]
+            tb.deadline = tb.deadline[perm]
+            tb.progress = tb.progress[perm]
+            B = self.slots
+            new_dims = np.tile(np.int32(_FILLER_DIMS), (B, 1))
+            take_new = np.zeros(B, bool)
+            new_done = np.ones(B, bool)
+            use_warm = np.zeros(B, bool)
+            use_resume = np.zeros(B, bool)
+            resume_iters = np.zeros((B, 3), np.int32)
+            resume_done = np.zeros((B, 3), bool)
+            waits: List[Tuple[int, int]] = []
+            n_resumes = 0
+            state.clear_staging()
+            for s in tb.free:
+                entry = tb.pop_best(self._tick, self.aging_chunks)
+                if entry is None:
+                    break
+                pr, rid, submitted, deadline = entry
+                parked = tb.parked.pop(rid, None)
+                if parked is not None:
+                    arr = parked["arr"]
+                    state.admit_write(s, arr)
+                    state.import_slot(s, parked["carries"], resume_iters,
+                                      resume_done)
+                    use_resume[s] = True
+                    tb.warm_meta[s] = parked["warm_meta"]
+                    tb.progress[s] = parked["progress"]
+                    n_resumes += 1
                 else:
-                    tb.warm_meta[s] = None
-            new_dims[s] = tuple(arr.shape)
-            take_new[s] = True
-            new_done[s] = False
-            tb.slot_req[s] = rid
-            tb.arrs[s] = arr
-            tb.dims[s] = tuple(arr.shape)
-            tb.fin[s] = False
-            tb.prio[s] = pr
-            tb.deadline[s] = deadline
-            waits.append((pr, self._tick - submitted))
-        results = self._invoke("refill", state.refill, perm, take_new,
-                               new_done, old_dims, new_dims, use_warm,
-                               use_resume, resume_iters, resume_done)
-        self._wait_hist.extend(waits)
-        self._bump(refills=1, dispatches=1,
-                   queue_wait_chunks=sum(w for _, w in waits),
-                   evictions=len(evicted), preemptions=len(preempt),
-                   resumes=n_resumes)
-        if waits:
-            vals = np.asarray([w for _, w in self._wait_hist], float)
-            self._stats = dataclasses.replace(
-                self._stats,
-                queue_wait_p50_chunks=float(np.percentile(vals, 50)),
-                queue_wait_p99_chunks=float(np.percentile(vals, 99)))
-        if not evicted:
-            return {}
-        host = _to_host(results.modes)  # before the next refill reuses them
-        out: Dict[int, MSCResult] = {}
-        for s, rid in evicted:
-            d = old_dims[s]
-            res = _trim_request(host, s, tuple(int(x) for x in d))
-            out[rid] = res
-            if old_deadline[s] >= 0 and self._tick > old_deadline[s]:
-                self._bump(deadline_misses=1)
-            pir = [res.modes[j].power_iters_run for j in range(3)]
-            if all(x is not None for x in pir):
-                self._sweep_hist.append(max(int(x) for x in pir))
-            wm = old_warm_meta[s]
-            if wm is not None:
-                self._bump(warm_sweeps_saved=sum(
-                    max(0, int(di) - int(res.modes[j].power_iters_run))
-                    for j, di in enumerate(wm)))
-            key = self._req_key.pop(rid, None)
-            sketch = self._req_sketch.pop(rid, None)
-            if cache is not None and key is not None:
-                vecs = None
-                if capture is not None:
-                    vecs = tuple(capture[j][s, :d[j], :d[C_OF[j]]]
-                                 for j in range(3))
-                cache.put(key, res, shape=tuple(int(x) for x in d),
-                          vectors=vecs, sketch=sketch)
-        return out
+                    arr = self._pending.pop(rid)
+                    state.admit_write(s, arr)
+                    tb.progress[s] = 0
+                    hit = self._warm_pending.pop(rid, None)
+                    if hit is not None:
+                        state.write_warm(s, hit.vectors)
+                        use_warm[s] = True
+                        tb.warm_meta[s] = hit.donor_iters
+                        self._bump(warm_starts=1)
+                    else:
+                        tb.warm_meta[s] = None
+                new_dims[s] = tuple(arr.shape)
+                take_new[s] = True
+                new_done[s] = False
+                tb.slot_req[s] = rid
+                tb.arrs[s] = arr
+                tb.dims[s] = tuple(arr.shape)
+                tb.fin[s] = False
+                tb.prio[s] = pr
+                tb.deadline[s] = deadline
+                waits.append((pr, self._tick - submitted))
+            sp.set(admitted=len(waits))
+            results = self._invoke("refill", state.refill, perm, take_new,
+                                   new_done, old_dims, new_dims, use_warm,
+                                   use_resume, resume_iters, resume_done)
+            for s in np.flatnonzero(take_new):  # admitted: no roll-back now
+                spans.close("serve.queued", tb.slot_req[s])
+            self._wait_hist.extend(waits)
+            self._bump(refills=1, dispatches=1,
+                       queue_wait_chunks=sum(w for _, w in waits),
+                       evictions=len(evicted), preemptions=len(preempt),
+                       resumes=n_resumes)
+            if waits:
+                vals = np.asarray([w for _, w in self._wait_hist], float)
+                self._stats = dataclasses.replace(
+                    self._stats,
+                    queue_wait_p50_chunks=float(np.percentile(vals, 50)),
+                    queue_wait_p99_chunks=float(np.percentile(vals, 99)))
+            if not evicted:
+                return {}
+            # before the next refill reuses them
+            host = _to_host(results.modes)
+            out: Dict[int, MSCResult] = {}
+            for s, rid in evicted:
+                d = old_dims[s]
+                res = _trim_request(host, s, tuple(int(x) for x in d))
+                out[rid] = res
+                if old_deadline[s] >= 0 and self._tick > old_deadline[s]:
+                    self._bump(deadline_misses=1)
+                pir = [res.modes[j].power_iters_run for j in range(3)]
+                if all(x is not None for x in pir):
+                    self._sweep_hist.append(max(int(x) for x in pir))
+                wm = old_warm_meta[s]
+                if wm is not None:
+                    self._bump(warm_sweeps_saved=sum(
+                        max(0, int(di) - int(res.modes[j].power_iters_run))
+                        for j, di in enumerate(wm)))
+                key = self._req_key.pop(rid, None)
+                sketch = self._req_sketch.pop(rid, None)
+                if cache is not None and key is not None:
+                    vecs = None
+                    if capture is not None:
+                        vecs = tuple(capture[j][s, :d[j], :d[C_OF[j]]]
+                                     for j in range(3))
+                    cache.put(key, res, shape=tuple(int(x) for x in d),
+                              vectors=vecs, sketch=sketch)
+            return out
 
     def _step_table(self, tb: _SlotTable) -> Dict[int, MSCResult]:
         if tb.retry_at and self._clock() < tb.retry_at:
@@ -1647,7 +1664,8 @@ class MSCContinuousEngine:
             advanced = [s for s, r in enumerate(tb.slot_req)
                         if r is not None and not tb.fin[s]]
             try:
-                fin = self._invoke("chunk", tb.state.step)
+                with spans.span("serve.chunk", live=live):
+                    fin = self._invoke("chunk", tb.state.step)
             except Exception as e:  # noqa: BLE001 - the recovery boundary
                 return self._dispatch_failed(tb, e, out)
             tb.fin = fin

@@ -18,15 +18,19 @@ card, solves it once unprofiled (warm-up), then once under
 kernel name, the launch counts, the solve's host wall time and the
 device's busy share (device kernel time over that wall time; device
 events only, so an operator and the kernels it launches are not counted
-twice), the device time by stage (gram formation, power sweeps and λ,
-similarity epilogue, unfolding copies and the rest, and the idle time),
-and the operators with the most device time by input shape.  With
-`--mesh-shape` the flat schedule runs over a DeviceMesh of one NCCL rank
-(a FileStore in a temporary directory; `--relayout`, `--epilogue`), the
-path of `chip_smoke.py` phase 8, and its collectives form a stage.  A third,
-unprofiled solve counts the host reads (`torch.cuda.set_sync_debug_mode
-("warn")`): one per gate chunk, none in the extraction.  Needs a CUDA
-card; prints the card's name and power limit first.
+twice), the device time by stage and the operators with the most device
+time by input shape.  The stages are the program's spans
+(`repro_torch.spans`, recorded while the profiler records): the device
+time of `msc.unfold`, `msc.eigensolve` (the gram's formation included),
+`msc.epilogue`, `msc.extract` and `msc.collective` by kind, each the
+stream's time between CUDA events at the span's ends, so a stage counts
+the stream's idle inside it and the collectives lie inside the other
+stages.  The host reads are the profiled solve's `msc.gate_reads`: one a
+gate chunk and one more a mode.  With `--mesh-shape` the flat schedule
+runs over a DeviceMesh of one NCCL rank (a FileStore in a temporary
+directory; `--relayout`, `--epilogue`), the path of `chip_smoke.py`
+phase 8.  Needs a CUDA card; prints the card's name and power limit
+first.
 
 `--continuous` profiles continuous MSC serving instead: the skewed mix
 of `chip_smoke.py` phase 5c (32 planted requests at m = 200, every 8th
@@ -34,9 +38,12 @@ of `chip_smoke.py` phase 5c (32 planted requests at m = 200, every 8th
 kernels, fp32) through MSCContinuousEngine (8 slots,
 `--chunks-per-step`) and through the static MSCServeEngine (B = 8), each
 warmed up, then one warm run of each under the profiler with the same
-report, the host reads of a warm run, and the device time of one replay
-of each of the continuous engine's two CUDA graphs (CUDA events over 20
-replays: the step, and the refill with inputs that move nothing).
+report, its stages the engine's spans (`serve.refill`: evictions,
+admissions and the refill graph; `serve.chunk`: the step graph and its
+per-tick read) and its gate reads (`msc.gate_reads`, the static
+engine's gated loop), and the device time of one replay of each of the
+continuous engine's two CUDA graphs (CUDA events over 20 replays: the
+step, and the refill with inputs that move nothing).
 
 `--train` profiles one warm train step of `chip_smoke.py` phase 17
 instead: `--arch` (qwen1.5-0.5b as in 17a, or granite-moe-1b-a400m as
@@ -85,19 +92,9 @@ def _dev_us(e, self_only=False):
     return 0.0
 
 
-# stage of a device kernel, by the first substring of its name that matches:
-# every kernel of csrc/gram.cu starts with gram_, every kernel of
-# csrc/power_iter.cu (power_kernel, the general route, and
-# power_stream_kernel, the streaming one) with power_
-STAGES = (("nccl", "collectives (NCCL)"),
-          ("gram_", "formation (batched_gram)"),
-          ("power_", "sweeps (power_iter)"),
-          ("gemv", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
-          ("gemm", "sweeps and λ (cuBLAS gemv on C, Rayleigh)"),
-          ("abs_rowsum", "epilogue (abs_rowsum)"),  # abs_rowsum_kernel
-          ("copy", "unfolding copies and casts"),
-          ("elementwise", "elementwise, reductions, extraction"),
-          ("reduce", "elementwise, reductions, extraction"))
+# the stages of a solve and of serving: the program's spans
+SOLVE_SPANS = ("msc.unfold", "msc.eigensolve", "msc.epilogue", "msc.extract")
+SERVE_SPANS = ("serve.refill", "serve.chunk")
 
 
 # flash_kernel (fp32 tile route), flash_small_kernel (small-sq route) and
@@ -112,7 +109,7 @@ LM_STAGES = (("flash_", "attention (flash_attention)"),
              ("softmax", "elementwise and reductions"))
 
 
-def _stage(name: str, stages=STAGES) -> str:
+def _stage(name: str, stages) -> str:
     low = name.lower()
     for key, stage in stages:
         if key in low:
@@ -220,9 +217,34 @@ def profile_mesh(torch, args, cfg, tensor) -> int:
             leave()
 
 
+def span_stages(names) -> dict:
+    """Device seconds of the profiled window's spans named in `names`, and
+    of `msc.collective` by kind (`repro_torch.spans`)."""
+    from repro_torch import spans
+
+    out = {}
+    for s in spans.recorded().spans:
+        if s.device_s is None:
+            continue
+        if s.name == "msc.collective":
+            key = f"msc.collective ({s.attrs['kind']})"
+        elif s.name in names:
+            key = s.name
+        else:
+            continue
+        out[key] = out.get(key, 0.0) + s.device_s * 1e6
+    return out
+
+
+def span_count(name: str) -> int:
+    """The profiled window's counter `name` (`repro_torch.spans`)."""
+    from repro_torch import spans
+
+    return spans.recorded().counters.get(name, 0)
+
+
 def profile_solve(torch, solve, tensor, label: str) -> int:
-    """A warm-up solve, one under the profiler with the report, and the
-    host reads of a third."""
+    """A warm-up solve and one under the profiler with the report."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import gram as kgram
@@ -242,41 +264,10 @@ def profile_solve(torch, solve, tensor, label: str) -> int:
           f"{[int(mr.power_iters_run) for mr in result.modes]}, launches "
           f"power_iter={kpi.launches} abs_rowsum={kring.launches} "
           f"batched_gram={kgram.launches}")
-    report(prof, wall, STAGES)
-    print(f"host reads per solve: {host_reads(torch, lambda: solve(tensor))}"
-          " (device-to-host syncs, counted by torch.cuda.set_sync_debug_mode"
-          "; an unprofiled warm solve)")
+    report(prof, wall, span_stages(SOLVE_SPANS))
+    print(f"host reads per solve: {span_count('msc.gate_reads')} (the "
+          "profiled solve's msc.gate_reads)")
     return 0
-
-
-def host_reads(torch, fn) -> int:
-    """Synchronizing CUDA operations (reads back to the host) in fn()."""
-    import warnings
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing" in str(w.message) for w in seen)
-
-
-# a continuous engine's kernels: the step's power_iter chunks; the
-# refill's finalize (the Rayleigh product, abs_rowsum, the extraction),
-# repack (index_select gathers, where selects, the operand copy) and the
-# fresh carries
-CONT_STAGES = (("power_", "step: sweeps (power_iter)"),
-               ("abs_rowsum", "refill: epilogue (abs_rowsum)"),
-               ("indexselect", "refill: repack gathers (index_select)"),
-               ("gemv", "refill: Rayleigh quotient (cuBLAS)"),
-               ("gemm", "refill: Rayleigh quotient (cuBLAS)"),
-               ("copy", "copies (staging writes, step carries)"),
-               ("elementwise", "elementwise (gate, selects, extraction)"),
-               ("reduce", "reductions (gate, extraction)"),
-               ("sort", "extraction sorts"))
 
 
 def _replay_ms(torch, step, reps: int = 20) -> float:
@@ -335,9 +326,10 @@ def profile_continuous(torch, chunks_per_step: int) -> int:
               f"{s.dispatches} dispatches ({s.chunk_steps} chunk steps, "
               f"{s.refills} refills), occupancy {s.occupancy:.3f}, launches "
               f"power_iter={kpi.launches} abs_rowsum={kring.launches}")
-        report(prof, wall, CONT_STAGES)
-        print(f"host reads per warm run: "
-              f"{host_reads(torch, lambda: eng.run(tensors))}")
+        report(prof, wall, span_stages(SERVE_SPANS))
+        print(f"gate reads (msc.gate_reads): {span_count('msc.gate_reads')}"
+              f"; per-tick reads of the finished flags (serve.chunk): "
+              f"{s.chunk_steps}")
     cont = next(iter(engines.values()))
     (tb,) = cont._tables.values()
     st = tb.state
@@ -381,7 +373,7 @@ def profile_lm(torch, attn_impl: str, arch: str) -> int:
           f"flash_attention={kfa.launches}, decode graphs captured "
           f"{engine.captures}, prefill {engine.timings['prefill_ms']:.3f} ms, "
           f"decode {engine.timings['decode_ms'] / args.gen:.3f} ms per token")
-    report(prof, wall, LM_STAGES)
+    report(prof, wall, kernel_stages(prof, LM_STAGES))
     return 0
 
 
@@ -514,7 +506,7 @@ def profile_train(torch, arch: str, microbatches: int, mesh=None) -> int:
     if shards is not None:
         print(f"collectives of the step: {dict(shards.counts)}, of which "
               f"gradient reductions {dict(shards.grad_counts)}")
-    report(prof, wall, LM_STAGES)
+    report(prof, wall, kernel_stages(prof, LM_STAGES))
     print(f"device time of NCCL kernels {_named_us(prof, 'nccl') / 1e3:.2f} "
           f"ms and of device-to-device memcpys (NCCL's among one rank, "
           f"and the copies' own) "
@@ -598,25 +590,38 @@ def _named_us(prof, part: str) -> float:
                and part in e.key.lower())
 
 
-def report(prof, wall: float, stages_of) -> None:
-    """Device time per stage and per kernel, busy share and the top
-    operators of one profiled window of `wall` host seconds."""
+def _device_events(prof) -> list:
+    """The profiled window's device events (the train ranges' and the
+    program's spans on the device timeline are not kernels)."""
     from torch.autograd import DeviceType
 
-    # the train ranges' spans on the device timeline are not kernels
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and not e.key.startswith("train/")]
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("train/", "msc.", "serve."))]
+
+
+def kernel_stages(prof, stages_of) -> dict:
+    """Device microseconds by stage, a kernel's stage by its name."""
+    stages = {}
+    for e in _device_events(prof):
+        st = _stage(e.key, stages_of)
+        stages[st] = stages.get(st, 0.0) + _dev_us(e, self_only=True)
+    return stages
+
+
+def report(prof, wall: float, stages: dict) -> None:
+    """Device time per stage (microseconds by name, `kernel_stages` or
+    `span_stages`) and per kernel, busy share and the top operators of
+    one profiled window of `wall` host seconds."""
+    from torch.autograd import DeviceType
+
+    events = _device_events(prof)
     total_us = sum(_dev_us(e, self_only=True) for e in events)
     print(f"wall {wall * 1e3:.1f} ms, device kernel time "
           f"{total_us / 1e3:.1f} ms, busy share {total_us / 1e6 / wall:.3f}")
     if total_us == 0:
         print("device time: not measured (the profiler saw no device "
               "activity)")
-    stages = {}
-    for e in events:
-        st = _stage(e.key, stages_of)
-        stages[st] = stages.get(st, 0.0) + _dev_us(e, self_only=True)
     print("device time by stage:")
     for st, us in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {us / 1e3:9.2f} ms  {st}")
