@@ -26,6 +26,13 @@ line):
    `batched_gram` also at c = 1, 127, 128, 129 (one tile, a mirror at
    the tile edge) and (5, 200, 1000) (a ragged last tile).  `power_iter`,
    `abs_rowsum` and `batched_gram` must give the same bits in two calls.
+   The resident route (`power_iter.routes(c, dtype, k)` with k >= 2
+   passes over T: a cluster per slice holding it in shared memory) is
+   also held to the plain version and timed against the streaming routes
+   at (1000, 1000, 1000) k = 6, (6400, 400, 400) k = 8 and (1000, 1400,
+   1400) k = 6 in fp32 and bf16, with its G, the share of a slice held,
+   the clusters resident at once and each route's share of the bounds
+   for T read once per launch and once per pass (`RESIDENT_SHAPES`).
 4. The main path at the paper's size: `launch/msc_run.py` at m = 1000
    (the 4 GB fp32 tensor of Fig. 6), γ = 1000, seed 0, the CLI's
    default ε, with each eigensolver.  Matrix-free: flat+kernels in fp32
@@ -317,9 +324,10 @@ line):
    why.  0 B left.
 Phases 4, 5b, 5c and 8 print the H100 roofline models' predictions
 beside their measured times (`roofline.H100`; reported, no bar).
-`--only 11,12,13,14,15,16,17,18,19,20` (any subset) runs the card and
+`--only 3,11,12,13,14,15,16,17,18,19,20` (any subset) runs the card and
 build phases and the named phases alone (a development run: no result
-lines, exit code 3 when they pass).
+lines, exit code 3 when they pass; 3 is the kernels against their plain
+versions and their times).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -519,13 +527,15 @@ def phase_kernels(torch, checks):
 
     def power_cases(label, s, v, n_iter=60):
         """Each entry point on the route `route()` picks and on every
-        route forced, against the plain version; each chunk again with a
-        same-bits check."""
+        route forced that takes its passes over T (the resident route the
+        chunk and the iteration, not the one-pass matvec), against the
+        plain version; each chunk again with a same-bits check."""
         plain = ref.power_iterate_chunk(s, v, k)
         plain_it = ref.power_iterate(s, v, n_iter)
         plain_mv = (ref.power_matvec(s, v),)
-        for route in (None,) + kpi.routes(s.shape[-1], s.dtype):
-            tag = f"{label} route={route or kpi.route(s.shape[-1], s.dtype)}"
+        r_, c_ = s.shape[-2:]
+        for route in (None,) + kpi.routes(c_, s.dtype, k):
+            tag = f"{label} route={route or kpi.route(c_, s.dtype, k, r_)}"
             tag += "" if route else " (auto)"
             got = kpi.power_iterate_chunk(s, v, k, route=route)
             # resid = ‖w − λv‖ is rounding noise on a converged slice: it
@@ -543,9 +553,12 @@ def phase_kernels(torch, checks):
                            f"{tag}", kpi.power_iterate(s, v, n_iter,
                                                        route=route),
                            plain_it, tol[s.dtype])
-            checks.compare("power_iter", f"power_matvec {tag}",
-                           (kpi.power_matvec(s, v, route=route),), plain_mv,
-                           tol[s.dtype])
+            if route in (None,) + kpi.routes(c_, s.dtype):
+                mv = (f"{label} route={route or kpi.route(c_, s.dtype)}"
+                      + ("" if route else " (auto)"))
+                checks.compare("power_iter", f"power_matvec {mv}",
+                               (kpi.power_matvec(s, v, route=route),),
+                               plain_mv, tol[s.dtype])
 
     for dt in (torch.float32, torch.bfloat16):
         s = t32.to(dt)
@@ -568,9 +581,9 @@ def phase_kernels(torch, checks):
 
         row = {
             "ms": cuda_ms(torch, chunk_on(None), 5),
-            "route": kpi.route(c, dt),
+            "route": kpi.route(c, dt, k, r),
             "route_ms": {rt: cuda_ms(torch, chunk_on(rt), 5)
-                         for rt in kpi.routes(c, dt)},
+                         for rt in kpi.routes(c, dt, k)},
             "plain_ms": cuda_ms(
                 torch, lambda: ref.power_iterate_chunk(s, v0, k), 3, 1),
             "library_ms": cuda_ms(torch, library, 3, 1),
@@ -611,6 +624,8 @@ def phase_kernels(torch, checks):
         del s
     del t32
     torch.cuda.empty_cache()
+    rows[("power_iter", "resident")] = power_resident_times(torch, checks,
+                                                            gen)
 
     # the register budget's edge (c = 2048: fp32 streams on the ring only)
     # and ragged r and c (the general route, tile rows cut mid-slice)
@@ -667,6 +682,76 @@ def phase_kernels(torch, checks):
     torch.cuda.empty_cache()
     rows.update(phase_gram(torch, checks, gen))
     return rows
+
+
+# the resident route's shapes: the solve's gate chunk, the serving cell's
+# step (16 slots of m = 400, a probe every 8 sweeps) and the paper's
+# largest m, each against the streaming routes (these times set
+# power_iter.RESIDENT)
+RESIDENT_SHAPES = (((1000, 1000, 1000), 6), ((6400, 400, 400), 8),
+                   ((1000, 1400, 1400), 6))
+
+
+def power_resident_times(torch, checks, gen):
+    """The resident route against its plain version and the streaming
+    routes at RESIDENT_SHAPES in fp32 and bf16: same bits in two calls,
+    its cluster (G CTAs, the share of a slice held in shared memory, the
+    clusters resident at once) and each route's time and share of the
+    bounds for T read once per launch and once per pass."""
+    from repro_torch.kernels import power_iter as kpi
+    from repro_torch.kernels import ref
+
+    dev = torch.device(DEVICE)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    out = []
+    for (b, r, c), k in RESIDENT_SHAPES:
+        x32 = torch.randn((b, r, c), generator=gen, device=dev)
+        v = torch.randn((b, c), generator=gen, device=dev)
+        v /= v.norm(dim=-1, keepdim=True)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            name = str(dt).split(".")[-1]
+            label = f"{name} {(b, r, c)} k={k}"
+            got = kpi.power_iterate_chunk(x, v, k, route="resident")
+            plain = ref.power_iterate_chunk(x, v, k)
+            checks.compare("power_iter", f"power_iterate_chunk resident "
+                           f"{label}", got, plain, tol[dt],
+                           [None, None, plain[1].abs().max().item()])
+            del plain
+            again = kpi.power_iterate_chunk(x, v, k, route="resident")
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                checks.failures.append(f"power_iterate_chunk resident "
+                                       f"{label}: two calls differ")
+            del got, again
+            elt = x.element_size()
+            once, _ = bound_ms(b * r * c * elt + 2 * b * c * 4 + 2 * b * 4,
+                               4 * b * r * c * k, name)
+            per_pass = k * b * r * c * elt / HBM_BYTES_PER_S * 1e3
+            plan = kpi.card_plan(r, c, dt)
+            row = {"shape": [b, r, c], "k": k, "dtype": name,
+                   "route": kpi.route(c, dt, k, r), "g": plan.g,
+                   "rows_held": plan.rows, "band": plan.band,
+                   "share_held": plan.share(r),
+                   "clusters": kpi.resident_clusters(r, c, dt),
+                   "bound_ms": once, "pass_bound_ms": per_pass,
+                   "route_ms": {}}
+            for rt in kpi.routes(c, dt, k):
+                if rt != "general":
+                    row["route_ms"][rt] = cuda_ms(torch, lambda: (
+                        kpi.power_iterate_chunk(x, v, k, route=rt)), 5)
+            out.append(row)
+            times = ", ".join(
+                f"{rt} {t:.3f} ms ({100 * once / t:.1f}% of T once, "
+                f"{100 * per_pass / t:.1f}% of T once a pass)"
+                for rt, t in row["route_ms"].items())
+            log(f"  time resident {label}: G={plan.g} (band {plan.band}, "
+                f"{plan.rows} rows held, {100 * row['share_held']:.1f}% of "
+                f"the slice), {row['clusters']} clusters resident at once; "
+                f"{times}; route() picks {row['route']}")
+            del x
+        del x32
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_gram(torch, checks, gen):
@@ -4655,16 +4740,16 @@ def _stage_rank(device, ref_path, out_path, m):
 
 
 def _only_phases():
-    """`--only 11,12,13,14,15,16,17,18,19,20`: the later phases to run
-    alone (development runs only; with no arguments every phase runs)."""
+    """`--only 3,11,12,13,14,15,16,17,18,19,20`: the phases to run alone
+    (development runs only; with no arguments every phase runs)."""
     if "--only" not in sys.argv:
         return []
     names = sys.argv[sys.argv.index("--only") + 1].split(",")
     bad = [n for n in names
-           if n not in ("11", "12", "13", "14", "15", "16", "17", "18",
+           if n not in ("3", "11", "12", "13", "14", "15", "16", "17", "18",
                         "19", "20")]
     if bad:
-        raise SystemExit(f"chip_smoke: --only takes 11, 12, 13, 14, 15, "
+        raise SystemExit(f"chip_smoke: --only takes 3, 11, 12, 13, 14, 15, "
                          f"16, 17, 18, 19, 20; got {bad}")
     return names
 
@@ -4695,7 +4780,8 @@ def main() -> int:
     only = _only_phases()
     if only:
         # a development run of the named tier phases: no result lines
-        tiers = {"11": phase_cache, "12": phase_scheduler,
+        tiers = {"3": lambda torch, checks, smi: phase_kernels(torch, checks),
+                 "11": phase_cache, "12": phase_scheduler,
                  "13": phase_faults, "14": phase_autotune,
                  "15": phase_multihost, "16": phase_families,
                  "17": phase_training, "18": phase_lm_ranks,
@@ -4781,6 +4867,7 @@ def main() -> int:
                                  for n in ("float32", "bfloat16")}
             entry["waves"] = {n: rows[(name, n)]["waves"]
                               for n in ("float32", "bfloat16")}
+            entry["resident"] = rows[(name, "resident")]
             entry["bf16_sweep_bound_ms"] = rows[(name, other)][
                 "sweep_bound_ms"]
         if name == "batched_gram":

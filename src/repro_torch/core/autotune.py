@@ -9,8 +9,9 @@ does change how its chunk step runs: the route of the power kernel
 `inner_overlap` proposals of the roofline models that the engine adds.
 
   * `route_candidates` — the port's per-bucket search space: one
-    candidate per route the power kernel takes for the bucket's column
-    widths, the current pick (`power_iter.route`) first.  Each candidate
+    candidate per route the power kernel takes for the bucket's slice
+    shapes and passes over T a launch, the current pick
+    (`power_iter.route`) first.  Each candidate
     also carries the reference's default blocks, so an entry has the
     reference's keys.  On the CPU, and without kernels, one candidate.
   * `block_candidates` — the reference's block search space, kept as it
@@ -84,18 +85,22 @@ def block_candidates(bucket, use_kernels: bool) -> List[Dict[str, int]]:
     return out
 
 
-def route_candidates(bucket, dtype, use_kernels: bool) -> List[Dict]:
+def route_candidates(bucket, dtype, use_kernels: bool,
+                     passes: int = 1) -> List[Dict]:
     """The port's per-bucket search space: the power kernel's routes.
 
-    Mode j of a bucket (M1, M2, M3) has rows of c_j = (M3, M3, M2)[j]
-    elements in the precision policy's `dtype`.  The first candidate is
-    the current pick, `power_iter.route(c_j, dtype)` per mode; then, per
-    route the kernel takes for some mode ("general", "ring", "direct"),
-    that route on every mode that takes it (the pick on the others),
-    deduplicated.  Without kernels on a card (`use_kernels` False: no
-    kernel, or the CPU's plain versions) one candidate, `power_route`
-    None: the resolution still runs, as the reference's einsum path's.
-    Each candidate carries `DEFAULT_BLOCKS` besides `power_route`.
+    Mode j of a bucket (M1, M2, M3) has slices of r_j = (M2, M1, M1)[j]
+    rows of c_j = (M3, M3, M2)[j] elements in the precision policy's
+    `dtype`, and each launch passes over them `passes` times (the gate
+    chunk's sweeps; 1 where each sweep is its own `power_matvec`).  The
+    first candidate is the current pick, `power_iter.route(c_j, dtype,
+    passes, r_j)` per mode; then, per route the kernel takes for some mode
+    ("general", "ring", "direct", "resident"), that route on every mode
+    that takes it (the pick on the others), deduplicated.  Without kernels
+    on a card (`use_kernels` False: no kernel, or the CPU's plain
+    versions) one candidate, `power_route` None: the resolution still
+    runs, as the reference's einsum path's.  Each candidate carries
+    `DEFAULT_BLOCKS` besides `power_route`.
 
     Bits: each route sums in its own order, so the routes need not agree
     bit for bit with each other (within one route two calls give the same
@@ -109,11 +114,13 @@ def route_candidates(bucket, dtype, use_kernels: bool) -> List[Dict]:
     from repro_torch.kernels import power_iter
 
     cols = (int(bucket[2]), int(bucket[2]), int(bucket[1]))
-    pick = tuple(power_iter.route(c, dtype) for c in cols)
+    rows = (int(bucket[1]), int(bucket[0]), int(bucket[0]))
+    pick = tuple(power_iter.route(c, dtype, passes, r)
+                 for c, r in zip(cols, rows))
     out, seen = [dict(DEFAULT_BLOCKS, power_route=pick)], {pick}
-    for name in ("general", "ring", "direct"):
-        cand = tuple(name if name in power_iter.routes(c, dtype) else p
-                     for c, p in zip(cols, pick))
+    for name in ("general", "ring", "direct", "resident"):
+        cand = tuple(name if name in power_iter.routes(c, dtype, passes)
+                     else p for c, p in zip(cols, pick))
         if cand not in seen:
             seen.add(cand)
             out.append(dict(DEFAULT_BLOCKS, power_route=cand))

@@ -1,7 +1,8 @@
 // PTX wrappers shared by the sm_90a kernels of this directory: cp.async
-// copies into shared memory, ldmatrix and the bf16 mma.sync tensor-core
-// product.  Fragment layouts are those of the PTX ISA for
-// mma.m16n8k16 with .row A and .col B (g = lane / 4, t = lane % 4):
+// copies into shared memory, ldmatrix, the bf16 mma.sync tensor-core
+// product, mbarriers, bulk copies and cluster barriers.  Fragment layouts
+// are those of the PTX ISA for mma.m16n8k16 with .row A and .col B
+// (g = lane / 4, t = lane % 4):
 //   A (16 x 16): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..), a[2] = (g, 2t+8..),
 //                a[3] = (g+8, 2t+8..), two bf16 in each 32-bit register;
 //   B (16 x 8):  b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8.., n g);
@@ -76,6 +77,84 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- mbarriers, bulk copies (the TMA's non-tensor form) and clusters ----
+
+// an mbarrier in shared memory that completes a phase after `count`
+// arrivals and every byte it was told to expect
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%1], %0;\n" ::"r"(count),
+               "r"(smem_addr(bar)));
+}
+
+// the barriers' initialisation made visible to the async proxy and the
+// cluster (before a cluster barrier or __syncthreads)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also tells the barrier to expect `bytes` more
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %0;\n" ::"r"(bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// spin until the barrier's phase of this parity has completed; what the
+// copies it counts wrote is then visible to the waiting thread
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// shared-memory reads by ordinary loads ordered before later writes of the
+// async proxy (a bulk copy into the same bytes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// this CTA's shared memory by the TMA; completion is counted on `bar`
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16 at a 16-byte aligned address) of global
+// memory brought into L2, nothing waiting for them
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// the 128-byte line at `p` brought into L1
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+// a cluster-wide barrier (every thread of every CTA of the cluster,
+// warp-uniform): the arrive releases this thread's earlier accesses, the
+// wait acquires those of every thread that arrived
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // two bf16 values packed in one register, the first in the low half (fp32

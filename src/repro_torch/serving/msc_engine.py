@@ -1201,9 +1201,13 @@ class MSCContinuousEngine:
                               _np_dtype(self.dtype), cfg, salt=ac.salt)
         blocks = {k: v if getattr(cfg, k) is None else getattr(cfg, k)
                   for k, v in at.DEFAULT_BLOCKS.items()}
+        # passes over T in a launch: the gate chunk's sweeps, or one where
+        # an inner dim runs each sweep as a `power_matvec`
+        passes = (1 if self._plan.sched.inner_shards > 1
+                  else max(1, min(cfg.power_check_every, cfg.power_iters)))
         routes = at.route_candidates(
             bucket, compute_dtype(cfg.precision),
-            cfg.use_kernels and self.device.type == "cuda")
+            cfg.use_kernels and self.device.type == "cuda", passes)
         cands = [dict(r, **blocks, epilogue=v.epilogue,
                       inner_overlap=v.inner_overlap)
                  for v in variants for r in routes]

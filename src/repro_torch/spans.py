@@ -48,6 +48,10 @@ The spans (PERF.md lists the metric each feeds):
   serve.chunk     the chunk-step program and its per-tick read, attr live
   serve.request   (keyed) a request from submit to the tick that returns it
   serve.queued    (keyed) a request from submit to its admission
+
+The counters: `msc.gate_reads` (the gated loop's host reads) and
+`kernels.power_resident` (power kernel launches on its resident route,
+eager or under capture, `kernels/power_iter.py`).
 """
 from __future__ import annotations
 

@@ -172,6 +172,34 @@ def test_route_candidates_cover_the_kernels_routes():
                      ("general", "general", "ring")]
 
 
+def test_route_candidates_offer_the_resident_route_for_chunks():
+    """With a gate chunk of several sweeps per launch the resident route
+    is a candidate on every mode whose rows stream, and the pick where
+    `power_iter.route` takes it (fp32 at these shapes; bf16 streams)."""
+    blocks = dict(at.DEFAULT_BLOCKS)
+    fp32 = at.route_candidates((200, 200, 200), torch.float32, True, 6)
+    assert [c["power_route"] for c in fp32] == [
+        ("resident",) * 3, ("general",) * 3, ("ring",) * 3,
+        ("direct",) * 3]
+    assert all({k: c[k] for k in blocks} == blocks for c in fp32)
+    bf16 = at.route_candidates((200, 200, 200), torch.bfloat16, True, 8)
+    assert [c["power_route"] for c in bf16] == [
+        ("ring",) * 3, ("general",) * 3, ("direct",) * 3,
+        ("resident",) * 3]
+    # one pass a launch (an inner dim's power_matvec): never resident
+    assert at.route_candidates((200, 200, 200), torch.float32, True, 1) \
+        == at.route_candidates((200, 200, 200), torch.float32, True)
+    # c = 2100 > MAX_COLS on modes 1 and 2: only mode 3 has a choice
+    mixed = [c["power_route"] for c in
+             at.route_candidates((16, 200, 2100), torch.float32, True, 6)]
+    assert mixed == [("general", "general", "resident"),
+                     ("general", "general", "general"),
+                     ("general", "general", "ring"),
+                     ("general", "general", "direct")]
+    assert at.route_candidates((200, 200, 200), torch.float32, False, 6) == [
+        dict(blocks, power_route=None)]
+
+
 class _Payload:
     pass
 

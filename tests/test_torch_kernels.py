@@ -148,6 +148,104 @@ def test_power_route_names_are_checked_and_the_cpu_ignores_them():
         tpik.power_matvec(ts, tv, route="stream")
 
 
+# (r, c, dtype, k): the resident route's rule at the shapes the port runs
+# (1000^2 and 400^2 slices, gate chunks of 6 and 8 sweeps, the paper's
+# largest m) and at its edges: one pass, rows that take the general route
+# or reach MAX_COLS, one row, a slice too tall for 16 CTAs to hold
+RESIDENT_CASES = [(1000, 1000, "float32", 6), (1000, 1000, "float32", 5),
+                  (1000, 1000, "float32", 1), (1000, 1000, "bfloat16", 6),
+                  (400, 400, "float32", 8), (400, 400, "bfloat16", 8),
+                  (1400, 1400, "float32", 6), (1400, 1400, "bfloat16", 6),
+                  (200, 1000, "float32", 2), (40, 48, "float32", 6),
+                  (1003, 301, "float32", 6), (37, 19, "bfloat16", 8),
+                  (1, 1000, "float32", 7), (100000, 4, "float32", 6),
+                  (2000, 2048, "float32", 6), (2000, 2052, "float32", 6),
+                  (6, 8, "bfloat16", 2), (64, 64, "float32", 61)]
+
+
+@pytest.mark.parametrize("r,c,dtype,k", RESIDENT_CASES, ids=str)
+def test_resident_route_rule_and_plan(r, c, dtype, k):
+    """"resident" is offered for k >= 2 passes on rows that stream, and
+    picked where RESIDENT[dtype] holds; its plan is the smallest power of
+    two G <= 16 whose bands fit a CTA's shared memory (else 16), its
+    bands cover the slice and its shared memory fits."""
+    dt = TDT[dtype]
+    ok = tpik.routes(c, dt, k)
+    streams = "ring" in ok
+    assert ("resident" in ok) == (streams and k >= 2)
+    assert ok[:len(tpik.routes(c, dt))] == tpik.routes(c, dt)
+    plan = tpik.resident_plan(r, c, dt)
+    rule = tpik.RESIDENT[dt]
+    want = (rule is not None and "resident" in ok and k >= rule[0]
+            and plan is not None and plan.share(r) >= rule[1])
+    got = tpik.route(c, dt, k, r)
+    assert (got == "resident") == want
+    assert got in ok
+    if k == 1 or not streams:
+        assert got != "resident"
+    assert plan is not None
+    assert 1 <= plan.g <= 16 and plan.g & (plan.g - 1) == 0
+    assert plan.band == -(-r // plan.g) and plan.g * plan.band >= r
+    assert 1 <= plan.rows <= plan.band
+    assert tpik.resident_smem(c, dt, plan.rows,
+                              plan.per_bar) <= tpik.SMEM_BYTES
+    if plan.rows < plan.band:  # as many rows as fit, at the largest G
+        assert plan.g == 16
+        assert tpik.resident_smem(c, dt, plan.rows + 1,
+                                  plan.per_bar) > tpik.SMEM_BYTES
+    if plan.g > 1:  # half the CTAs would not hold their bands
+        assert tpik.resident_smem(c, dt, -(-r // (plan.g // 2)),
+                                  plan.per_bar) > tpik.SMEM_BYTES
+    assert 1 <= plan.per_bar * c * torch.empty((), dtype=dt).element_size() \
+        <= max(tpik.COPY_BYTES, c * torch.empty((), dtype=dt).element_size())
+
+
+def test_resident_plans_at_the_cells_shapes():
+    """G = 16 at the solve's 1000^2 fp32 slices (most of each band held),
+    G = 4 at the serving cell's 400^2 fp32 slices (all of it), and a
+    slice that no G holds still gets one row a CTA."""
+    p = tpik.resident_plan(1000, 1000, torch.float32)
+    assert (p.g, p.band) == (16, 63) and 0.75 <= p.share(1000) < 1
+    p = tpik.resident_plan(400, 400, torch.float32)
+    assert (p.g, p.band, p.rows) == (4, 100, 100) and p.share(400) == 1
+    assert tpik.resident_plan(1400, 1400, torch.float32).share(1400) < 0.5
+    assert tpik.resident_plan(0, 1000, torch.float32) is None
+    assert tpik.resident_plan(1000, 1000, torch.float32, g_max=8).g == 8
+
+
+# (entry, r, c, k): forced "resident" where it cannot run: one pass over
+# T (the matvec, a one-sweep chunk) or rows that take the general route
+RESIDENT_REFUSED = [("matvec", 9, 8, 1), ("chunk", 9, 8, 1),
+                    ("chunk", 9, 7, 6), ("iterate", 9, 7, 3),
+                    ("chunk", 5, 2052, 4)]
+
+
+@pytest.mark.parametrize("entry,r,c,k", RESIDENT_REFUSED, ids=str)
+def test_resident_route_refused_where_it_cannot_run(entry, r, c, k):
+    x, v = _power_inputs(3, r, c)
+    ts, tv = torch.from_numpy(x), torch.from_numpy(v)
+    with pytest.raises(ValueError, match="resident"):
+        if entry == "matvec":
+            tpik.power_matvec(ts, tv, route="resident")
+        elif entry == "chunk":
+            tpik.power_iterate_chunk(ts, tv, k, route="resident")
+        else:
+            tpik.power_iterate(ts, tv, k, route="resident")
+
+
+def test_resident_route_runs_the_plain_version_on_the_cpu():
+    """Where the route can run, the CPU runs the plain version: two
+    sweeps, and one sweep with the λ pass (two passes over T)."""
+    x, v = _power_inputs(3, 9, 8)
+    ts, tv = torch.from_numpy(x), torch.from_numpy(v)
+    got = tpik.power_iterate_chunk(ts, tv, 2, route="resident")
+    assert all(torch.equal(g, w) for g, w in
+               zip(got, ref.power_iterate_chunk(ts, tv, 2)))
+    got = tpik.power_iterate(ts, tv, 1, route="resident")
+    assert all(torch.equal(g, w) for g, w in
+               zip(got, ref.power_iterate(ts, tv, 1)))
+
+
 def _stream_sweeps(slices, v0, n_upd, *, lambda_pass, emit_gate,
                    normalize=True, warps=tpik.WARPS):
     """The streaming route's order of operations in plain torch: v rounded
@@ -415,6 +513,76 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 got = tfa.flash_attention(q, k, v, route=route, **kw)
                 _close(got.float().cpu().numpy(), want, dtype)
             assert tfa.launches == n0 + 3
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_resident_route_matches_plain_versions(cuda_device):
+    """The resident route against the plain version on the card: gate
+    chunks of 2, 6 and 8 sweeps and the iteration with its λ pass, at
+    uneven bands ((5, 200, 1000): G = 4 of 50 rows; (3, 1000, 1000): 16
+    bands of 63, the last of 55, rows past the held ones from L2), one
+    CTA a slice ((4, 40, 48)), the serving cell's 400^2 and the paper's
+    largest m ((2, 1400, 1400), mostly from L2), in both dtypes; more
+    slices than clusters resident at once; the same bits in two calls;
+    a CUDA graph's replay the eager call's bits; each launch counted in
+    `launches` and, while tracing, in `kernels.power_resident`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in ("float32", "bfloat16"):
+        dt = TDT[dtype]
+        for b, r, c in [(5, 200, 1000), (7, 400, 400), (3, 1000, 1000),
+                        (4, 40, 48), (2, 1400, 1400)]:
+            x, v = _power_inputs(b, r, c)
+            ts = torch.from_numpy(x).to(cuda_device, dt)
+            tv = torch.from_numpy(v).to(cuda_device)
+            n0 = tpik.launches
+            for k in (2, 6, 8):
+                got = tpik.power_iterate_chunk(ts, tv, k, route="resident")
+                want = ref.power_iterate_chunk(ts, tv, k)
+                _close(got[2].cpu().numpy(), want[2].cpu().numpy(), dtype,
+                       scale=want[1].abs().max().item())
+                for g, w in zip(got[:2], want[:2]):
+                    _close(g.cpu().numpy(), w.cpu().numpy(), dtype)
+                again = tpik.power_iterate_chunk(ts, tv, k, route="resident")
+                assert all(torch.equal(g, a) for g, a in zip(got, again))
+            got = tpik.power_iterate(ts, tv, 5, route="resident")
+            for g, w in zip(got, ref.power_iterate(ts, tv, 5)):
+                _close(g.cpu().numpy(), w.cpu().numpy(), dtype)
+            assert tpik.launches == n0 + 7
+        # more slices than the clusters resident at once: each cluster
+        # walks over several
+        n_cl = tpik.resident_clusters(40, 48, dt)
+        x, v = _power_inputs(2 * n_cl + 3, 40, 48, seed=3)
+        ts = torch.from_numpy(x).to(cuda_device, dt)
+        tv = torch.from_numpy(v).to(cuda_device)
+        eager = tpik.power_iterate_chunk(ts, tv, 6, route="resident")
+        for g, w in zip(eager[:2], ref.power_iterate_chunk(ts, tv, 6)[:2]):
+            _close(g.cpu().numpy(), w.cpu().numpy(), dtype)
+        # captured once, replayed: the eager call's bits
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tpik.power_iterate_chunk(ts, tv, 6, route="resident")
+        torch.cuda.current_stream().wait_stream(side)
+        c0 = tpik.captured
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tpik.power_iterate_chunk(ts, tv, 6, route="resident")
+        assert tpik.captured == c0 + 1
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, e) for g, e in zip(out, eager))
+        # the counter counts launches on the route, and no other
+        with profile(activities=[ProfilerActivity.CPU]):
+            tpik.power_iterate_chunk(ts, tv, 6, route="resident")
+            tpik.power_iterate(ts, tv, 3, route="resident")
+            tpik.power_iterate_chunk(ts, tv, 6, route="ring")
+            tpik.power_matvec(ts, tv)
+        assert spans.recorded().counters.get("kernels.power_resident") == 2
     torch.cuda.synchronize()
 
 

@@ -26,7 +26,9 @@ time of `msc.unfold`, `msc.eigensolve` (the gram's formation included),
 stream's time between CUDA events at the span's ends, so a stage counts
 the stream's idle inside it and the collectives lie inside the other
 stages.  The host reads are the profiled solve's `msc.gate_reads`: one a
-gate chunk and one more a mode.  With `--mesh-shape` the flat schedule
+gate chunk and one more a mode.  The power kernel's launches are counted
+by route, from the device's kernel names and from the program's counter
+`kernels.power_resident`, as a share of `power_iter.launches`.  With `--mesh-shape` the flat schedule
 runs over a DeviceMesh of one NCCL rank (a FileStore in a temporary
 directory; `--relayout`, `--epilogue`), the path of `chip_smoke.py`
 phase 8.  Needs a CUDA card; prints the card's name and power limit
@@ -243,6 +245,28 @@ def span_count(name: str) -> int:
     return spans.recorded().counters.get(name, 0)
 
 
+def power_routes(prof, stage: str, launches: int) -> None:
+    """The power kernel's launches in the window by route: the device's
+    kernels by name (replays of CUDA graphs included) and the program's
+    counter `kernels.power_resident` (eager launches and captures) beside
+    `power_iter.launches`; all of them run inside `stage`."""
+    names = {"resident": "power_resident_kernel",
+             "streaming": "power_stream_kernel", "general": "power_kernel<"}
+    counts = {k: 0 for k in names}
+    for e in _device_events(prof):
+        for k, frag in names.items():
+            if frag in e.key:
+                counts[k] += e.count
+                break
+    total = sum(counts.values())
+    share = f"{100 * counts['resident'] / total:.1f}%" if total else "n/a"
+    print(f"power kernel in {stage}: {total} launches on the device "
+          f"(resident {counts['resident']}, streaming {counts['streaming']}, "
+          f"general {counts['general']}; resident share {share}); "
+          f"kernels.power_resident {span_count('kernels.power_resident')} of "
+          f"{launches} power_iter launches")
+
+
 def profile_solve(torch, solve, tensor, label: str) -> int:
     """A warm-up solve and one under the profiler with the report."""
     from torch.profiler import ProfilerActivity, profile
@@ -265,6 +289,7 @@ def profile_solve(torch, solve, tensor, label: str) -> int:
           f"power_iter={kpi.launches} abs_rowsum={kring.launches} "
           f"batched_gram={kgram.launches}")
     report(prof, wall, span_stages(SOLVE_SPANS))
+    power_routes(prof, "msc.eigensolve", kpi.launches)
     print(f"host reads per solve: {span_count('msc.gate_reads')} (the "
           "profiled solve's msc.gate_reads)")
     return 0
@@ -327,6 +352,8 @@ def profile_continuous(torch, chunks_per_step: int) -> int:
               f"{s.refills} refills), occupancy {s.occupancy:.3f}, launches "
               f"power_iter={kpi.launches} abs_rowsum={kring.launches}")
         report(prof, wall, span_stages(SERVE_SPANS))
+        power_routes(prof, "serve.chunk" if "continuous" in name
+                     else "the static engine's gate chunks", kpi.launches)
         print(f"gate reads (msc.gate_reads): {span_count('msc.gate_reads')}"
               f"; per-tick reads of the finished flags (serve.chunk): "
               f"{s.chunk_steps}")
