@@ -1,19 +1,24 @@
-"""Readings that set a cell's limits: the control, and the program's own.
+"""Readings that set a cell's limits: the controls, and the program's own.
 
     python portbench/control.py --workload msc-m1000.solve \\
         --seeds 11,12,13 [--program SECONDS] [--out FILE]
 
-For each seed, the cell's pool is made as a run makes it.  The control
-is the reference put in the program's place and computed one precision
-below the configuration's fp32: every product's operands rounded to
-TF32, sums in fp32 (`reference.msc.tf32`).  It answers every pool tensor
-once, and its answers are compared with the fp32 reference's by the
-run's own comparison (`harness/judge.py`); a sound limit lies below the
-control's numbers.  With --program, each seed also drives a whole run of
-the cell (a window of SECONDS) in this process, whose numbers are the
-program's readings.  One JSON line a seed and side, on standard output
-and appended to --out.  One-chip cells; the benchmark's runs never run
-this.
+MSC cells: for each seed, the cell's pool is made as a run makes it.
+The control is the reference put in the program's place and computed
+one precision below the configuration's fp32: every product's operands
+rounded to TF32, sums in fp32 (`reference.msc.tf32`).  It answers every
+pool tensor once, and its answers are compared with the fp32
+reference's by the run's own comparison (`harness/judge.py`); a sound
+limit lies below the control's numbers.  With --program, each seed also
+drives a whole run of the cell (a window of SECONDS) in this process,
+whose numbers are the program's readings.
+
+LM cells (the mix's driver "lm_generate"): for each seed the program's
+window of SECONDS (10 by default), judged as a run judges it, and the
+two controls of `harness/lm.py:readings`.
+
+One JSON line a seed and side, on standard output and appended to
+--out.  One-chip cells; the benchmark's runs never run this.
 """
 from __future__ import annotations
 
@@ -49,6 +54,28 @@ def control_numbers(cell, seed: int, device) -> dict:
     return judge.worst(judge.per_answer(got, refs, settings))
 
 
+def msc_lines(cell, seed: int, args) -> list:
+    """The program's readings (with --program) and the control's on one
+    seed of an MSC cell."""
+    from harness.runner import run_cell
+
+    lines = []
+    if args.program > 0:
+        t = time.time()
+        res = run_cell(cell, seed, args.program, False, device=args.device,
+                       start_wall=t)
+        lines.append({"side": "program", "seed": seed,
+                      "correct": res["correct"],
+                      "attempted": res["attempted"],
+                      "numbers": {k: c["value"] for k, c in
+                                  res["checks"].items()}})
+    t = time.perf_counter()
+    nums = control_numbers(cell, seed, args.device)
+    lines.append({"side": "control", "seed": seed, "numbers": nums,
+                  "seconds": time.perf_counter() - t})
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -59,24 +86,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from harness import cell as cells
-    from harness.runner import run_cell
 
     cell = cells.load(args.workload)
     for seed in (int(s) for s in args.seeds.split(",")):
-        lines = []
-        if args.program > 0:
-            t = time.time()
-            res = run_cell(cell, seed, args.program, False,
-                           device=args.device, start_wall=t)
-            lines.append({"side": "program", "seed": seed,
-                          "correct": res["correct"],
-                          "attempted": res["attempted"],
-                          "numbers": {k: c["value"] for k, c in
-                                      res["checks"].items()}})
-        t = time.perf_counter()
-        nums = control_numbers(cell, seed, args.device)
-        lines.append({"side": "control", "seed": seed, "numbers": nums,
-                      "seconds": time.perf_counter() - t})
+        if cell.traffic["driver"] == "lm_generate":
+            from harness import lm
+
+            lines = lm.readings(cell, seed, args.program or 10.0,
+                                args.device)
+        else:
+            lines = msc_lines(cell, seed, args)
         for line in lines:
             line["workload"] = cell.name
             text = json.dumps(line)
@@ -85,6 +104,8 @@ def main(argv=None) -> int:
                 with open(args.out, "a") as f:
                     f.write(text + "\n")
     return 0
+
+
 
 
 if __name__ == "__main__":

@@ -9,6 +9,20 @@ and its metrics; the files beside it hold the rest:
   portbench/limits/<cell>.json       the limits of the compared numbers
   portbench/metrics/<metric>.py      one reader per per-layer metric
 
+A language model's (the mix's driver "lm_generate", `harness/lm.py`):
+
+  configs/<config>.json   the published config's keys as run (the
+                          reference and `costs/lm.py` read them),
+                          "reference" (the plain reference's module
+                          under reference/: `weight_specs`, `hidden`,
+                          `logits`, `without_multipliers`, `NoTF32`,
+                          `fp8`), "port" (the port's
+                          ModelConfig fields) and "solver" (its dtypes,
+                          attention, MoE group and capacity)
+  traffic/<traffic>.json  batch, prompt_lengths, new_tokens, max_len,
+                          judge_per_call
+  limits/<cell>.json      missing, shape, token_gap_mean
+
 A new cell, configuration, mix or metric is new files and new entries;
 no file here changes for it.
 """

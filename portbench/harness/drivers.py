@@ -12,7 +12,8 @@ Two drivers, chosen by the mix's "driver":
           the window: compared, not counted).
 
 Both return a `Window`: the answers with the pool index each request
-sent, the times, and what the per-layer metrics read.
+sent, the times, and what the per-layer metrics read.  A third driver,
+"lm_generate", serves the language-model cells (`harness/lm.py`).
 """
 from __future__ import annotations
 

@@ -74,9 +74,11 @@ def worst(rows: list, missing: int = 0) -> dict:
 
 
 def verdict(nums: dict, limits: dict) -> tuple:
-    """(correct, {name: {"value", "limit"}}): correct when every number is
-    at most its limit (a number without a limit fails)."""
-    checks = {k: {"value": nums[k], "limit": limits.get(k)} for k in NAMES}
+    """(correct, {name: {"value", "limit"}}) of every number in `nums`:
+    correct when each is at most its limit (a number without a limit
+    fails)."""
+    checks = {k: {"value": v, "limit": limits.get(k)}
+              for k, v in nums.items()}
     ok = all(c["limit"] is not None and c["value"] <= c["limit"]
              for c in checks.values())
     return ok, checks

@@ -3,9 +3,10 @@
 `run_cell` is the whole run but the look for a chip and the printing
 (`run.py`), so the tests drive it on the CPU at small sizes.  On a cell
 of several chips every rank runs it; rank 0 returns the result, the
-others None.
+others None.  A mix whose driver is "lm_generate" runs as
+`harness/lm.py` sets out; the rest of this module is the MSC cells'.
 
-Order of a run: join the mesh (several chips); make the pool on the
+Order of an MSC run: join the mesh (several chips); make the pool on the
 device from the seed; build the system and warm up the shapes the
 traffic uses (one solve, or two requests through the engine: its two
 programs); the window, under the profiler with --trace 1; the memory
@@ -16,13 +17,13 @@ that was answered; the comparison.
 from __future__ import annotations
 
 import gc
-import sys
 import time
 import types
 
 from costs import msc as costs
 from harness import cell as cells
-from harness import drivers, generate, judge, systems, trace
+from harness import drivers, generate, judge, lm, systems, trace
+from harness.report import mark, measured, ranks_entry, result
 from reference import msc as reference
 
 ORDER_LEN = 200_000
@@ -48,14 +49,6 @@ def _fast(gammas):
     return [i for i, g in enumerate(gammas) if g == common][:WARM_REQUESTS]
 
 
-def mark(what: str, start_wall: float, rank: int) -> None:
-    """The set-up's progress on standard error: seconds since the
-    process started."""
-    if rank == 0:
-        print(f"setup {what} {time.time() - start_wall:.3f} s",
-              file=sys.stderr, flush=True)
-
-
 def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, *,
              device: str, start_wall: float, rank: int = 0, world: int = 1,
              store=None):
@@ -71,6 +64,8 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, *,
         torch.cuda.set_device(dev)
     cuda = dev.type == "cuda"
     tr, conf = cell.traffic, cell.config
+    if tr["driver"] == "lm_generate":
+        return lm.run_cell(cell, seed, seconds, traced, dev, start_wall)
     gammas = generate.gammas(tr, tr["pool"])
     pool = generate.planted_pool(seed, tr, conf["m"], conf["cluster_size"],
                                  dev)
@@ -127,19 +122,12 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool, *,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    result = _judge(cell, pool, window, stages, summary, setup_s, traced,
-                    dev, ranks, world)
-    return result
-
-
-def ranks_entry(peak, summary) -> dict:
-    return {"peak": peak, "busy_s": summary and summary["busy_s"]}
+    return _judge(cell, pool, window, stages, summary, setup_s, traced,
+                  dev, ranks, world)
 
 
 def _judge(cell, pool, window, stages, summary, setup_s, traced, dev,
            ranks, world) -> dict:
-    import torch
-
     settings = systems.solver_settings(cell)
     answered = window.answers + window.late
     refs = {idx: reference.solve(pool[idx], settings)
@@ -157,33 +145,12 @@ def _judge(cell, pool, window, stages, summary, setup_s, traced, dev,
         solves=[{"shape": (cell.config["m"],) * 3,
                  "sweeps": [a.sweeps for a in modes]}
                 for _, modes in window.answers])
-    if traced:
-        metrics = {}
-        for m in cell.metrics(trace=True):
-            value = cells.reader(m["name"], cell.root)(rec)
-            if value is not None:
-                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    else:
-        values = end_to_end(window, setup_s)
-        metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
-                   for m in cell.metrics(trace=False) if m["name"] in values}
+    metrics = measured(cell, rec, end_to_end(window, setup_s), traced)
+    if not traced:
         # a window that answered nothing has no time to report
         correct = correct and len(metrics) == len(cell.metrics(trace=False))
-    cuda = dev.type == "cuda"
-    device = {"platform": "gpu" if cuda else dev.type,
-              "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-              "count": world,
-              "memory_peak_bytes": max(r["peak"] for r in ranks)}
-    out = {"correct": bool(correct), "attempted": int(window.attempted),
-           "failed": int(failed), "metrics": metrics, "device": device}
-    if traced and summary is not None:
-        busy = [r["busy_s"] for r in ranks]
-        device["busy_s"] = sum(busy) / len(busy)
-        device["window_s"] = summary["window_s"]
-        out["breakdown"] = {"device_ops": trace.top(summary["device_ops"]),
-                            "idle_gaps": trace.top(summary["idle_gaps"])}
-    out["checks"] = checks
-    return out
+    return result(correct, window.attempted, failed, metrics, checks, dev,
+                  ranks, world, summary, traced)
 
 
 def end_to_end(window, setup_s: float) -> dict:

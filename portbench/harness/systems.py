@@ -1,12 +1,18 @@
 """The system under test: the port's entry points, as the benchmark calls
 them.
 
-Only this module imports the program (`repro_torch`), and only the
-entries a user calls: `core.build_msc_parallel` for a solve (across
-cards on the flat schedule's mesh from `launch.mesh`),
-`MSCContinuousEngine` for serving, and `core.schedule.build_mode_runner`
-for the eigensolve stage that `eigensolve_roofline` times.  Answers come
-back to the host as `reference.msc.ModeAnswer`s, one copy per solve.
+This module and the readers of the program's spans
+(`portbench/metrics/*.py`, which import `repro_torch.spans` after the
+window) are all of the benchmark that imports the program
+(`repro_torch`), and this module only the entries a user calls:
+`core.build_msc_parallel` for a solve (across cards on the flat
+schedule's mesh from `launch.mesh`), `MSCContinuousEngine` for serving,
+`core.schedule.build_mode_runner` for the eigensolve stage that
+`eigensolve_roofline` times, and for a language model
+`models.build_model` on the configuration's `ModelConfig`, its
+parameters built (`models.params.build`) from the weights the harness
+made, and `serving.ServeEngine`.  MSC answers come back to the host as
+`reference.msc.ModeAnswer`s, one copy per solve.
 """
 from __future__ import annotations
 
@@ -135,3 +141,58 @@ def mode_stages(cell, tensor, device) -> list:
                     "seconds": start.elapsed_time(end) / 1e3})
         del block
     return out
+
+
+def lm_config(cell, program=None):
+    """The port's ModelConfig of an LM configuration: its "port" fields
+    and "solver" settings, `program`'s fields over them."""
+    from repro_torch.models import ModelConfig
+
+    return ModelConfig(**{**cell.config["port"], **cell.config["solver"],
+                          **(program or {})})
+
+
+def lm_params(model, w: dict):
+    """The model's parameter modules on the harness's weights `w`, named
+    as `reference/lm.py:weight_specs` names them: a leaf of layer i of a
+    stacked block or of the tail is row i of "layers.<leaf path>".  The
+    port's RMSNorm multiplies by 1 + its `scale`, so a "scale" leaf is
+    given the published multiplier − 1.  Every shape, the layer count
+    too, must be the reference's."""
+    from repro_torch.models.params import build
+
+    defs = model.defs()
+    period, n_scan = ((len(defs["layers"].defs), defs["layers"].n)
+                      if "layers" in defs else (1, 0))
+    layers = n_scan * period + len(defs.get("tail", ()))
+    stacked = {len(t) for k, t in w.items() if k.startswith("layers.")}
+    if stacked != {layers}:
+        raise ValueError(f"the port has {layers} layers, the weights "
+                         f"{sorted(stacked)}")
+
+    def leaf(d, path):
+        if path[0] == "layers":
+            layer, rest = path[1] * period + int(path[2][1:]), path[3:]
+        elif path[0] == "tail":
+            layer, rest = n_scan * period + path[1], path[2:]
+        else:
+            layer, rest = None, path
+        name = ".".join(("layers",) * (layer is not None) + rest)
+        t = w[name] if layer is None else w[name][layer]
+        if tuple(t.shape) != tuple(d.shape):
+            raise ValueError(f"{name}: {tuple(t.shape)}, the port's "
+                             f"{tuple(d.shape)}")
+        return (t - 1.0 if rest[-1] == "scale" else t).to(d.dtype)
+
+    return build(defs, leaf)
+
+
+def lm_engine(cell, w: dict, batch: int, max_len: int, program=None):
+    """The port's greedy `ServeEngine` of the configuration on the
+    harness's weights, at (batch, max_len); `program`'s ModelConfig
+    fields over the configuration's."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    model = build_model(lm_config(cell, program))
+    return ServeEngine(model, lm_params(model, w), batch, max_len)

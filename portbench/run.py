@@ -91,7 +91,8 @@ def main(argv=None) -> int:
     import torch
 
     from harness import cell as cells
-    from harness.runner import mark, run_cell
+    from harness.report import mark
+    from harness.runner import run_cell
 
     mark("torch imported", start, args.rank)
     cell = cells.load(args.workload)

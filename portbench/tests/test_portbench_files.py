@@ -87,16 +87,9 @@ def test_metric_reader_loads(metric):
     assert moves and moves.group(1) == entry["moves"]
 
 
-def test_a_new_cell_is_new_files_only(tmp_path):
-    """A throwaway configuration, mix, limits and BENCHMARK.json entry in a
-    copy of the benchmark: the harness finds them by name, and every file
-    that was there before is byte for byte the same."""
-    dst = tmp_path / "portbench"
-    shutil.copytree(ROOT / "portbench", dst,
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    before = {p.relative_to(dst): p.read_bytes()
-              for p in dst.rglob("*") if p.is_file()}
-    bench = json.loads(json.dumps(BENCH))
+def _msc_cell(dst, bench):
+    """A throwaway MSC configuration, mix and limits: the solve cell's at
+    m = 20 over a pool of 2."""
     bench["configs"].append({"name": "msc-m20", "source": "test",
                              "file": "portbench/configs/msc-m20.json",
                              "reduced": [], "why": "throwaway"})
@@ -106,7 +99,6 @@ def test_a_new_cell_is_new_files_only(tmp_path):
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "msc-m1000.solve" in m.get("workloads", []):
             m["workloads"].append("msc-m20.pair")
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     conf = json.loads((dst / "configs" / "msc-m1000.json").read_text())
     conf.update(name="msc-m20", m=20, cluster_size=2)
     conf["solver"].update(epsilon=0.5 / 18 ** 2, max_extraction_iters=20)
@@ -115,16 +107,62 @@ def test_a_new_cell_is_new_files_only(tmp_path):
         {"driver": "solve", "pool": 2, "gamma": 20.0, "clients": 1}))
     (dst / "limits" / "msc-m20.pair.json").write_text(
         (dst / "limits" / "msc-m1000.solve.json").read_text())
-    cell = cells.load("msc-m20.pair", root=tmp_path)
+    # the per-layer metrics whose readers find something on a CPU run
+    return "msc-m20.pair", {"solve_roofline.solve", "sweeps_per_solve",
+                            "device_idle_share.solve",
+                            "host_reads_per_solve"}, {"setup_s", "solve_ms"}
+
+
+def _lm_cell(dst, bench):
+    """A throwaway LM configuration, mix and limits: a reduced
+    granite-moe (`small_lm.py`) generating in fp32, whose limits read 0
+    on its own tokens."""
+    from small_lm import TRAFFIC, small_config
+
+    cell = "granite-moe-tiny.short"
+    bench["configs"].append({"name": "granite-moe-tiny", "source": "test",
+                             "file": "portbench/configs/granite-moe-tiny.json",
+                             "reduced": [], "why": "throwaway"})
+    bench["workloads"].append({"name": cell, "config": "granite-moe-tiny",
+                               "traffic": "short", "chips": 1,
+                               "why": "throwaway"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "granite-moe-1b-a400m.offline" in m.get("workloads", []):
+            m["workloads"].append(cell)
+    conf = small_config(json.loads(
+        (dst / "configs" / "granite-moe-1b-a400m.json").read_text()))
+    conf["solver"]["compute_dtype"] = "float32"
+    (dst / "configs" / "granite-moe-tiny.json").write_text(json.dumps(conf))
+    tr = json.loads((dst / "traffic" / "offline.json").read_text())
+    (dst / "traffic" / "short.json").write_text(json.dumps(
+        dict(tr, **TRAFFIC)))
+    (dst / "limits" / f"{cell}.json").write_text(json.dumps(
+        {"missing": 0, "shape": 0, "token_gap_mean": 0.0}))
+    # the device-only shares read nothing off a card
+    return cell, {"prefill_share.lm"}, {"setup_s", "lm_tokens_per_s"}
+
+
+@pytest.mark.parametrize("kind", ["msc", "lm"])
+def test_a_new_cell_is_new_files_only(tmp_path, kind):
+    """A throwaway configuration, mix, limits and BENCHMARK.json entry in a
+    copy of the benchmark: the harness finds them by name, and every file
+    that was there before is byte for byte the same."""
+    dst = tmp_path / "portbench"
+    shutil.copytree(ROOT / "portbench", dst,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p.relative_to(dst): p.read_bytes()
+              for p in dst.rglob("*") if p.is_file()}
+    bench = json.loads(json.dumps(BENCH))
+    name, layer, e2e = {"msc": _msc_cell, "lm": _lm_cell}[kind](dst, bench)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = cells.load(name, root=tmp_path)
     for traced in (False, True):
         res = run_cell(cell, 3, 0.3, traced, device="cpu",
                        start_wall=time.time())
         assert res["correct"], res["checks"]
-    assert set(res["metrics"]) == {"solve_roofline.solve",
-                                   "sweeps_per_solve",
-                                   "device_idle_share.solve"}
+    assert set(res["metrics"]) == layer
     res = run_cell(cell, 3, 0.3, False, device="cpu", start_wall=time.time())
-    assert set(res["metrics"]) == {"setup_s", "solve_ms"}
+    assert set(res["metrics"]) == e2e
     assert all(math.isfinite(v["value"]) for v in res["metrics"].values())
     after = {p.relative_to(dst): p.read_bytes()
              for p in dst.rglob("*") if p.is_file()
