@@ -45,6 +45,7 @@ class ModelConfig:
     attn_softcap: Optional[float] = None     # gemma2
     final_softcap: Optional[float] = None    # gemma2
     local_window: Optional[int] = None       # sliding-window size
+    use_rope: bool = True    # False: NoPE attention (granite-4.0-h)
     global_every: int = 0    # 0 = all-global; k = every k-th layer global,
                              # others local (gemma2: 2 → alternate)
 
@@ -78,6 +79,13 @@ class ModelConfig:
     # vlm (internvl): visual prefix token count (stub patch embeddings)
     n_patches: int = 0
 
+    # GraniteMoe / GraniteMoeHybrid multipliers; the defaults are the
+    # identity and add no launch
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0        # score scale; 0 → head_dim^-0.5
+    residual_multiplier: float = 1.0         # each block's branch times it
+    logits_scaling: float = 1.0              # logits divided by it
+
     norm_eps: float = 1e-6
     act: str = "silu"                        # mlp activation
     tie_embeddings: bool = False
@@ -87,6 +95,9 @@ class ModelConfig:
     attn_impl: str = "chunked"               # full | chunked | pallas
                                              # (pallas: the CUDA kernel)
     attn_chunk: int = 1024                   # kv-chunk for chunked attention
+    prefill_tokens: int = 0                  # ServeEngine: 0 = one prefill
+                                             # of the batch; n = row slices
+                                             # of at most n tokens
     loss_chunk: int = 512                    # seq-chunk for the xent loss
     microbatches: int = 0                    # grad-accum override (0 = auto
                                              # from the activation budget)
@@ -95,6 +106,8 @@ class ModelConfig:
     zero_shard: bool = True                  # FSDP params over "data"
 
     def __post_init__(self):
+        # a pattern read from JSON arrives as a list
+        object.__setattr__(self, "block_pattern", tuple(self.block_pattern))
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 

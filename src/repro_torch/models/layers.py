@@ -256,6 +256,8 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
     """GQA attention.  x: (B, S, D) → (out (B, S, D), new kv_cache).
 
     kind: 'attn'/'global' = full causal; 'local' = sliding window.
+    Scores scale by cfg.attention_multiplier (head_dim^-0.5 at its
+    default 0); with cfg.use_rope False q and k are not rotated (NoPE).
     kv_cache: optional (k, v) buffers (B, T, K, dh) — decode path: new kv
       written at positions [cache_len, cache_len+S), in place (the
       counterpart of the reference's donated buffers).  cache_len is a
@@ -305,8 +307,9 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
 
     if not is_cross:
         qpos_vec = pos_offset + torch.arange(s, device=dev)
-        q = rope(q, qpos_vec, cfg.rope_theta)
-        k = rope(k, qpos_vec, cfg.rope_theta)
+        if cfg.use_rope:
+            q = rope(q, qpos_vec, cfg.rope_theta)
+            k = rope(k, qpos_vec, cfg.rope_theta)
 
     kpos_vec = None
     if is_cross:
@@ -366,7 +369,7 @@ def attention(p, x, cfg: ModelConfig, *, kind: str = "attn",
         cache_store(cv_local, cv)
     k, v = _kv_for_heads(k, v, h_loc, h0, cfg)
     qg = _grouped(q, k.shape[2])
-    scale = dh ** -0.5
+    scale = cfg.attention_multiplier or dh ** -0.5
     window = cfg.local_window if kind == "local" else None
     softcap = cfg.attn_softcap
     causal = causal and not is_cross

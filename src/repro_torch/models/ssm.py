@@ -3,10 +3,13 @@ of `repro/models/ssm.py`.
 
 No-cache path (`ssd_train`): the chunked SSD algorithm, an intra-chunk
 quadratic attention-like term and an inter-chunk state recurrence; O(S·Q)
-time with chunk Q, constant state.  Cache path (`ssd_decode`): the O(1)
-per-token recurrence over a (H, P, N) state, one step per new token; as
-in the reference, the prefill takes it too (it passes a cache).  The
-decode path writes its states into the cache's own tensors, so a captured
+time with chunk Q, constant state.  Cache paths: the prefill
+(`ssd_prefill`) runs the same chunked algorithm from the cache's states
+and leaves in the cache the states after the prompt's last token; a
+decode step (`ssd_decode`) runs the O(1) per-token recurrence over a
+(H, P, N) state.  A prompt that is not a whole number of chunks ends in
+one shorter chunk of its own length, never in padding.  Both cache
+paths write their states into the cache's own tensors, so a captured
 decode step replays over fixed buffers.
 
 Shapes: d_inner = H·P (H = ssm_heads, P = ssm_head_dim), N = ssm_state,
@@ -28,6 +31,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.roofline.trace import scan_steps
 from repro_torch.sharding.activation import (current, model_part,
                                              on_model, psum_model, to_model,
@@ -118,23 +122,27 @@ def _dt_and_a(p, dt_raw):
     return dt, -torch.exp(use_whole(p["a_log"], 0).float())
 
 
-def ssd_train(p, x, cfg: ModelConfig):
-    """Chunked SSD forward.  x: (B,S,D) → (B,S,D)."""
-    b, s0, d = x.shape
-    h, n, pd = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    q = min(cfg.ssm_chunk, s0)
-    s = -(-s0 // q) * q
-    if s != s0:  # causal: zero-pad the tail, slice it off at the end
-        x = F.pad(x, (0, 0, 0, s - s0))
-    nc = s // q
-    d_inner, _ = _dims(cfg)
+def _carry_chunks(states, chunk_decay, carry):
+    """The inter-chunk recurrence from `carry` (b,h,p,n): (the state
+    before each chunk (b,nc,h,p,n), the state after the last)."""
+    prev = []
+    for c in range(states.shape[1]):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    return torch.stack(prev, dim=1), carry
 
-    z, xbc, dt_raw = _split(p, x, cfg)
-    xs, bmat, cmat, _ = _conv_split(p, xbc, cfg)
-    xs = xs.reshape(b, nc, q, h, pd).float()
-    bm = bmat.reshape(b, nc, q, n).float()
-    cm = cmat.reshape(b, nc, q, n).float()
-    dt, a = _dt_and_a(p, dt_raw)
+
+def _ssd_chunks(xs, bm, cm, dt, a, d_skip, q: int, init=None):
+    """The chunked SSD over s = nc·q positions, all fp32: xs (b,s,h,p),
+    bm and cm (b,s,n), dt (b,s,h), a and d_skip (h,); init (b,h,p,n) the
+    state before the first position (zero when None).  Returns (y
+    (b,s,h,p), the skip term included; the state after the last
+    position)."""
+    b, s, h, pd = xs.shape
+    n, nc = bm.shape[-1], s // q
+    xs = xs.reshape(b, nc, q, h, pd)
+    bm = bm.reshape(b, nc, q, n)
+    cm = cm.reshape(b, nc, q, n)
     dt = dt.reshape(b, nc, q, h)
     da = dt * a                                       # (b,nc,q,h)
     cum = torch.cumsum(da, dim=2)                     # within-chunk cumsum
@@ -142,11 +150,11 @@ def ssd_train(p, x, cfg: ModelConfig):
     # intra-chunk (the "attention-like" quadratic term):
     # L[i,j] = exp(cum_i − cum_j) for i ≥ j
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (b,nc,i,j,h)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xs.device))
     # mask in log space BEFORE exp: the i<j half has seg>0 and would
     # overflow
     seg = torch.where(tri[None, None, :, :, None], seg,
-                      torch.full((), -torch.inf, device=x.device))
+                      torch.full((), -torch.inf, device=xs.device))
     l_mat = torch.exp(seg)
     cb = torch.einsum("bcin,bcjn->bcij", cm, bm)              # (b,nc,i,j)
     # the scalar factors folded into one (b,nc,i,j,h) gate before xs, as
@@ -159,18 +167,71 @@ def ssd_train(p, x, cfg: ModelConfig):
     states = torch.einsum("bcqh,bcqn,bcqhp->bchpn",
                           decay_out * dt, bm, xs)             # (b,nc,h,p,n)
     chunk_decay = torch.exp(cum[:, :, -1, :])                 # (b,nc,h)
-    carry = torch.zeros((b, h, pd, n), dtype=torch.float32, device=x.device)
-    prev = []
-    for c in range(nc):  # the state *before* each chunk
-        prev.append(carry)
-        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev = torch.stack(prev, dim=1)                           # (b,nc,h,p,n)
+    carry = (torch.zeros((b, h, pd, n), dtype=torch.float32,
+                         device=xs.device) if init is None else init)
+    prev, carry = _carry_chunks(states, chunk_decay, carry)
 
     y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cm, prev, torch.exp(cum))
-    y = y_diag + y_off + use_whole(p["d_skip"], 0).float()[
-        None, None, None, :, None] * xs
-    y = y.reshape(b, s, d_inner)[:, :s0]
-    return _post(p, y, z[:, :s0], cfg)
+    y = y_diag + y_off + d_skip[None, None, None, :, None] * xs
+    return y.reshape(b, s, h, pd), carry
+
+
+def _ssd(xs, bm, cm, dt, a, d_skip, q: int, init=None):
+    """`_ssd_chunks` over any s positions: the whole chunks of q, then
+    the rest as one chunk of its own length."""
+    s = xs.shape[1]
+    cut = s - s % q
+    ys, st = [], init
+    for t0, t1 in ((0, cut), (cut, s)):
+        if t1 > t0:
+            y, st = _ssd_chunks(xs[:, t0:t1], bm[:, t0:t1], cm[:, t0:t1],
+                                dt[:, t0:t1], a, d_skip, min(q, t1 - t0),
+                                st)
+            ys.append(y)
+    return torch.cat(ys, dim=1) if len(ys) > 1 else ys[0], st
+
+
+def ssd_train(p, x, cfg: ModelConfig):
+    """Chunked SSD forward.  x: (B,S,D) → (B,S,D)."""
+    b, s, _ = x.shape
+    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    d_inner, _ = _dims(cfg)
+
+    z, xbc, dt_raw = _split(p, x, cfg)
+    xs, bmat, cmat, _ = _conv_split(p, xbc, cfg)
+    dt, a = _dt_and_a(p, dt_raw)
+    y, _ = _ssd(xs.reshape(b, s, h, pd).float(), bmat.float(), cmat.float(),
+                dt, a, use_whole(p["d_skip"], 0).float(), cfg.ssm_chunk)
+    return _post(p, y.reshape(b, s, d_inner), z, cfg)
+
+
+def ssd_prefill(p, x, cache: Tuple, cfg: ModelConfig):
+    """The chunked SSD over a prompt of S tokens from the cache's states:
+    the y of `ssd_decode` over the same tokens, and the cache's states
+    overwritten in place with those after the prompt's last token (the
+    conv's new tail holds the last W−1 positions, or the old tail's last
+    ones before a prompt shorter than it).  The scan runs in an `lm.ssd`
+    span.  cache, returns: as `ssd_decode`'s.
+    """
+    b, s, _ = x.shape
+    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    d_inner, _ = _dims(cfg)
+    conv_local, ssm_local = cache
+    conv_state, ssm_state = cache_view(conv_local, ()), \
+        cache_view(ssm_local, ())
+
+    z, xbc, dt_raw = _split(p, x, cfg)
+    xs, bm, cm, tail = _conv_split(p, xbc, cfg, conv_state)
+    with spans.span("lm.ssd", rows=b, length=s):
+        dt, a = _dt_and_a(p, dt_raw)
+        y, st = _ssd(xs.reshape(b, s, h, pd).float(), bm.float(), cm.float(),
+                     dt, a, use_whole(p["d_skip"], 0).float(), cfg.ssm_chunk,
+                     ssm_state.float())
+        conv_state.copy_(tail)
+        ssm_state.copy_(st)
+    cache_store(conv_local, conv_state, ())
+    cache_store(ssm_local, ssm_state, ())
+    return _post(p, y.reshape(b, s, d_inner), z, cfg), cache
 
 
 def ssm_cache_shape(cfg: ModelConfig, batch: int):
@@ -183,8 +244,8 @@ def ssm_cache_shape(cfg: ModelConfig, batch: int):
 
 
 def ssd_decode(p, x, cache: Tuple, cfg: ModelConfig):
-    """The recurrence over S new tokens (S = 1 in steady decode; the
-    prompt's length in a prefill).
+    """The recurrence over S new tokens, one at a time (S = 1 in a
+    decode step).
 
     cache: (conv_state (B,W−1,conv_dim), ssm_state (B,H,P,N)), both
     overwritten in place with the states after the last token.  Returns

@@ -44,6 +44,7 @@ backward (nor has the reference's Pallas kernel), so `loss_fn` with
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
@@ -52,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.sharding.activation import (constrain, current, hold,
                                              on_model, use, vocab_logsumexp)
 
@@ -65,7 +67,10 @@ from . import ssm as S
 # ------------------------------------------------------------- defs ----
 def _block_defs(cfg: ModelConfig, kind: str, cross: bool = False):
     if kind == "ssm":
-        return {"ln1": L.rmsnorm_defs(cfg.d_model), "ssm": S.ssm_defs(cfg)}
+        d = {"ln1": L.rmsnorm_defs(cfg.d_model), "ssm": S.ssm_defs(cfg)}
+        if cfg.n_experts:  # granite-4.0-h: the mixer, then the MoE
+            d |= {"ln2": L.rmsnorm_defs(cfg.d_model), "moe": L.moe_defs(cfg)}
+        return d
     if kind == "rglru":
         return {"ln1": L.rmsnorm_defs(cfg.d_model), "rnn": R.rglru_defs(cfg),
                 "ln2": L.rmsnorm_defs(cfg.d_model), "mlp": L.mlp_defs(cfg)}
@@ -209,28 +214,52 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 
 
 # ----------------------------------------------------------- blocks ----
+def _residual(x, y, cfg: ModelConfig):
+    """x + y · residual_multiplier (x + y at the default 1: no launch)."""
+    r = cfg.residual_multiplier
+    return x + y if r == 1.0 else x + y * r
+
+
+def _moe(p, h, cfg: ModelConfig, prefill: bool):
+    """The MoE (and its shared MLP) of a block; an `lm.moe` span in a
+    prefill."""
+    with spans.span("lm.moe") if prefill else contextlib.nullcontext():
+        return L.moe(p["moe"], h, cfg)
+
+
 def _apply_block(p, x, cfg: ModelConfig, kind: str, *, cache=None,
-                 cache_len=None, enc_out=None, pos_offset=0, causal=True):
+                 cache_len=None, enc_out=None, pos_offset=0, causal=True,
+                 prefill=False):
     """One residual block.  Returns (x, new_cache, aux), aux 0.0 but for
-    an MoE block (a 0-d tensor): a block without MoE adds no launch."""
+    an MoE block (a 0-d tensor): a block without MoE adds no launch.
+    `prefill`: the block runs in `Model.prefill` (the chunked SSD into
+    the cache; the `lm.moe` span)."""
     aux = 0.0
     new_cache = dict(cache) if cache is not None else None
     if kind == "ssm":
         h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
         if cache is None:
             y = S.ssd_train(p["ssm"], h, cfg)
+        elif prefill:
+            y, new_cache["ssm"] = S.ssd_prefill(p["ssm"], h, cache["ssm"],
+                                                cfg)
         else:
             y, new_cache["ssm"] = S.ssd_decode(p["ssm"], h, cache["ssm"], cfg)
-        return x + y, new_cache, aux
+        x = _residual(x, y, cfg)
+        if "moe" not in p:
+            return x, new_cache, aux
+        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        y, aux = _moe(p, h, cfg, prefill)
+        return _residual(x, y, cfg), new_cache, aux
     if kind == "rglru":
         h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
         y, rc = R.rglru_block(p["rnn"], h, cfg,
                               cache["rnn"] if cache is not None else None)
         if cache is not None:
             new_cache["rnn"] = rc
-        x = x + y
+        x = _residual(x, y, cfg)
         h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + L.mlp(p["mlp"], h, cfg), new_cache, aux
+        return _residual(x, L.mlp(p["mlp"], h, cfg), cfg), new_cache, aux
 
     h = constrain(L.rmsnorm(p["ln1"], x, cfg.norm_eps), ("batch", None, None))
     y, kvc = L.attention(
@@ -239,7 +268,7 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, cache=None,
         cache_len=cache_len, causal=causal)
     if cache is not None:
         new_cache["attn"] = kvc
-    x = x + y
+    x = _residual(x, y, cfg)
     if "xattn" in p:
         h = L.rmsnorm(p["lnx"], x, cfg.norm_eps)
         if enc_out is not None:
@@ -252,17 +281,17 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, cache=None,
             # decode: attend read-only over the cached encoder projections
             y, _ = L.attention(p["xattn"], h, cfg,
                                static_kv=cache["xattn"], causal=False)
-        x = x + y
+        x = _residual(x, y, cfg)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if "moe" in p:
-        y, aux = L.moe(p["moe"], h, cfg)
+        y, aux = _moe(p, h, cfg, prefill)
     else:
         y = L.mlp(p["mlp"], h, cfg)
-    return x + y, new_cache, aux
+    return _residual(x, y, cfg), new_cache, aux
 
 
 def _superblock(p_sb, x, cfg, kinds_period, *, cache=None, cache_len=None,
-                enc_out=None, pos_offset=0):
+                enc_out=None, pos_offset=0, prefill=False):
     aux = 0.0
     new_cache = {} if cache is not None else None
     for j, kind in enumerate(kinds_period):
@@ -270,7 +299,7 @@ def _superblock(p_sb, x, cfg, kinds_period, *, cache=None, cache_len=None,
         c = cache[key] if cache is not None else None
         x, nc, a = _apply_block(p_sb[key], x, cfg, kind, cache=c,
                                 cache_len=cache_len, enc_out=enc_out,
-                                pos_offset=pos_offset)
+                                pos_offset=pos_offset, prefill=prefill)
         if cache is not None:
             new_cache[key] = nc
         aux = aux + a
@@ -279,7 +308,7 @@ def _superblock(p_sb, x, cfg, kinds_period, *, cache=None, cache_len=None,
 
 # ---------------------------------------------------------- forward ----
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
-            enc_frames=None, cache=None, cache_len=None):
+            enc_frames=None, cache=None, cache_len=None, prefill=False):
     """Token ids → final hidden states.
 
     tokens: (B, S) int.  prefix_embed: (B, P, D) VLM patch stub —
@@ -287,14 +316,17 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
     (B, T_enc, D) audio frame stub (whisper) — runs the encoder and
     cross-attends.  cache/cache_len: the serving path (cache_len a
     Python int, or a 0-d int tensor on the device for a step that reads
-    nothing back to the host).  Returns (hidden (B,S,D), new_cache,
-    aux_loss), aux_loss the sum of the MoE layers' load-balance losses
-    (a 0-d fp32 zero without MoE).
+    nothing back to the host).  prefill: the call is `Model.prefill`'s.
+    Returns (hidden (B,S,D), new_cache, aux_loss), aux_loss the sum of
+    the MoE layers' load-balance losses (a 0-d fp32 zero without MoE).
     """
     kinds, n_scan, n_rest = _pattern(cfg)
     period = _period(cfg)
     cd = cfg.cdtype
-    x = _embed(params["embed"], tokens).to(cd)
+    x = _embed(params["embed"], tokens)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    x = x.to(cd)
     x = constrain(x, ("batch", None, None))
     if prefix_embed is not None:
         pfx = prefix_embed.to(cd)
@@ -320,7 +352,7 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
         run = functools.partial(_superblock, params["layers"][i], cfg=cfg,
                                 kinds_period=kinds_period, cache=c_sb,
                                 cache_len=cache_len, enc_out=enc_out,
-                                pos_offset=pos_offset)
+                                pos_offset=pos_offset, prefill=prefill)
         x, nc, a = (checkpoint(run, x, use_reentrant=False) if remat
                     else run(x))
         x = constrain(x, ("batch", None, None))
@@ -333,7 +365,7 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embed=None,
         c = cache["tail"][j] if cache is not None else None
         x, nc, a = _apply_block(params["tail"][j], x, cfg, kind, cache=c,
                                 cache_len=cache_len, enc_out=enc_out,
-                                pos_offset=pos_offset)
+                                pos_offset=pos_offset, prefill=prefill)
         aux_total = aux_total + a
         new_tail.append(nc)
 
@@ -410,7 +442,7 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig,
         m_c = None if mask is None else mask[:, c0:c0 + chunk].float()
         nll = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk], w,
                          labels[:, c0:c0 + chunk], cfg.final_softcap, cut,
-                         use_reentrant=False)
+                         cfg.logits_scaling, use_reentrant=False)
         if m_c is None:
             tot = tot + nll.sum()
             cnt = cnt + nll.numel()
@@ -423,10 +455,13 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _chunk_nll(h_c, w, l_c, softcap, cut=False):
-    """Per-token NLL (B, chunk) of one seq chunk, fp32; with `cut` the
-    head's vocab is this model rank's block of it."""
+def _chunk_nll(h_c, w, l_c, softcap, cut=False, scaling=1.0):
+    """Per-token NLL (B, chunk) of one seq chunk, fp32, the logits
+    divided by `scaling`; with `cut` the head's vocab is this model
+    rank's block of it."""
     logits = (h_c @ w).float()
+    if scaling != 1.0:
+        logits = logits / scaling
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     if not cut:
@@ -448,6 +483,8 @@ def logits_last(params, hidden, cfg: ModelConfig):
     the vocab on every rank of a mesh)."""
     w, cut = _head_weight(params, cfg)
     logits = (hidden[:, -1] @ w.to(cfg.cdtype)).float()
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if cut:
@@ -493,15 +530,18 @@ class Model:
 
     # ---- serving ----
     @torch.no_grad()
-    def prefill(self, params, batch, max_len: int):
-        """Prompt → (next-token logits, warmed cache)."""
+    def prefill(self, params, batch, max_len: int, cache=None):
+        """Prompt → (next-token logits, warmed cache).  `cache`: a zero
+        cache for the batch's rows (views of a larger one's rows too),
+        filled in place; a new one when None."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+        if cache is None:
+            cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
         hidden, cache, _ = forward(
             params, tokens, cfg, cache=cache, cache_len=0,
             prefix_embed=batch.get("patches"),
-            enc_frames=batch.get("frames"))
+            enc_frames=batch.get("frames"), prefill=True)
         return logits_last(params, hidden, cfg), cache
 
     @torch.no_grad()

@@ -16,7 +16,18 @@ and a (batch, max_len) output, and on a card captures one step (the
 model's decode step, the argmax, the token written at its device
 position, both positions advanced) as a CUDA graph, replayed once per
 token and kept for later `generate` calls.  On the CPU the same step
-runs eagerly.  The prefill runs eagerly.
+runs eagerly.  The prefill runs eagerly: one forward over the batch,
+or, with `cfg.prefill_tokens` = n on one device, one forward a row
+slice of at most n tokens (at least one row), each written into its
+rows of the engine's cache, zeroed first.  Rows are independent where
+the MoE drops no token (capacity = group size), so the slices give the
+whole batch's prefill at a bounded peak; a model whose routing could
+drop a token, in the whole batch or a slice, is refused.
+
+Spans (`repro_torch.spans`, while a profiler records): `lm.prefill`
+(rows, length) over a call's prefill, `lm.prefill_slice` (rows, start)
+over each slice, `lm.decode` (steps) over its decode steps; counters
+`lm.prefill_slices` and `lm.decode_steps`.
 
 On a mesh (`ServeEngine(..., mesh=…)`, the reference's (data, model) or
 (pod, data, model) meshes of `launch/mesh.py`) every rank holds only the
@@ -45,7 +56,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.models import Model, cache_shapes, map_cache
+from repro_torch import spans
+from repro_torch.models import Model, cache_shapes, init_cache, map_cache
+from repro_torch.models.layers import moe_groups
 from repro_torch.models.params import build
 from repro_torch.serving.graphs import Step, warm_up
 from repro_torch.sharding.activation import (LMShards, activation_sharding,
@@ -74,6 +87,13 @@ class _Clock:
     def ms(self, i: int, j: int) -> float:
         a, b = self.marks[i], self.marks[j]
         return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+
+
+def _drops(cfg, n: int) -> bool:
+    """Whether the MoE's routing of n tokens could drop one: its capacity
+    is below its group size (`layers.moe_groups`)."""
+    _, gs, cap = moe_groups(n, cfg)
+    return cap < gs
 
 
 def _leaves(tree):
@@ -305,18 +325,58 @@ class ServeEngine:
         self._pos += 1
         self._at += 1
 
+    def _buffers(self, cache, tok: torch.Tensor, s: int) -> None:
+        """The step's buffers: `cache` and `tok` become its cache and
+        token, the position is s."""
+        self._cache, self._tok = cache, tok
+        self._pos = torch.tensor(s, dtype=torch.int64, device=self.device)
+        self._at = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._out = torch.zeros((tok.shape[0], self.max_len),
+                                dtype=torch.int32, device=self.device)
+
     def _load(self, cache, tok: torch.Tensor, s: int) -> None:
         """The prefill's cache and first token into the step's buffers."""
         if self._cache is None:  # the first prefill's buffers become them
-            self._cache, self._tok = cache, tok
-            self._pos = torch.tensor(s, dtype=torch.int64, device=self.device)
-            self._at = torch.zeros((), dtype=torch.int64, device=self.device)
-            self._out = torch.zeros((tok.shape[0], self.max_len),
-                                    dtype=torch.int32, device=self.device)
+            self._buffers(cache, tok, s)
             return
         for dst, src in zip(_leaves(self._cache), _leaves(cache)):
             dst.copy_(src)
         self._tok.copy_(tok)
+        self._pos.fill_(s)
+        self._at.zero_()
+
+    def _prefill_slices(self, batch: Dict[str, Any], s: int) -> None:
+        """The prefill in row slices of at most `cfg.prefill_tokens`
+        tokens, each written into its rows of the step's cache (zeroed
+        first) and its first tokens into the step's token."""
+        cfg = self.model.cfg
+        if self.shards is not None:
+            raise ValueError("a prefill in slices (prefill_tokens) runs on "
+                             "one device")
+        b = batch["tokens"].shape[0]
+        rows = max(1, cfg.prefill_tokens // s)
+        sizes = {b, rows, b % rows} - {0}
+        if cfg.n_experts and any(_drops(cfg, r * s) for r in sizes):
+            raise ValueError("a prefill in slices (prefill_tokens) needs "
+                             "routing that drops no token (capacity = "
+                             "group size): a slice routes in other groups")
+        if self._cache is None:
+            self._buffers(init_cache(self.model.cfg, b, self.max_len,
+                                     self.device),
+                          torch.zeros((b, 1), dtype=torch.int32,
+                                      device=self.device), s)
+        for r0 in range(0, b, rows):
+            part = {k: v[r0:r0 + rows] for k, v in batch.items()}
+            with spans.span("lm.prefill_slice", rows=len(part["tokens"]),
+                            start=r0):
+                cache = map_cache(self._cache,
+                                  lambda t: t[r0:r0 + rows].zero_())
+                logits, _ = self._prefill_fn(self.params, part,
+                                             max_len=self.max_len,
+                                             cache=cache)
+                self._tok[r0:r0 + rows].copy_(
+                    torch.argmax(logits, dim=-1)[:, None])
+            spans.count("lm.prefill_slices")
         self._pos.fill_(s)
         self._at.zero_()
 
@@ -338,21 +398,27 @@ class ServeEngine:
         s = batch["tokens"].shape[1]
         clock = _Clock(self.device)
         clock.mark()
-        logits, cache = self._prefill_fn(self.params, batch,
-                                          max_len=self.max_len)
-        self._load(cache, torch.argmax(logits, dim=-1)[:, None].to(
-            torch.int32), s)
+        with spans.span("lm.prefill", rows=b, length=s):
+            if self.model.cfg.prefill_tokens:
+                self._prefill_slices(batch, s)
+            else:
+                logits, cache = self._prefill_fn(self.params, batch,
+                                                  max_len=self.max_len)
+                self._load(cache, torch.argmax(logits, dim=-1)[:, None].to(
+                    torch.int32), s)
         clock.mark()
         left = n_tokens
-        if self._decode is None and left:
-            if self.device.type == "cuda":
-                # the first step, eagerly: a capture wants its kernels
-                # loaded and its library handles made
-                warm_up([self._step], self.device)
-                left -= 1
-            self._decode = Step(self._step, self.device)
-        for _ in range(left):
-            self._decode()
+        with spans.span("lm.decode", steps=n_tokens):
+            if self._decode is None and left:
+                if self.device.type == "cuda":
+                    # the first step, eagerly: a capture wants its kernels
+                    # loaded and its library handles made
+                    warm_up([self._step], self.device)
+                    left -= 1
+                self._decode = Step(self._step, self.device)
+            for _ in range(left):
+                self._decode()
+        spans.count("lm.decode_steps", n_tokens)
         clock.mark()
         out = self._out[:, :n_tokens].clone()
         if self.shards is not None and self.shards.batch_entry is not None:

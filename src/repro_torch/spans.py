@@ -48,10 +48,21 @@ The spans (PERF.md lists the metric each feeds):
   serve.chunk     the chunk-step program and its per-tick read, attr live
   serve.request   (keyed) a request from submit to the tick that returns it
   serve.queued    (keyed) a request from submit to its admission
+  lm.prefill      `ServeEngine.generate`'s prefill, attrs rows, length
+  lm.prefill_slice  one row slice of it (`cfg.prefill_tokens`), attrs
+                  rows, start
+  lm.ssd          one Mamba layer's chunked SSD scan inside a prefill
+                  (`models/ssm.py:ssd_prefill`), attrs rows, length
+  lm.moe          one MoE layer inside a prefill (`models/transformer.py`)
+  lm.decode       a call's decode steps (graph replays on a card), attr
+                  steps
 
-The counters: `msc.gate_reads` (the gated loop's host reads) and
+The counters: `msc.gate_reads` (the gated loop's host reads),
 `kernels.power_resident` (power kernel launches on its resident route,
-eager or under capture, `kernels/power_iter.py`).
+eager or under capture, `kernels/power_iter.py`), `lm.prefill_slices`
+(the engine's prefill slices) and `lm.decode_steps` (its decode steps).
+No LM span opens inside a decode step's capture: the model's spans are
+the prefill's.
 """
 from __future__ import annotations
 

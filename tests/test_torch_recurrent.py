@@ -3,7 +3,7 @@
 
 The blocks, in fp32 on the same weights and input, within 1e-5 of the
 largest |output|: `ssd_train` (the chunked SSD, several chunks and a
-padded tail) and `rglru_block` without a cache (the port's log-depth
+shorter last one) and `rglru_block` without a cache (the port's log-depth
 scan against `jax.lax.associative_scan`); `ssd_decode` and `rglru_block`
 with a cache (the step loops) over a 5-token prefill from a zero cache,
 then one decode step; after each, every cache leaf is fp32, as the
